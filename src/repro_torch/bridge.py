@@ -1,0 +1,48 @@
+"""JAX param trees (as numpy) <-> torch param dicts.
+
+The port keeps the JAX package's layout (same keys, ``layers`` leaves
+stacked with a leading ``n_layers`` dim, ``x @ W`` orientation), so a
+conversion is a copy of each leaf.  bfloat16 has no numpy dtype of its own
+outside ``ml_dtypes``, so it crosses as a ``uint16`` view of the same bits:
+a round trip is bit-exact for float32 and bfloat16 alike.
+"""
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.common.pytree import tree_map
+
+PyTree = Any
+
+
+def _leaf_to_torch(x, device) -> torch.Tensor:
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
+        t = t.view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a, copy=True))
+    return t.to(device)
+
+
+def _leaf_to_numpy(t: torch.Tensor, bf16_dtype) -> np.ndarray:
+    t = t.detach().to("cpu").contiguous()
+    if t.dtype == torch.bfloat16:
+        bits = t.view(torch.int16).numpy().view(np.uint16)
+        return bits.view(bf16_dtype) if bf16_dtype is not None else bits
+    return t.numpy()
+
+
+def to_torch(tree: PyTree, device="cpu") -> PyTree:
+    """Nested dicts of array-likes (numpy or JAX arrays) -> torch tensors."""
+    return tree_map(lambda x: _leaf_to_torch(x, device), tree)
+
+
+def to_numpy(tree: PyTree, bf16_dtype: Optional[Any] = None) -> PyTree:
+    """Torch tensors -> numpy arrays.  bfloat16 leaves come back as their
+    ``uint16`` bits, or as ``bf16_dtype`` (a numpy bfloat16 type such as
+    ``jnp.bfloat16``) when the caller has one."""
+    return tree_map(lambda t: _leaf_to_numpy(t, bf16_dtype), tree)

@@ -1,0 +1,267 @@
+"""Serving engines: prefill + batched decode over KV caches (dense family).
+
+Port of ``repro.serve.engine``:
+
+- :class:`ServeEngine` — fixed decode batch over a contiguous cache; the
+  simple baseline and the token-for-token oracle of the continuous engine.
+- :class:`ContinuousServeEngine` — slot-level continuous batching over the
+  paged cache (``serve.kv_cache``) driven by ``serve.scheduler``: per-slot
+  admission with full-budget reservation, per-request max_new/EOS stop,
+  and mid-decode refill.
+
+Both run on ``device="cuda"`` unless told otherwise, and raise if no card
+is present; ``device="cpu"`` serves through the kernels' plain versions.
+Params are cast once to the compute dtype and moved to the device at
+construction.  One deliberate difference from JAX: a request that could
+never be admitted (its budget is wider than a slot's table or the whole
+pool) raises ``ValueError`` instead of looping forever.  Distributed
+serving (``mesh=``) is not ported yet.
+"""
+from __future__ import annotations
+
+import time
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.common.pytree import tree_map
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import get_family
+from repro_torch.serve.kv_cache import PagedKVCache
+from repro_torch.serve.scheduler import Scheduler, ServeRequest
+
+PyTree = Any
+
+
+def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
+    """Argmax over the last dim; ties go to the first index, as
+    ``jnp.argmax`` does."""
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def resolve_device(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "to serve on the CPU")
+    return dev
+
+
+def _extract_params(state_or_params):
+    """Accept a TrainState-like object (``.params``), a ``{"params": ...}``
+    dict, or bare params."""
+    params = getattr(state_or_params, "params", state_or_params)
+    if isinstance(params, dict) and "params" in params \
+            and isinstance(params["params"], dict):
+        params = params["params"]
+    return params
+
+
+def _place(params: PyTree, device: torch.device, dtype) -> PyTree:
+    """Params on ``device``, floating leaves cast to ``dtype`` — once, here.
+    Leaves already in place are shared with the caller, not copied."""
+    return tree_map(lambda t: t.to(device=device, dtype=dtype)
+                    if t.is_floating_point() else t.to(device), params)
+
+
+class ServeEngine:
+    def __init__(self, cfg: ArchConfig, params: PyTree, max_len: int = 512,
+                 batch: int = 4, compute_dtype=torch.float32,
+                 sample_fn: Callable = greedy_sample, device="cuda"):
+        self.cfg = cfg
+        self.model = get_family(cfg)
+        self.device = resolve_device(device)
+        self.params = _place(params, self.device, compute_dtype)
+        self.max_len = max_len
+        self.batch = batch
+        self.compute_dtype = compute_dtype
+        self.sample_fn = sample_fn
+
+    @classmethod
+    def from_train_state(cls, cfg: ArchConfig, state, **kw):
+        """One-call train→serve handoff: pull params out of a TrainState
+        (anything with ``.params``), a ``{"params": ...}`` dict or bare
+        params, and stand up an engine."""
+        return cls(cfg, _extract_params(state), **kw)
+
+    def generate(self, prompts, max_new_tokens: int = 16) -> list[list[int]]:
+        """Batched greedy generation.  Prompts (1-D int sequences) are
+        left-padded to equal length and the pad keys masked out of
+        attention.  Sampled tokens stay on the device and reach the host in
+        one copy at the end."""
+        if len(prompts) > self.batch:
+            raise ValueError(f"{len(prompts)} prompts for batch {self.batch}")
+        prompts = [np.asarray(p, np.int64).reshape(-1) for p in prompts]
+        plen = max(len(p) for p in prompts)
+        if plen + max_new_tokens - 1 > self.max_len:
+            raise ValueError(f"prompt {plen} + {max_new_tokens} new tokens "
+                             f"exceed max_len {self.max_len}")
+        pads = [plen - len(p) for p in prompts] + \
+            [plen] * (self.batch - len(prompts))
+        padded = np.zeros((self.batch, plen), np.int64)
+        for i, p in enumerate(prompts):
+            padded[i, plen - len(p):] = p
+        dev = self.device
+        batch_in = {"tokens": torch.from_numpy(padded).to(dev),
+                    "pad": torch.tensor(pads, dtype=torch.int32, device=dev)}
+        cdt = torch.float32 if self.compute_dtype == torch.float32 \
+            else torch.bfloat16
+        cache = self.model.init_cache(self.cfg, self.batch, self.max_len,
+                                      dtype=cdt, device=dev)
+        logits, cache = self.model.prefill(self.cfg, self.params, batch_in,
+                                           cache, self.compute_dtype)
+        tok = self.sample_fn(logits[:, -1])
+        toks = [tok]
+        for _ in range(max_new_tokens - 1):
+            cur = tok.reshape(self.batch, 1).long()
+            logits, cache = self.model.decode_step(
+                self.cfg, self.params, cache, cur, self.compute_dtype)
+            tok = self.sample_fn(logits[:, -1])
+            toks.append(tok)
+        all_toks = torch.stack(toks, dim=1).cpu().numpy()   # (B, max_new)
+        return [list(map(int, all_toks[i])) for i in range(len(prompts))]
+
+
+class ContinuousServeEngine:
+    """Continuous batching over the paged KV cache (dense family).
+
+    ``slots`` is the decode batch width; ``n_blocks``/``block_size`` size
+    the shared page pool; ``max_blocks_per_slot`` caps one request's share
+    (its table width).  Prompts are left-padded up to a power-of-2 multiple
+    of ``prefill_bucket``; correctness relies on the pad mask the prefill
+    threads through attention, not on the pad content.
+    """
+
+    def __init__(self, cfg: ArchConfig, params: PyTree, *, slots: int = 4,
+                 block_size: int = 16, n_blocks: Optional[int] = None,
+                 max_blocks_per_slot: Optional[int] = None,
+                 prefill_bucket: int = 32, compute_dtype=torch.float32,
+                 sample_fn: Callable = greedy_sample, device="cuda"):
+        if cfg.family != "dense":
+            raise ValueError("continuous batching serves the dense family, "
+                             f"not {cfg.family!r}")
+        self.cfg = cfg
+        self.model = get_family(cfg)
+        self.device = resolve_device(device)
+        self.params = _place(params, self.device, compute_dtype)
+        self.slots = slots
+        self.block_size = block_size
+        self.prefill_bucket = prefill_bucket
+        if max_blocks_per_slot is None:
+            max_blocks_per_slot = -(-(prefill_bucket + 64) // block_size)
+        if n_blocks is None:
+            n_blocks = 1 + slots * max_blocks_per_slot
+        cdt = torch.float32 if compute_dtype == torch.float32 \
+            else torch.bfloat16
+        self.cache = PagedKVCache(cfg, n_blocks=n_blocks,
+                                  block_size=block_size, slots=slots,
+                                  max_blocks_per_slot=max_blocks_per_slot,
+                                  dtype=cdt, device=self.device)
+        self.compute_dtype = compute_dtype
+        self.sample_fn = sample_fn
+        self.scheduler = Scheduler(slots)
+        self._cur = np.zeros((slots, 1), np.int64)   # last sampled token/slot
+        self.steps = 0                                # decode steps run
+        self.prefill_seconds: list[float] = []        # host clock, per prefill
+        self.decode_seconds: list[float] = []         # host clock, per step
+
+    @classmethod
+    def from_train_state(cls, cfg: ArchConfig, state, **kw):
+        """Same handoff contract as :meth:`ServeEngine.from_train_state`."""
+        return cls(cfg, _extract_params(state), **kw)
+
+    # -- internals -----------------------------------------------------------
+    def _bucket(self, plen: int) -> int:
+        b = self.prefill_bucket
+        while b < plen:
+            b *= 2
+        return b
+
+    def _budget(self, req: ServeRequest) -> int:
+        return self._bucket(len(req.prompt)) + req.max_new_tokens
+
+    def _admit(self, slot: int, req: ServeRequest) -> bool:
+        return self.cache.admit(slot, self._budget(req))
+
+    def _start(self, slot: int, req: ServeRequest) -> None:
+        """Prefill one admitted request and park it in ``slot``."""
+        t0 = time.perf_counter()
+        plen = len(req.prompt)
+        bucket = self._bucket(plen)
+        pad = bucket - plen
+        dev = self.device
+        toks = torch.tensor([[0] * pad + list(req.prompt)], dtype=torch.long,
+                            device=dev)
+        cache = self.model.init_cache(self.cfg, 1, bucket,
+                                      dtype=self.cache.k_pool.dtype,
+                                      device=dev)
+        batch_in = {"tokens": toks,
+                    "pad": torch.tensor([pad], dtype=torch.int32, device=dev)}
+        logits, cache = self.model.prefill(self.cfg, self.params, batch_in,
+                                           cache, self.compute_dtype)
+        tok = self.sample_fn(logits[:, -1])
+        # (L, 1, bucket, KV, hd) -> the slot's pages
+        self.cache.write_prefill(slot, cache["k"][:, 0], cache["v"][:, 0],
+                                 pad=pad)
+        first = int(tok[0])                      # waits for the prefill
+        self.prefill_seconds.append(time.perf_counter() - t0)
+        self._cur[slot, 0] = first
+        if req.record(first):
+            self.scheduler.active[slot] = None
+            self.scheduler.stats.n_finished += 1
+            self.cache.release(slot)
+
+    def _fill(self) -> None:
+        while True:
+            placed = self.scheduler.fill(self._admit)
+            if not placed:
+                break
+            for slot, req in placed:
+                self._start(slot, req)
+            # _start may free slots again (1-token requests) — loop until
+            # no placement happens, then decode.
+
+    def run(self, requests: list[ServeRequest]) -> list[ServeRequest]:
+        """Drive every request to completion; returns them in submit order
+        with ``out_tokens`` filled.  One host transfer per decode step (the
+        sampled tokens: the scheduler needs them for EOS/refill decisions);
+        the page pools stay on the device and are written in place.
+
+        Raises ``ValueError`` up front if a request's budget (prompt bucket
+        + max_new_tokens) can never fit the cache."""
+        for r in requests:
+            budget = self._budget(r)
+            if not self.cache.can_ever_admit(budget):
+                raise ValueError(
+                    f"request with a {len(r.prompt)}-token prompt (bucket "
+                    f"{self._bucket(len(r.prompt))}) and max_new_tokens "
+                    f"{r.max_new_tokens} needs "
+                    f"{self.cache.pages_needed(budget)} pages; a slot holds "
+                    f"{self.cache.max_blocks_per_slot} and the pool "
+                    f"{self.cache.allocator.n_usable}")
+        for r in requests:
+            self.scheduler.submit(r)
+        self._fill()
+        dev = self.device
+        while self.scheduler.has_work:
+            t0 = time.perf_counter()
+            lengths = self.cache.lengths
+            logits, _, _ = self.model.paged_decode_step(
+                self.cfg, self.params, self.cache.k_pool, self.cache.v_pool,
+                self.cache.block_tables, torch.from_numpy(lengths).to(dev),
+                torch.from_numpy(self.cache.pads).to(dev),
+                torch.from_numpy(self._cur).to(dev), self.compute_dtype)
+            toks_host = self.sample_fn(logits[:, -1]).cpu().numpy()  # sync
+            self.steps += 1
+            self.decode_seconds.append(time.perf_counter() - t0)
+            active_slots = [i for i, r in enumerate(self.scheduler.active)
+                            if r is not None]
+            finished = self.scheduler.step_tokens(toks_host)
+            for slot in active_slots:
+                self._cur[slot, 0] = toks_host[slot]
+                self.cache.set_length(slot, int(lengths[slot]) + 1)
+            for slot in finished:
+                self.cache.release(slot)
+            self._fill()
+        return requests
