@@ -6,16 +6,32 @@
 Phases, one JSON line each:
 
 0. the card (``nvidia-smi`` name and power limit, torch and CUDA versions);
-1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc);
-2. each kernel against its plain PyTorch version at the serving shapes
-   (llama2-7b width in bf16, qwen2-0.5b's GQA widths, one fp32 case), with
-   its time, the plain version's, the library call's where one PyTorch
-   call computes the same function, and the bound of the work;
-3. card against CPU at fp32: a 2-layer model at llama2-7b width, both
-   engines, the same greedy tokens on both devices;
-4. the slice at full size: llama2-7b (32 layers, bf16, random weights from
-   a seed) served by ``ContinuousServeEngine`` and then ``ServeEngine``,
-   with every kernel's launches counted over that run.
+1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
+   per source, all at once);
+2. each attention kernel against its plain PyTorch version at the serving
+   shapes (llama2-7b width in bf16, qwen2-0.5b's GQA widths, one fp32
+   case), with its time, the plain version's, the library call's where one
+   PyTorch call computes the same function, and the bound of the work;
+3. serving, card against CPU at fp32: a 2-layer model at llama2-7b width,
+   both engines, the same greedy tokens on both devices;
+4. serving at full size: llama2-7b (32 layers, bf16, random weights from a
+   seed) served by ``ContinuousServeEngine`` and then ``ServeEngine``, with
+   the attention kernels' launches counted over that run, and a profile of
+   a decode step;
+5. each fused update kernel (AdamW, SGD-momentum, AdaGrad) against its
+   plain version at one llama2-7b layer group, the embedding group, a
+   Mixed^Hi case (f32 master, bf16 grads) and bf16 moments, with times,
+   library yardstick and byte bound;
+6. training, card against CPU at fp32: 4 HiFT steps with AdamW (embed,
+   layer 0, layer 1, head) of a 2-layer model at llama2-7b width;
+7. training at full size: llama2-7b (32 layers, fp32, remat per layer),
+   HiFT m=1 at batch 4 x 512 — AdamW bottom2up and top2down, then
+   SGD-momentum and AdaGrad — with host time, peak memory and the update
+   kernel's device time per step, the update kernels' launches counted
+   over that run, and a profile of a layer-group step; then two full-size
+   steps under Mixed^Hi (bf16 params, fp32 master of the active group);
+8. FPFT against HiFT at 4 layers of llama2-7b width (fp32, AdamW, fused).
+   Peak memory of 7 and 8 stands beside the reference's analytic P+G+S.
 
 Then the ``nvidia-smi`` line, the kernels line and, last, the result line.
 Any failure raises: the script exits non-zero and prints no result.  It
@@ -24,6 +40,8 @@ imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import gc
 import json
 import math
 import statistics
@@ -45,8 +63,31 @@ KERNEL_ROWS = {
     "flash_attention": "src/repro/kernels/flash_attention.py:63",
     "flash_decode": "src/repro/kernels/flash_attention.py:141",
     "paged_flash_decode": "src/repro/kernels/flash_attention.py:230",
+    "fused_adamw": "src/repro/kernels/fused_adamw.py:41",
+    "fused_sgdm": "src/repro/kernels/fused_sgdm.py:29",
+    "fused_adagrad": "src/repro/kernels/fused_adagrad.py:30",
 }
-SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+SOURCES = {
+    **dict.fromkeys(("flash_attention", "flash_decode", "paged_flash_decode"),
+                    "src/repro_torch/kernels/csrc/flash_attention.cu"),
+    **dict.fromkeys(("fused_adamw", "fused_sgdm", "fused_adagrad"),
+                    "src/repro_torch/kernels/csrc/fused_update.cu"),
+}
+# The reference's analytic P+G+S (repro.core.memory_model.analyze, AdamW,
+# m=1) for llama2-7b at (n_layers, mode, precision), in GiB: a model, not
+# a measurement.  This script imports no JAX, so the figures are
+# constants; tests/test_torch_training.py recomputes them from the JAX
+# package.
+ANALYTIC_PGS_GIB = {
+    (32, "hift", "fp32"): 27.364364624023438,
+    (32, "hift", "mixed_hi"): 15.567024230957031,
+    (4, "hift", "fp32"): 6.2541351318359375,
+    (4, "fpft", "fp32"): 15.96929931640625,
+}
+# The update kernels round every operation exactly as their plain
+# versions' eager ops do (explicitly rounded intrinsics, no contraction),
+# so they must agree bit for bit: 0 ulps of each output's dtype.
+UPDATE_ULP_TOL = 0
 
 
 def emit(phase: str, **kw) -> None:
@@ -444,6 +485,450 @@ def phase_profile(torch, cfg, params, prompts, steps: int = 8):
                       for us, e in top])
 
 
+# ------------------------------------------------------------ phase 5
+
+UPDATE_HYPER = {   # c1, c2 of AdamW's third step
+    "fused_adamw": dict(lr=1e-4, b1=0.9, b2=0.999, eps=1e-8,
+                        weight_decay=0.01, c1=1.0 - 0.9 ** 3,
+                        c2=1.0 - 0.999 ** 3),
+    "fused_sgdm": dict(lr=1e-4, momentum=0.9, weight_decay=0.01),
+    "fused_adagrad": dict(lr=1e-4, eps=1e-10, weight_decay=0.01),
+}
+N_MOMENTS = {"fused_adamw": 2, "fused_sgdm": 1, "fused_adagrad": 1}
+# fp32 operations per element, for the (never binding) operations bound
+UPDATE_FLOPS = {"fused_adamw": 16, "fused_sgdm": 6, "fused_adagrad": 8}
+
+
+def group_shapes(cfg, group: str):
+    """Leaf shapes of one HiFT group of a dense config (m=1)."""
+    d, f = cfg.d_model, cfg.d_ff
+    q, kv = cfg.n_heads * cfg.head_dim, cfg.kv_heads * cfg.head_dim
+    if group == "layer":
+        return [(1, d), (1, d, q), (1, d, kv), (1, d, kv), (1, q, d),
+                (1, d), (1, d, f), (1, d, f), (1, f, d)]
+    return [(cfg.vocab_padded, d)]
+
+
+def update_cases(torch):
+    f32, bf16 = torch.float32, torch.bfloat16
+    return [("layer", "llama2-7b layer group fp32", (f32, f32, f32)),
+            ("embed", "llama2-7b embed group fp32", (f32, f32, f32)),
+            ("layer", "llama2-7b layer group mixed_hi (f32 master, bf16 "
+             "grads)", (f32, bf16, f32)),
+            ("layer", "llama2-7b layer group bf16 moments", (f32, f32, bf16))]
+
+
+def update_inputs(torch, kernel, shapes, dts, gen):
+    """(params, grads, moments...) lists on the card; second moments and
+    AdaGrad's accumulator are non-negative."""
+    def rnd(s, dt, scale=1.0, pos=False):
+        x = torch.randn(s, generator=gen, device="cuda") * scale
+        return (x.abs() if pos else x).to(dt)
+    pdt, gdt, mdt = dts
+    p = [rnd(s, pdt) for s in shapes]
+    g = [rnd(s, gdt, 1e-2) for s in shapes]
+    if kernel == "fused_adamw":
+        ms = [[rnd(s, mdt, 1e-2) for s in shapes],
+              [rnd(s, mdt, 1e-4, pos=True) for s in shapes]]
+    else:
+        ms = [[rnd(s, mdt, 1e-2, pos=kernel == "fused_adagrad")
+               for s in shapes]]
+    return (p, g, *ms)
+
+
+def ulp_distance(torch, a, b) -> int:
+    """Largest distance in units in the last place between two tensors of
+    one dtype (their bit patterns as integers; the values here share a
+    sign or are exactly equal)."""
+    view = torch.int32 if a.dtype == torch.float32 else torch.int16
+    return int((a.view(view).long() - b.view(view).long()).abs().max())
+
+
+def library_update(torch, kernel, args, hyper, dts):
+    """One PyTorch call computing the same update at weight_decay=0 (the
+    yardstick), and None or the reason there is none."""
+    f32 = torch.float32
+    if dts != (f32, f32, f32):
+        return None, "no single PyTorch call takes mixed-dtype leaves"
+    p, g, *ms = args
+    steps = [torch.full((), 3.0, device="cuda") for _ in p]
+    if kernel == "fused_adamw":
+        fn = getattr(torch, "_fused_adamw_", None)
+        call = lambda: fn(p, g, ms[0], ms[1], [], steps, lr=hyper["lr"],
+                          beta1=hyper["b1"], beta2=hyper["b2"],
+                          weight_decay=0.0, eps=hyper["eps"], amsgrad=False,
+                          maximize=False)
+    elif kernel == "fused_sgdm":
+        fn = getattr(torch, "_fused_sgd_", None)
+        call = lambda: fn(p, g, ms[0], weight_decay=0.0,
+                          momentum=hyper["momentum"], lr=hyper["lr"],
+                          dampening=0.0, nesterov=False, maximize=False,
+                          is_first_step=False)
+    else:
+        fn = getattr(torch, "_fused_adagrad_", None)
+        call = lambda: fn(p, g, ms[0], steps, lr=hyper["lr"], lr_decay=0.0,
+                          weight_decay=0.0, eps=hyper["eps"], maximize=False)
+    if fn is None:
+        return None, f"torch {torch.__version__} has no such call"
+    try:
+        call()
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:   # yardstick only
+        return None, f"{fn.__name__} refuses CUDA tensors: {str(e)[:120]}"
+    return call, None
+
+
+def phase_update_kernels(torch):
+    """Each fused update kernel against its plain version on the card,
+    timed with its inputs rotated beyond L2, beside its byte bound and the
+    library yardstick."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import fused_update as FU
+    from repro_torch.kernels import ref
+    wrappers = {"fused_adamw": FU.fused_adamw_update,
+                "fused_sgdm": FU.fused_sgdm_update,
+                "fused_adagrad": FU.fused_adagrad_update}
+    plains = {"fused_adamw": ref.fused_adamw_ref,
+              "fused_sgdm": ref.fused_sgdm_ref,
+              "fused_adagrad": ref.fused_adagrad_ref}
+    cfg = get_config("llama2-7b")
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    results = {}
+    for kernel in wrappers:
+        hyper = UPDATE_HYPER[kernel]
+        wrap = functools.partial(wrappers[kernel], **hyper)
+
+        def plain(*args, kernel=kernel, hyper=hyper):
+            return [plains[kernel](*leaf, **hyper) for leaf in zip(*args)]
+
+        for group, case, dts in update_cases(torch):
+            shapes = group_shapes(cfg, group)
+            args = update_inputs(torch, kernel, shapes, dts, gen)
+            want = plain(*args)
+            mine = [[t.clone() for t in stream] for stream in args]
+            got = wrap(*mine)
+            torch.cuda.synchronize()
+            max_err, max_ulps = 0.0, 0
+            for j, stream in enumerate(got):
+                for i, t in enumerate(stream):
+                    w = want[i][j]
+                    if not torch.isfinite(t.float()).all():
+                        raise RuntimeError(f"{kernel} ({case}): non-finite")
+                    max_err = max(max_err, float((t.float() - w.float())
+                                                 .abs().max()))
+                    max_ulps = max(max_ulps, ulp_distance(torch, t, w))
+            if max_ulps > UPDATE_ULP_TOL:
+                raise RuntimeError(f"{kernel} ({case}): {max_ulps} ulps from "
+                                   f"its plain version (bound "
+                                   f"{UPDATE_ULP_TOL})")
+            del want, mine, got
+            n = sum(math.prod(s) for s in shapes)
+            size = {torch.float32: 4, torch.bfloat16: 2}
+            per = (2 * size[dts[0]] + size[dts[1]]
+                   + 2 * N_MOMENTS[kernel] * size[dts[2]])
+            nbytes = n * per
+            sets = [args] + [update_inputs(torch, kernel, shapes, dts, gen)
+                             for _ in range(copies(nbytes) - 1)]
+            ms = time_ms(torch, wrap, sets, reps=5, launches=10)
+            plain_ms = time_ms(torch, plain, sets, reps=3, launches=4)
+            lib = [library_update(torch, kernel, a, hyper, dts) for a in sets]
+            library_ms = None if lib[0][0] is None else time_ms(
+                torch, lambda f: f(), [(f,) for f, _ in lib], reps=5,
+                launches=10)
+            bound_ms, bound_by = bound(UPDATE_FLOPS[kernel] * n, nbytes,
+                                       "float32")
+            row = dict(kernel=kernel, case=case,
+                       dtypes=[str(d).split(".")[-1] for d in dts],
+                       leaves=len(shapes), elements=n, max_abs_err=max_err,
+                       max_ulps=max_ulps, ulp_tol=UPDATE_ULP_TOL, ms=ms,
+                       plain_ms=plain_ms, library_ms=library_ms,
+                       library_note=lib[0][1], bound_ms=bound_ms,
+                       bound_by=bound_by, bytes=nbytes,
+                       share_of_bound=bound_ms / ms)
+            emit("kernel", **row)
+            results.setdefault(kernel, row)   # the first case is the main one
+            del sets, lib, args
+            gc.collect()
+            torch.cuda.empty_cache()
+    return results
+
+
+# ------------------------------------------------------------ phases 6-8
+
+def train_batches(cfg, seq, batch, n, device):
+    from repro_torch.data.synthetic import DataConfig, SyntheticLM
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                  global_batch=batch, seed=0), device=device)
+    return [data.batch_at(s) for s in range(n)]
+
+
+def phase_train_card_vs_cpu(torch):
+    """4 HiFT steps with AdamW (embed, layer 0, layer 1, head) of a 2-layer
+    model at llama2-7b width, fp32, batch 1 x 64, from the same params on
+    the CPU (plain versions) and the card (fused kernel).  Losses within
+    rtol 1e-4: the same fp32 arithmetic summed in other orders by cuBLAS
+    and the CPU's BLAS, where AdamW's first step moves every element by
+    about lr times the sign of its gradient, so near-zero gradients may
+    flip."""
+    from repro_torch.common.pytree import flatten_with_paths
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import LRSchedule, make_runner
+    from repro_torch.kernels import fused_update as FU
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(get_config("llama2-7b"), n_layers=2)
+    params = T.init(cfg, torch.Generator().manual_seed(0), device="cpu",
+                    dtype=torch.float32)
+    batches = train_batches(cfg, 64, 1, 4, "cpu")
+    out, final = {}, {}
+    for dev in ("cpu", "cuda"):
+        runner = make_runner(cfg, "hift", params=params, optimizer="adamw",
+                             schedule=LRSchedule(base_lr=1e-4), device=dev)
+        before = FU.fused_adamw_update.launches
+        t0 = time.perf_counter()
+        out[dev] = [float(runner.train_step(b)) for b in batches]
+        secs = time.perf_counter() - t0
+        groups = [g.label() for g in runner.groups]
+        if dev == "cuda" and FU.fused_adamw_update.launches - before != 4:
+            raise RuntimeError("the card's HiFT steps did not run the fused "
+                               "AdamW kernel once each")
+        final[dev] = {k: t.detach().cpu() for k, t in
+                      flatten_with_paths(runner.params).items()}
+        emit("train_card_vs_cpu_run", device=dev, seconds=secs)
+        del runner
+    gap = max(float((final["cpu"][k] - final["cuda"][k]).abs().max())
+              for k in final["cpu"])
+    rel = max(abs(a - b) / abs(a) for a, b in zip(out["cpu"], out["cuda"]))
+    emit("train_card_vs_cpu", n_layers=cfg.n_layers, d_model=cfg.d_model,
+         batch=1, seq=64, groups=groups, cpu_losses=out["cpu"],
+         cuda_losses=out["cuda"], max_rel_loss_gap=rel, rtol=1e-4,
+         max_param_gap=gap)
+    if not all(math.isfinite(x) for x in out["cuda"]) or rel > 1e-4:
+        raise RuntimeError(f"card and CPU training losses differ: {out}")
+    del final, params
+    gc.collect()
+
+
+def _group_kind(label: str) -> str:
+    return "embed" if "embed" in label else (
+        "head" if "head" in label else "layer")
+
+
+def phase_train_full(torch):
+    """llama2-7b at full depth and width, fp32, HiFT m=1, batch 4 x 512:
+    AdamW 3 steps bottom2up (embed, layers 0 and 1) and 2 top2down (head,
+    layer 31) from fresh runners, then SGD-momentum and AdaGrad 2 steps
+    each top2down.  The runners train the same resident params in place.
+    Per step: host clock (to a synchronise), peak memory (reset per step)
+    and the update kernel's device time (CUDA events around its launches).
+    The update kernels' launches are counted over this run; then one more
+    AdamW layer-group step runs under ``torch.profiler``."""
+    from repro_torch.common.pytree import tree_bytes
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import HiFTConfig, LRSchedule, make_runner
+    from repro_torch.kernels import fused_update as FU
+    from repro_torch.models import transformer as T
+    cfg = get_config("llama2-7b")
+    t0 = time.perf_counter()
+    params = T.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                    device="cuda", dtype=torch.float32)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batches = train_batches(cfg, 512, 4, 10, "cuda")
+    events = []
+    launch = FU._launch
+
+    def timed_launch(*args):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        n = launch(*args)
+        e1.record()
+        events.append((e0, e1))
+        return n
+
+    FU._launch = timed_launch
+    plan = [("adamw", "bottom2up", 3), ("adamw", "top2down", 2),
+            ("sgdm", "top2down", 2), ("adagrad", "top2down", 2)]
+    steps = []
+    FU.reset_launches()                 # count the main path's run only
+    try:
+        for opt, order, n in plan:
+            runner = make_runner(cfg, "hift", params=params, optimizer=opt,
+                                 hift=HiFTConfig(m=1, strategy=order),
+                                 schedule=LRSchedule(base_lr=1e-5),
+                                 device="cuda")
+            for _ in range(n):
+                batch = batches[len(steps)]
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                events.clear()
+                t0 = time.perf_counter()
+                loss = float(runner.train_step(batch))
+                torch.cuda.synchronize()
+                host_ms = 1e3 * (time.perf_counter() - t0)
+                label = runner.last_metrics["group"]
+                steps.append(dict(
+                    optimizer=opt, order=order, group=label,
+                    kind=_group_kind(label), loss=loss, host_ms=host_ms,
+                    peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                    update_kernel_ms=sum(a.elapsed_time(b)
+                                         for a, b in events),
+                    update_launches=len(events)))
+                emit("train_step", arch=cfg.name, **steps[-1])
+                if not math.isfinite(loss):
+                    raise RuntimeError(f"non-finite loss at {label}")
+            del runner
+        launches = {fn.__name__.replace("_update", ""): fn.launches
+                    for fn in FU.KERNELS}
+    finally:
+        FU._launch = launch
+    emit("train_full_size", arch=cfg.name, n_layers=cfg.n_layers,
+         dtype="float32", batch=4, seq=512, remat=cfg.remat, init_s=init_s,
+         launches=launches, params_bytes=tree_bytes(params))
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise RuntimeError(f"update kernels never launched on the training "
+                           f"path: {missing}")
+    phase_train_profile(torch, cfg, params, batches[-1])
+    full = steps[:3]
+    emit("train_full_size_vs_model", policy="fp32",
+         peak_memory_gib=max(s["peak_memory_bytes"] for s in full) / 2**30,
+         analytic_pgs_gib=ANALYTIC_PGS_GIB[(32, "hift", "fp32")])
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_mixed_hi(torch):
+    """The paper's adapted mixed precision at full size: llama2-7b with
+    bf16 resident params and an fp32 master for the active group only
+    (``mixed_hi``), HiFT m=1 with AdamW, batch 4 x 512 — the embed and
+    layer-0 steps (the two deepest backwards), with host time and peak
+    memory per step beside the analytic model's figure.  The update
+    kernel runs f32 masters against bf16 grads here."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import LRSchedule, make_runner
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.mixed_precision import get_policy
+    cfg = get_config("llama2-7b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = T.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                    device="cuda", dtype=torch.bfloat16)
+    runner = make_runner(cfg, "hift", params=params, optimizer="adamw",
+                         policy=get_policy("mixed_hi"),
+                         schedule=LRSchedule(base_lr=1e-5), device="cuda")
+    rows = []
+    for batch in train_batches(cfg, 512, 4, 2, "cuda"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss = float(runner.train_step(batch))
+        torch.cuda.synchronize()
+        rows.append(dict(group=runner.last_metrics["group"], loss=loss,
+                         host_ms=1e3 * (time.perf_counter() - t0),
+                         peak_memory_bytes=torch.cuda.max_memory_allocated()))
+        if not math.isfinite(loss):
+            raise RuntimeError(f"mixed_hi: non-finite loss {rows[-1]}")
+    emit("train_mixed_hi", arch=cfg.name, policy="mixed_hi", batch=4,
+         seq=512, steps=rows,
+         peak_memory_gib=max(r["peak_memory_bytes"] for r in rows) / 2**30,
+         analytic_pgs_gib=ANALYTIC_PGS_GIB[(32, "hift", "mixed_hi")])
+    del runner, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def hift_layer_step_flops(cfg, batch: int, seq: int, layer: int) -> int:
+    """Operations one HiFT step needs whose active group is stacked layer
+    ``layer`` (m=1), counted from shapes: every layer's forward, the
+    recomputed forward (remat) and the input-gradient backward of the
+    layers from ``layer`` up, the active layer's weight gradients, and the
+    head's logits forward, recompute (chunked CE) and input gradient.
+    Attention counts the full 512-key block it computes (QK^T and PV;
+    twice that backward)."""
+    d, f, h, hd = cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.head_dim
+    tokens = batch * seq
+    weights = 2 * d * h * hd + 2 * d * cfg.kv_heads * hd + 3 * d * f
+    lin = 2 * tokens * weights
+    attn = 4 * tokens * seq * h * hd
+    above = cfg.n_layers - layer
+    head = 2 * tokens * d * cfg.vocab_padded
+    return (cfg.n_layers * (lin + attn) + above * (lin + attn)
+            + above * (lin + 2 * attn) + lin + 3 * head)
+
+
+def phase_train_profile(torch, cfg, params, batch):
+    """Where a full-size HiFT layer-group step's time goes: layer 1's step
+    (AdamW, backward through 31 layers) under ``torch.profiler``, after
+    the embed and layer 0 steps of a fresh runner."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import HiFTConfig, LRSchedule, make_runner
+    runner = make_runner(cfg, "hift", params=params, optimizer="adamw",
+                         hift=HiFTConfig(m=1), schedule=LRSchedule(1e-5),
+                         device="cuda")
+    for _ in range(2):
+        runner.train_step(batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        float(runner.train_step(batch))
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    dev_us = [getattr(e, "self_device_time_total", 0.0) for e in kernels]
+    busy_ms = sum(dev_us) / 1e3
+    top = sorted(zip(dev_us, kernels), key=lambda t: -t[0])[:10]
+    b, s = batch["tokens"].shape
+    flops = hift_layer_step_flops(cfg, b, s, layer=1)
+    emit("train_profile", group=runner.last_metrics["group"],
+         flops=flops, bound_ms=1e3 * flops / PEAK_FLOPS["float32"],
+         host_ms=1e3 * host_s, device_busy_ms=busy_ms,
+         device_idle_share=1 - busy_ms / (1e3 * host_s),
+         top_kernels=[dict(name=e.key[:80], ms=us / 1e3, calls=e.count)
+                      for us, e in top])
+
+
+def phase_train_4_layers(torch):
+    """FPFT against HiFT at 4 layers of llama2-7b width, fp32, AdamW with
+    the fused kernel, batch 4 x 512: peak memory over 2 FPFT steps and a
+    full HiFT sweep (6 groups), beside the reference's analytic P+G+S for
+    the same config (a model: it counts params, grads and optimizer state,
+    not activations)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import LRSchedule, make_runner
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(get_config("llama2-7b"), n_layers=4)
+    batches = train_batches(cfg, 512, 4, 6, "cuda")
+    for mode, n in (("fpft", 2), ("hift", 6)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        params = T.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda", dtype=torch.float32)
+        runner = make_runner(cfg, mode, params=params, optimizer="adamw",
+                             fused_update=True,
+                             schedule=LRSchedule(base_lr=1e-5), device="cuda")
+        t0 = time.perf_counter()
+        losses = [float(runner.train_step(b)) for b in batches[:n]]
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        emit("train_4_layers", mode=mode, steps=n, losses=losses,
+             host_s=time.perf_counter() - t0, peak_memory_bytes=peak,
+             peak_memory_gib=peak / 2**30,
+             analytic_pgs_gib=ANALYTIC_PGS_GIB[(4, mode, "fp32")])
+        if not all(math.isfinite(x) for x in losses):
+            raise RuntimeError(f"{mode}: non-finite loss {losses}")
+        del runner, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------ main
 
 def main() -> int:
@@ -475,11 +960,18 @@ def main() -> int:
     rows = phase_kernels(torch)
     phase_card_vs_cpu(torch)
     launches = phase_full(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows.update(phase_update_kernels(torch))
+    phase_train_card_vs_cpu(torch)
+    launches.update(phase_train_full(torch))
+    phase_train_mixed_hi(torch)
+    phase_train_4_layers(torch)
 
     kernels = []
     for name, row in rows.items():
         kernels.append(dict(
-            name=name, route="cuda", source=SOURCE,
+            name=name, route="cuda", source=SOURCES[name],
             replaces=KERNEL_ROWS[name], launches=launches[name],
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],

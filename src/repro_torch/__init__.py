@@ -2,8 +2,10 @@
 
 The JAX package ``repro`` is the reference; this package keeps its names,
 param-dict layout and tensor layouts, imports ``torch`` and nothing of
-``repro`` or ``jax``, and runs its attention through hand-written CUDA
-kernels (``repro_torch.kernels``) on the card.  Ported so far: the dense
-family's serving path (prefill, contiguous decode, paged decode, both
-engines and the serving launcher).
+``repro`` or ``jax``, and runs its kernels as hand-written CUDA
+(``repro_torch.kernels``) on the card.  Ported so far: the dense family's
+serving path (prefill, contiguous and paged decode, both engines and the
+serving launcher) and its training path (``hift`` and ``fpft`` with
+AdamW, SGD-momentum and AdaGrad, the precision policies, the synthetic
+data, the loop and the training launcher).
 """

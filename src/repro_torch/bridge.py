@@ -5,6 +5,10 @@ stacked with a leading ``n_layers`` dim, ``x @ W`` orientation), so a
 conversion is a copy of each leaf.  bfloat16 has no numpy dtype of its own
 outside ``ml_dtypes``, so it crosses as a ``uint16`` view of the same bits:
 a round trip is bit-exact for float32 and bfloat16 alike.
+
+:func:`state_to_torch` carries a whole training state across: a JAX
+``TrainState.to_tree()`` becomes the port's ``TrainState``, so a run can
+start in one package and continue in the other.
 """
 from __future__ import annotations
 
@@ -46,3 +50,29 @@ def to_numpy(tree: PyTree, bf16_dtype: Optional[Any] = None) -> PyTree:
     ``uint16`` bits, or as ``bf16_dtype`` (a numpy bfloat16 type such as
     ``jnp.bfloat16``) when the caller has one."""
     return tree_map(lambda t: _leaf_to_numpy(t, bf16_dtype), tree)
+
+
+def _state_leaf(x, device) -> torch.Tensor:
+    a = np.asarray(x)
+    if np.issubdtype(a.dtype, np.integer):
+        # optimizer step counts stay on the host, as the port keeps them
+        return torch.from_numpy(np.array(a, dtype=np.int64))
+    return _leaf_to_torch(a, device)
+
+
+def state_to_torch(tree: dict, device="cpu"):
+    """A JAX ``TrainState.to_tree()`` (leaves as JAX or numpy arrays) ->
+    the port's ``TrainState``: params and every floating leaf of the
+    optimizer state (FPFT's state tree, or the grouped strategies'
+    ``{str(group): bundle}``) on ``device``, step counts as CPU int64
+    tensors, ``step`` an int and ``extra["order"]`` (HiFT's visit order) an
+    int64 numpy array."""
+    from repro_torch.core.strategy import TrainState
+    extra = dict(tree.get("extra") or {})
+    if "order" in extra:
+        extra["order"] = np.asarray(extra["order"], np.int64)
+    return TrainState(
+        params=to_torch(tree["params"], device),
+        opt_state=tree_map(lambda x: _state_leaf(x, device),
+                           tree.get("opt_state") or {}),
+        step=int(np.asarray(tree["step"])), extra=extra)

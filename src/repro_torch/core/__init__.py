@@ -1,0 +1,12 @@
+"""HiFT core (port of ``repro.core``): grouping, the delayed LR schedule
+and the Strategy API for the ``hift`` and ``fpft`` strategies."""
+from repro_torch.core.grouping import (Group, group_cut, make_groups,
+                                       merge_params, order_groups,
+                                       split_params)
+from repro_torch.core.registry import (FUSED_OPTIMIZERS, make_runner,
+                                       make_strategy, register_strategy,
+                                       strategy_ids)
+from repro_torch.core.scheduler import LRSchedule
+from repro_torch.core.strategy import (FPFTStrategy, HiFTConfig,
+                                       HiFTStrategy, Runner, Strategy,
+                                       TrainState, write_back)

@@ -1,0 +1,114 @@
+"""Fine-tuning strategy registry (port of ``repro.core.registry``).
+
+:func:`make_runner` is the entry point for building a training driver:
+
+    runner = make_runner(cfg, "hift", optimizer="adamw",
+                         hift=HiFTConfig(m=2), schedule=LRSchedule(2e-3))
+    loss = runner.train_step(batch)
+
+It runs on the card (``device="cuda"``, raising when there is none)
+unless the caller passes ``device="cpu"``.  ``hift`` and ``fpft`` are the
+ported strategies; the others of the reference are not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+_REGISTRY: dict[str, type] = {}
+
+# optimizers with a fused update kernel (kernels/csrc/fused_update.cu)
+FUSED_OPTIMIZERS = ("adamw", "sgdm", "adagrad")
+
+
+def register_strategy(name: str):
+    """Class decorator: add a Strategy class to the registry under
+    ``name``."""
+    def deco(cls):
+        _REGISTRY[name] = cls
+        return cls
+    return deco
+
+
+def _ensure_loaded() -> None:
+    # the built-ins register as an import side effect
+    from repro_torch.core import strategy  # noqa: F401
+
+
+def strategy_ids() -> list[str]:
+    _ensure_loaded()
+    return sorted(_REGISTRY)
+
+
+def get_strategy_cls(name: str) -> type:
+    _ensure_loaded()
+    if name not in _REGISTRY:
+        raise ValueError(f"unknown or not yet ported strategy {name!r}; "
+                         f"have {sorted(_REGISTRY)}")
+    return _REGISTRY[name]
+
+
+def make_strategy(name: str, cfg, optimizer, **kwargs):
+    """Build a Strategy instance (static config only — no training
+    state)."""
+    return get_strategy_cls(name)(cfg, optimizer, **kwargs)
+
+
+def make_runner(cfg, strategy: str = "hift", *, params: Any = None,
+                optimizer: Any = "adamw", seed: int = 0,
+                fused_update: Any = None, pipeline_depth: Any = None,
+                device="cuda", **kwargs):
+    """One factory for the ported fine-tuning strategies.
+
+    ``optimizer`` is a name (``repro_torch.optim.make_optimizer``) or an
+    ``Optimizer``; ``params`` a tensor dict, by default the family's
+    ``init`` from ``seed`` on ``device``.  On the card the runner trains
+    the given tensors in place when they already lie there in the resident
+    dtype.
+
+    ``fused_update``: route the update through the fused kernels
+    (``kernels/csrc/fused_update.cu``).  ``None`` keeps the reference's
+    rule: fused for the grouped strategies on the accelerator (here: when
+    ``device`` is ``cuda``), unfused otherwise.  It needs the optimizer by
+    name, one of ``FUSED_OPTIMIZERS``.  ``pipeline_depth >= 2``,
+    ``stream_window``, ``mesh``, ``cross_pod`` and ``quant`` are not ported
+    yet and raise.  Remaining kwargs go to the strategy (``schedule``,
+    ``policy``, ``loss_fn``, ``hift=``)."""
+    import torch
+
+    from repro_torch.common.device import resolve_device
+    from repro_torch.core.strategy import HiFTConfig, Runner
+    from repro_torch.models import get_family
+    from repro_torch.optim import make_optimizer
+
+    device = resolve_device(device)
+    if kwargs.pop("stream_window", None) is not None:
+        raise NotImplementedError("stream_window (fpft_streamed) is not "
+                                  "ported yet")
+    grouped = strategy in ("hift", "hift_pipelined", "lisa")
+    if isinstance(optimizer, str):
+        fused = (device.type == "cuda" and grouped) \
+            if fused_update is None else bool(fused_update)
+        okw = {"use_fused": True} if (fused and
+                                      optimizer in FUSED_OPTIMIZERS) else {}
+        if fused_update and not okw:
+            raise ValueError(f"no fused update kernel for {optimizer!r}; "
+                             f"have {FUSED_OPTIMIZERS}")
+        optimizer = make_optimizer(optimizer, **okw)
+    elif fused_update:
+        raise ValueError("fused_update=True needs the optimizer given by "
+                         "name so make_runner can rebuild it fused")
+    if pipeline_depth is not None:
+        if pipeline_depth >= 2:
+            raise NotImplementedError("the bundle pipeline (pipeline_depth "
+                                      ">= 2) is not ported yet")
+        if strategy != "hift":
+            raise ValueError("pipeline_depth applies to the pipelined "
+                             f"strategies, not {strategy!r}")
+        kwargs["hift"] = dataclasses.replace(
+            kwargs.get("hift") or HiFTConfig(), pipeline_depth=pipeline_depth)
+    if params is None:
+        gen = torch.Generator(device=device).manual_seed(seed)
+        params = get_family(cfg).init(cfg, gen, device=device)
+    return Runner(make_strategy(strategy, cfg, optimizer, device=device,
+                                **kwargs), params)

@@ -1,12 +1,22 @@
-"""Plain PyTorch versions of the attention kernels.
+"""Plain PyTorch versions of the hand-written kernels.
 
-Each function computes what its CUDA kernel in ``csrc/flash_attention.cu``
-computes, in the JAX package's own arithmetic: fp32 scores, masked scores
-filled with the finite ``-1e30`` (never ``-inf``), a full fp32 softmax,
-probabilities cast to the input dtype before the product with V, output in
-q's dtype.  The wrappers in ``kernels.flash_attention`` call these on CPU
-tensors; the CPU tests hold them against the JAX package, and
-``chip_smoke.py`` holds each kernel against them on the card.
+Attention (``csrc/flash_attention.cu``), in the JAX package's own
+arithmetic: fp32 scores, masked scores filled with the finite ``-1e30``
+(never ``-inf``), a full fp32 softmax, probabilities cast to the input
+dtype before the product with V, output in q's dtype.
+
+Fused optimizer updates (``csrc/fused_update.cu``), one leaf at a time, in
+the reference's operation order (``repro.kernels.ref``, ``repro.optim``):
+fp32 math, each output stored in its input's dtype (rounded to nearest
+even for bfloat16).  Each operation is one eager op, so nothing is
+contracted into a fused multiply-add; the bias corrections divide by a
+0-d tensor on the leaf's device, which PyTorch divides elementwise (a
+Python-float divisor may be turned into a multiply by its reciprocal on
+CUDA).  These are also the unfused updates of ``repro_torch.optim``.
+
+The wrappers call these on CPU tensors; the CPU tests hold them against
+the JAX package, and ``chip_smoke.py`` holds each kernel against them on
+the card.
 """
 from __future__ import annotations
 
@@ -15,9 +25,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.models.layers import _repeat_kv
-
-NEG = -1e30
+from repro_torch.models.layers import NEG, _repeat_kv
 
 
 def _softmax_pv(sc: torch.Tensor, v: torch.Tensor, eq: str,
@@ -86,3 +94,41 @@ def paged_flash_decode_ref(q, k_pool, v_pool, block_tables: torch.Tensor,
     kk = k_pool[tables].reshape(b, cap, kvh, hd)
     vv = v_pool[tables].reshape(b, cap, kvh, hd)
     return flash_decode_ref(q, kk, vv, lengths, starts)
+
+
+# ------------------------------------------------------- fused updates
+
+def _divisor(x: float, like: torch.Tensor) -> torch.Tensor:
+    return torch.full((), x, dtype=torch.float32, device=like.device)
+
+
+def fused_adamw_ref(p, g, m, v, *, lr, b1, b2, eps, weight_decay, c1, c2):
+    """Elementwise AdamW with bias-corrected moments; returns new
+    (p, m, v), each in its input's dtype."""
+    g32 = g.float()
+    m_ = b1 * m.float() + (1.0 - b1) * g32
+    v_ = b2 * v.float() + (1.0 - b2) * torch.square(g32)
+    mhat = m_ / _divisor(c1, m_)
+    vhat = v_ / _divisor(c2, v_)
+    p32 = p.float()
+    step = lr * (mhat / (torch.sqrt(vhat) + eps) + weight_decay * p32)
+    return (p32 - step).to(p.dtype), m_.to(m.dtype), v_.to(v.dtype)
+
+
+def fused_sgdm_ref(p, g, mu, *, lr, momentum, weight_decay):
+    """Heavy-ball SGD, weight decay folded into the gradient; returns new
+    (p, mu)."""
+    p32 = p.float()
+    g32 = g.float() + weight_decay * p32
+    mu_ = momentum * mu.float() + g32
+    return (p32 - lr * mu_).to(p.dtype), mu_.to(mu.dtype)
+
+
+def fused_adagrad_ref(p, g, a, *, lr, eps, weight_decay):
+    """AdaGrad, weight decay folded into the gradient before squaring;
+    returns new (p, a)."""
+    p32 = p.float()
+    g32 = g.float() + weight_decay * p32
+    a_ = a.float() + torch.square(g32)
+    step = lr * g32 / (torch.sqrt(a_) + eps)
+    return (p32 - step).to(p.dtype), a_.to(a.dtype)

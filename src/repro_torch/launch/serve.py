@@ -19,10 +19,10 @@ import argparse
 import numpy as np
 import torch
 
+from repro_torch.common.device import resolve_device
 from repro_torch.configs.registry import get_config
 from repro_torch.models import get_family
-from repro_torch.serve.engine import (ContinuousServeEngine, ServeEngine,
-                                      resolve_device)
+from repro_torch.serve.engine import ContinuousServeEngine, ServeEngine
 from repro_torch.serve.scheduler import ServeRequest
 
 

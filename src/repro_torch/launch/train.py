@@ -1,0 +1,89 @@
+"""Training launcher for a ported ``--arch`` (port of
+``repro.launch.train`` for the hift and fpft strategies).
+
+    python -m repro_torch.launch.train --arch llama2-7b --smoke --steps 8
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama2-7b \\
+        --smoke --steps 8 --device cpu
+
+The reference's flags for the ported surface, plus ``--device`` (default
+``cuda``; without a card it raises unless ``--device cpu``).  Weights are
+random from ``--seed``; batches come from the synthetic Markov LM with the
+same seed; the LR follows the reference's cosine schedule.  Prints the
+reference's ``step``/``loss``/``lr`` lines and ``done: final loss``.
+"""
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+from repro_torch.common.device import resolve_device
+from repro_torch.common.pytree import tree_size
+from repro_torch.configs.registry import get_config
+from repro_torch.core import HiFTConfig, LRSchedule, make_runner
+from repro_torch.data.synthetic import DataConfig, PrefetchIterator, SyntheticLM
+from repro_torch.models import get_family
+from repro_torch.optim.mixed_precision import get_policy
+from repro_torch.train.loop import LoopConfig, train
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced config (CPU-sized)")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--strategy", default="hift", choices=["hift", "fpft"])
+    ap.add_argument("--m", type=int, default=1, help="units per group (hift)")
+    ap.add_argument("--order", default="bottom2up",
+                    choices=["bottom2up", "top2down", "random"],
+                    help="HiFT group visit order")
+    ap.add_argument("--fused-update", dest="fused_update",
+                    action="store_true", default=None,
+                    help="force the fused update kernels (adamw/sgdm/"
+                         "adagrad); default auto: fused for hift on the card")
+    ap.add_argument("--no-fused-update", dest="fused_update",
+                    action="store_false",
+                    help="force the unfused elementwise update")
+    ap.add_argument("--optimizer", default="adamw")
+    ap.add_argument("--policy", default="fp32",
+                    choices=["fp32", "mixed", "mixed_hi", "bf16"])
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (hand-written kernels) or cpu (plain versions)")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch, smoke=args.smoke)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params = get_family(cfg).init(cfg, gen, device=device)
+    n = tree_size(params)
+    print(f"[{cfg.name}] {n/1e6:.1f}M params, family={cfg.family}")
+
+    sched = LRSchedule(base_lr=args.lr, kind="cosine",
+                       total_cycles=max(args.steps, 1))
+    kw = {"schedule": sched, "policy": get_policy(args.policy),
+          "fused_update": args.fused_update, "device": device}
+    if args.strategy == "hift":
+        kw["hift"] = HiFTConfig(m=args.m, strategy=args.order, seed=args.seed)
+    runner = make_runner(cfg, args.strategy, params=params,
+                         optimizer=args.optimizer, seed=args.seed, **kw)
+    if args.strategy == "hift":
+        peak = runner.peak_trainable_params()
+        print(f"hift k={runner.k}, peak trainable {peak/1e6:.2f}M "
+              f"({100*peak/n:.2f}%)")
+
+    data = PrefetchIterator(SyntheticLM(DataConfig(
+        vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch,
+        seed=args.seed), device=device))
+    out = train(runner, data, LoopConfig(
+        total_steps=args.steps, log_every=max(args.steps // 10, 1)))
+    print(f"done: final loss {out['losses'][-1]:.4f}")
+    return out
+
+
+if __name__ == "__main__":
+    main()

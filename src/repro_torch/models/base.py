@@ -1,0 +1,129 @@
+"""HiFT unit machinery and the layer loop (port of ``repro.models.base``).
+
+A *unit* is the paper's layering granularity: the embedding is the bottom
+unit, each transformer block one unit, the head (+ final norm) the top
+unit.  HiFT groups are contiguous spans of units.  Params keep the
+reference's STACKED layers (leading dim = n_layers); a unit addresses
+either a top-level key (dense unit, ``"embed"``) or one index of a stacked
+segment (``("layers", 17)``).
+
+:func:`run_layers` replaces ``scan_layers``: a Python loop over layer
+slices.  Layers below the HiFT cut run under ``torch.no_grad()``, so
+autograd keeps nothing for them; each layer at or above the cut runs under
+``torch.utils.checkpoint`` when the config asks for ``remat="layer"``.
+
+A grouped strategy trains one slice of a stacked segment and keeps the
+rest frozen.  :class:`LayerStack` presents the pieces (frozen prefix,
+active slice, frozen suffix) as one indexable stack, so the forward takes
+layer ``i`` from whichever piece holds it and never concatenates the
+segment — a ``torch.cat`` of llama2-7b's stacked layers would copy 25 GB
+of fp32 on every step.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional, Sequence
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.common.pytree import flatten_with_paths, tree_map
+
+PyTree = Any
+
+
+@dataclasses.dataclass(frozen=True)
+class Unit:
+    kind: str                 # "dense" | "stacked"
+    key: str                  # top-level param key ("embed", "layers", ...)
+    index: Optional[int] = None  # layer index within a stacked segment
+
+    def label(self) -> str:
+        return self.key if self.kind == "dense" else f"{self.key}[{self.index}]"
+
+
+def dense_unit(key: str) -> Unit:
+    return Unit("dense", key)
+
+
+def stacked_units(key: str, n: int) -> list[Unit]:
+    return [Unit("stacked", key, i) for i in range(n)]
+
+
+def unit_first_depth(cfg, unit: Unit) -> int:
+    """Depth at which a unit is first used (the reference's
+    ``default_unit_first_depth``): the embedding at 0, stacked layer ``i``
+    at ``i``, the head at ``n_layers``."""
+    if unit.key == "embed":
+        return 0
+    if unit.kind == "stacked":
+        return unit.index
+    return cfg.n_layers
+
+
+def stack_len(tree: PyTree) -> int:
+    """Leading (layer) dim of a stacked sub-tree."""
+    leaves = list(flatten_with_paths(tree).values())
+    return int(leaves[0].shape[0]) if leaves else 0
+
+
+class LayerStack:
+    """Consecutive pieces of one stacked segment, indexable as a whole.
+
+    ``pieces`` are stacked sub-trees of equal structure; layer ``i`` of the
+    stack is layer ``i - offset`` of the piece that holds it.  Nothing is
+    copied: each layer is a view into its piece."""
+
+    def __init__(self, pieces: Sequence[PyTree]):
+        self.pieces = [(stack_len(p), p) for p in pieces]
+        self.pieces = [(n, p) for n, p in self.pieces if n > 0]
+
+    def __len__(self) -> int:
+        return sum(n for n, _ in self.pieces)
+
+    def layer(self, i: int) -> PyTree:
+        for n, piece in self.pieces:
+            if i < n:
+                return tree_map(lambda x: x[i], piece)
+            i -= n
+        raise IndexError("layer index out of range")
+
+
+def n_layers_of(layers) -> int:
+    return len(layers) if isinstance(layers, LayerStack) else stack_len(layers)
+
+
+def layer_at(layers, i: int) -> PyTree:
+    if isinstance(layers, LayerStack):
+        return layers.layer(i)
+    return tree_map(lambda x: x[i], layers)
+
+
+def run_layers(step: Callable, layers, h: torch.Tensor,
+               cut: Optional[int] = None, remat: bool = False):
+    """Run ``h`` through every layer of ``layers`` (a stacked sub-tree or a
+    :class:`LayerStack`); ``step(h, layer_params) -> h``.
+
+    ``cut``: the HiFT backward cut.  Layers ``< cut`` run under
+    ``torch.no_grad()`` and the activation entering layer ``cut`` is
+    detached — the reference's ``stop_gradient`` before layer ``cut`` — so
+    no cotangent flows below the active group.  ``remat``: each layer that
+    does record a graph runs under ``torch.utils.checkpoint`` (non
+    re-entrant), storing only its input and recomputing the rest in the
+    backward, as the reference's ``jax.checkpoint`` does."""
+    n = n_layers_of(layers)
+    cut = None if cut is None or cut <= 0 else min(cut, n)
+    for i in range(n):
+        p = layer_at(layers, i)
+        if cut is not None and i < cut:
+            with torch.no_grad():
+                h = step(h, p)
+            continue
+        if i == cut:
+            h = h.detach()
+        if remat and torch.is_grad_enabled():
+            h = checkpoint(step, h, p, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            h = step(h, p)
+    return h

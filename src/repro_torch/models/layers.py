@@ -13,6 +13,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 # ---------------------------------------------------------------- init utils
@@ -140,15 +141,137 @@ def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
         b, s, kv * n_rep, hd)
 
 
+# ------------------------------------------------------ training attention
+#
+# The reference trains through the pure-jnp ``chunked_causal_attention``
+# (``attention_impl="chunked"`` by default); its Pallas flash kernel has no
+# backward, so the port's training forward has no kernel here either.
+
+NEG = -1e30
+
+
+def full_causal_attention(q, k, v):
+    """Reference O(S^2)-memory attention.  q/k/v: (B, S, H, hd)."""
+    b, s, h, hd = q.shape
+    scale = 1.0 / math.sqrt(hd)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+    scores = torch.where(mask[None, None], scores,
+                         torch.full_like(scores, NEG))
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def _q_block_attention(q_block, k, v, qi: int, block_q: int, block_k: int,
+                       nk: int, scale: float):
+    """Online softmax of one query block over the kv blocks it can see.
+
+    Kv blocks wholly in its future are skipped: in the reference they
+    contribute exact zeros (``exp(-1e30 - m) == 0``, ``corr == 1``), so
+    skipping them changes no bit of the result."""
+    b, bq, h, hd = q_block.shape
+    m = torch.full((b, h, bq), NEG, dtype=torch.float32, device=q_block.device)
+    l = torch.zeros((b, h, bq), dtype=torch.float32, device=q_block.device)
+    acc = torch.zeros((b, h, bq, hd), dtype=torch.float32,
+                      device=q_block.device)
+    q_pos = qi * block_q + torch.arange(block_q, device=q_block.device)
+    last = (qi * block_q + block_q - 1) // block_k
+    for kj in range(min(nk, last + 1)):
+        k_block = k[:, kj * block_k:(kj + 1) * block_k]
+        v_block = v[:, kj * block_k:(kj + 1) * block_k]
+        sc = torch.einsum("bqhd,bkhd->bhqk", q_block, k_block).float() * scale
+        k_pos = kj * block_k + torch.arange(block_k, device=q_block.device)
+        causal = q_pos[:, None] >= k_pos[None, :]
+        sc = torch.where(causal[None, None], sc, torch.full_like(sc, NEG))
+        m_new = torch.maximum(m, sc.amax(dim=-1))
+        p = torch.exp(sc - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhqk,bkhd->bhqd", p.to(q_block.dtype), v_block).float()
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q_block.dtype)
+
+
+def chunked_causal_attention(q, k, v, block_q: int = 512, block_k: int = 512,
+                             balanced: bool = False):
+    """Flash-style online-softmax causal attention in plain torch (the
+    reference's default training attention, its ``balanced=False``
+    schedule).  q/k/v: (B, S, H, hd), kv heads already repeated.
+
+    Each query block runs under ``torch.utils.checkpoint``, so its block
+    score matrices are recomputed in the backward instead of saved — the
+    reference's ``jax.checkpoint`` around ``per_q``."""
+    if balanced:
+        raise NotImplementedError(
+            "chunked_causal_attention(balanced=True) is not ported yet")
+    b, s, h, hd = q.shape
+    nq = max(1, s // block_q)
+    nk = max(1, s // block_k)
+    block_q = s // nq
+    block_k = s // nk
+    scale = 1.0 / math.sqrt(hd)
+    outs = []
+    for qi in range(nq):
+        q_block = q[:, qi * block_q:(qi + 1) * block_q]
+        args = (q_block, k, v, qi, block_q, block_k, nk, scale)
+        if torch.is_grad_enabled():
+            o = checkpoint(_q_block_attention, *args, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            o = _q_block_attention(*args)
+        outs.append(o)                                   # (B, H, bq, hd)
+    out = torch.cat(outs, dim=2)                         # (B, H, S, hd)
+    return out.transpose(1, 2).reshape(b, s, h, hd)
+
+
+def gqa_attention(p, x: torch.Tensor, cfg, cos, sin, impl: str = "chunked",
+                  balanced: bool = False) -> torch.Tensor:
+    """Training causal self-attention with grouped-query KV heads (the
+    reference's ``gqa_attention``).  Weights are cast to ``x.dtype`` at
+    use.  ``impl="pallas"`` raises: the reference's flash kernel has no
+    backward, so no training path runs it."""
+    if impl == "pallas":
+        raise NotImplementedError(
+            "attention_impl='pallas' has no backward in the reference; the "
+            "training forward runs 'chunked' or 'full'")
+    b, s, _ = x.shape
+    hd = cfg.head_dim
+    q = x @ p["wq"].to(x.dtype)
+    k = x @ p["wk"].to(x.dtype)
+    v = x @ p["wv"].to(x.dtype)
+    if "bq" in p:
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    q = apply_rope(q.reshape(b, s, cfg.n_heads, hd), cos, sin)
+    k = apply_rope(k.reshape(b, s, cfg.kv_heads, hd), cos, sin)
+    v = v.reshape(b, s, cfg.kv_heads, hd)
+    n_rep = cfg.n_heads // cfg.kv_heads
+    k = _repeat_kv(k, n_rep)
+    v = _repeat_kv(v, n_rep)
+    if impl == "full":
+        o = full_causal_attention(q, k, v)
+    else:
+        # the reference calls it with its default 512-wide blocks, not
+        # cfg.block_q/block_k
+        o = chunked_causal_attention(q, k, v, balanced=balanced)
+    return o.reshape(b, s, cfg.n_heads * hd) @ p["wo"].to(x.dtype)
+
+
 # ----------------------------------------------------------------------- MLP
+#
+# Weights are cast to the activation dtype at use, as in JAX (a no-op when
+# they already match, as on the serving path, whose engines cast once).
 
 def swiglu(p, x: torch.Tensor) -> torch.Tensor:
-    g = F.silu(x @ p["w_gate"])
-    u = x @ p["w_up"]
-    return (g * u) @ p["w_down"]
+    g = F.silu(x @ p["w_gate"].to(x.dtype))
+    u = x @ p["w_up"].to(x.dtype)
+    return (g * u) @ p["w_down"].to(x.dtype)
 
 
 def gelu_mlp(p, x: torch.Tensor) -> torch.Tensor:
     # jax.nn.gelu defaults to the tanh approximation
-    h = F.gelu(x @ p["w_up"] + p["b_up"], approximate="tanh")
-    return h @ p["w_down"] + p["b_down"]
+    h = F.gelu(x @ p["w_up"].to(x.dtype) + p["b_up"].to(x.dtype),
+               approximate="tanh")
+    return h @ p["w_down"].to(x.dtype) + p["b_down"].to(x.dtype)

@@ -1,13 +1,16 @@
-"""Dense decoder-only transformer LM, serving path (GQA + RoPE + SwiGLU).
+"""Dense decoder-only transformer LM (GQA + RoPE + SwiGLU).
 
-Port of the serving half of ``repro.models.transformer``: ``init``,
+Port of ``repro.models.transformer`` with the same param dict and cache
+layouts.  Training: ``unit_spec``, ``apply`` and ``loss_fn`` (the chunked
+plain-torch attention and cross-entropy, as the reference trains; the
+HiFT cut detaches below the active group).  Serving: ``init``,
 ``head_weight``, ``init_cache``, ``prefill``, ``decode_step`` and
-``paged_decode_step``, with the same param dict and cache layouts.  Every
-attention goes through ``repro_torch.kernels.flash_attention``: on CUDA
-tensors that is a hand-written kernel, on CPU tensors its plain version.
-The projections, MLP and head stay ``torch.matmul``.
+``paged_decode_step``, whose every attention goes through
+``repro_torch.kernels.flash_attention``: on CUDA tensors a hand-written
+kernel, on CPU tensors its plain version.  The projections, MLP and head
+stay ``torch.matmul``.
 
-Differences from the JAX functions, all deliberate:
+Differences of the serving functions from JAX, all deliberate:
 
 - params must already be in the compute dtype (the engines cast once at
   construction; JAX keeps fp32 params and casts at every use);
@@ -19,7 +22,7 @@ Differences from the JAX functions, all deliberate:
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
@@ -28,6 +31,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention import (flash_attention, flash_decode,
                                                  paged_flash_decode)
 from repro_torch.models import layers as L
+from repro_torch.models.base import (Unit, dense_unit, run_layers,
+                                     stacked_units)
 
 PyTree = Any
 
@@ -116,6 +121,61 @@ def _layer(params, i: int) -> PyTree:
 def _logits(cfg: ArchConfig, params, h: torch.Tensor) -> torch.Tensor:
     h = _norm_fns(cfg)[1](params["head"]["final_norm"], h)
     return (h @ head_weight(cfg, params)).float()
+
+
+# ---------------------------------------------------------------- training
+
+def unit_spec(cfg: ArchConfig) -> list[Unit]:
+    return ([dense_unit("embed")] + stacked_units("layers", cfg.n_layers)
+            + [dense_unit("head")])
+
+
+def _block(cfg: ArchConfig, cos, sin):
+    _, norm = _norm_fns(cfg)
+    _, mlp = _mlp_fns(cfg)
+
+    def step(h, p):
+        h = h + L.gqa_attention(p["attn"], norm(p["ln1"], h), cfg, cos, sin,
+                                impl=cfg.attention_impl,
+                                balanced=cfg.attention_balanced)
+        return h + mlp(p["mlp"], norm(p["ln2"], h))
+    return step
+
+
+def apply(cfg: ArchConfig, params: PyTree, batch, cut: Optional[int] = None,
+          compute_dtype=torch.bfloat16, return_hidden: bool = False):
+    """Training forward -> logits (B, S, V) float32 (or the final hidden
+    states with ``return_hidden``).
+
+    ``params["layers"]`` is the stacked sub-tree or a
+    ``models.base.LayerStack`` (a grouped strategy's frozen and active
+    pieces).  ``cut``: the HiFT backward cut.  None = FPFT (gradients may
+    reach the embedding).  ``cut=c >= 0``: the embedding and the first c
+    layers are frozen — the embedding's output is detached whatever ``c``
+    is, layers below ``c`` run without a graph, and the activation entering
+    layer ``c`` is detached, so the backward never descends below the
+    active group."""
+    _check_family(cfg)
+    h = params["embed"]["tok"][batch["tokens"]].to(compute_dtype)
+    cos, sin = _rope(cfg, h.shape[1], h.device)
+    if cut is not None:
+        h = h.detach()
+    h = run_layers(_block(cfg, cos, sin), params["layers"], h, cut=cut,
+                   remat=cfg.remat == "layer")
+    h = _norm_fns(cfg)[1](params["head"]["final_norm"], h)
+    if return_hidden:
+        return h
+    return (h @ head_weight(cfg, params).to(h.dtype)).float()
+
+
+def loss_fn(cfg: ArchConfig, params: PyTree, batch, cut: Optional[int] = None,
+            compute_dtype=torch.bfloat16):
+    """Next-token cross-entropy (chunked: never materializes (B, S, V))."""
+    from repro_torch.models.losses import chunked_next_token_xent
+    h = apply(cfg, params, batch, cut=cut, compute_dtype=compute_dtype,
+              return_hidden=True)
+    return chunked_next_token_xent(h, head_weight(cfg, params),
+                                   batch["labels"], chunk=cfg.ce_chunk or None)
 
 
 # ---------------------------------------------------------------- serving

@@ -25,6 +25,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch.common.device import resolve_device
 from repro_torch.common.pytree import tree_map
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import get_family
@@ -38,14 +39,6 @@ def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
     """Argmax over the last dim; ties go to the first index, as
     ``jnp.argmax`` does."""
     return torch.argmax(logits, dim=-1).to(torch.int32)
-
-
-def resolve_device(device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' "
-                           "to serve on the CPU")
-    return dev
 
 
 def _extract_params(state_or_params):
