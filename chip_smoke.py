@@ -31,7 +31,24 @@ Phases, one JSON line each:
    over that run, and a profile of a layer-group step; then two full-size
    steps under Mixed^Hi (bf16 params, fp32 master of the active group);
 8. FPFT against HiFT at 4 layers of llama2-7b width (fp32, AdamW, fused).
-   Peak memory of 7 and 8 stands beside the reference's analytic P+G+S.
+   Peak memory of 7 and 8 stands beside the reference's analytic P+G+S;
+9. the dequant-matmul kernel against its plain version at llama2-7b's
+   shapes (M = 4 x 512; the three projection shapes of a stacked layer,
+   scale tile rows 8; the head, tile rows 1; one ragged case), int8 and
+   NF4, fp32 and bf16: decode bit-exact (x = the identity) and the
+   product within tolerance, with its time, the plain version's, the
+   time of ``torch.matmul`` on the pre-decoded weight, and the bound;
+10. codes on the card equal codes on the CPU: a llama2-7b layer group and
+   the head, both formats;
+11. quantized training, card against CPU: 4 HiFT steps of a 2-layer model
+   at llama2-7b width with ``QuantConfig("nf4", "bf16")``;
+12. quantized training at full size: llama2-7b, HiFT m=1, AdamW, batch 4 x
+   512 — NF4 with bf16 moments (embed, layers 0 and 1 bottom2up, then the
+   head and layer 31 top2down), int8 with bf16 moments and Mixed^Hi with
+   NF4 (2 steps each) — with host time, peak memory beside the analytic
+   P+G+S and the dequant kernel's device time and launches per step, the
+   kernels' launches counted over that run, and a profile of a deep NF4
+   step.
 
 Then the ``nvidia-smi`` line, the kernels line and, last, the result line.
 Any failure raises: the script exits non-zero and prints no result.  It
@@ -66,12 +83,14 @@ KERNEL_ROWS = {
     "fused_adamw": "src/repro/kernels/fused_adamw.py:41",
     "fused_sgdm": "src/repro/kernels/fused_sgdm.py:29",
     "fused_adagrad": "src/repro/kernels/fused_adagrad.py:30",
+    "dequant_matmul": "src/repro/kernels/fused_dequant_matmul.py:64",
 }
 SOURCES = {
     **dict.fromkeys(("flash_attention", "flash_decode", "paged_flash_decode"),
                     "src/repro_torch/kernels/csrc/flash_attention.cu"),
     **dict.fromkeys(("fused_adamw", "fused_sgdm", "fused_adagrad"),
                     "src/repro_torch/kernels/csrc/fused_update.cu"),
+    "dequant_matmul": "src/repro_torch/kernels/csrc/dequant_matmul.cu",
 }
 # The reference's analytic P+G+S (repro.core.memory_model.analyze, AdamW,
 # m=1) for llama2-7b at (n_layers, mode, precision), in GiB: a model, not
@@ -84,6 +103,20 @@ ANALYTIC_PGS_GIB = {
     (4, "hift", "fp32"): 6.2541351318359375,
     (4, "fpft", "fp32"): 15.96929931640625,
 }
+# The same model for quantized residency, at (n_layers, mode, precision,
+# frozen codec, moment dtype), AdamW, m=1; tests/test_torch_quant_training.py
+# recomputes these from the JAX package.
+ANALYTIC_PGS_GIB_QUANT = {
+    (32, "hift", "fp32", "nf4", "bf16"): 5.430839538574219,
+    (32, "hift", "fp32", "int8", "bf16"): 8.568656921386719,
+    (32, "hift", "mixed_hi", "nf4", "bf16"): 5.4308319091796875,
+}
+# The dequant-matmul kernel against its plain version (decode, then one
+# cuBLAS product): fp32 sums of up to 11008 products taken in another
+# order (atol = rtol 1e-4; a sum's rounding walk is ~1e-5 of outputs of
+# order 1); bf16 outputs may round to neighbouring values (2e-2, the
+# attention kernels' bf16 tolerance).  The decode itself is exact.
+DEQUANT_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # The update kernels round every operation exactly as their plain
 # versions' eager ops do (explicitly rounded intrinsics, no contraction),
 # so they must agree bit for bit: 0 ulps of each output's dtype.
@@ -929,6 +962,316 @@ def phase_train_4_layers(torch):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------ phases 9-12
+
+def dequant_cases(cfg):
+    """(case, fmt, dtype, K, N, stacked) at llama2-7b's shapes; the first
+    is the main path's (NF4, fp32, a stacked layer's square projection)."""
+    d, f, v = cfg.d_model, cfg.d_ff, cfg.vocab_padded
+    shapes = [("layer wq/wk/wv/wo", d, d, True),
+              ("layer w_gate/w_up", d, f, True),
+              ("layer w_down", f, d, True),
+              ("head", d, v, False),
+              ("ragged (K 1000, N 200)", 1000, 200, True)]
+    return [(f"{name} {fmt} {dtype}", fmt, dtype, k, n, stacked)
+            for fmt in ("nf4", "int8") for dtype in ("float32", "bfloat16")
+            for name, k, n, stacked in shapes]
+
+
+def dequant_inputs(torch, fmt, dt, m, k, n, stacked, gen):
+    """(x, view): random x and a codec view of random weights encoded on
+    the card; a stacked leaf gives layer 1 of a 2-layer stack (scale tile
+    rows 8), a 2-d leaf its whole view (tile rows 1)."""
+    from repro_torch.dist import quant as Q
+    shape = (2, k, n) if stacked else (k, n)
+    w = (torch.randn(shape, generator=gen, device="cuda") / k ** 0.5).to(dt)
+    rec = Q.quantize_leaf(w, fmt)
+    del w
+    view = Q.layer_of(rec, 1) if stacked else Q.view_of(rec)
+    x = torch.randn((m, k), generator=gen, device="cuda").to(dt)
+    return x, view
+
+
+def phase_dequant_kernel(torch):
+    """The dequant-matmul kernel against its plain version on the card at
+    M = 2048 (batch 4 x 512): decode bit-exact through one-hot rows of x,
+    the product within ``DEQUANT_TOL``; times beside the bound and the
+    product of ``torch.matmul`` on the pre-decoded weight (no single
+    PyTorch call decodes and multiplies, so ``library_ms`` is null)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import dequant_matmul as DM
+    from repro_torch.kernels import ref
+    cfg = get_config("llama2-7b")
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    m = 4 * 512
+    results = {}
+    for case, fmt, dtype, k, n, stacked in dequant_cases(cfg):
+        dt = getattr(torch, dtype)
+        x, view = dequant_inputs(torch, fmt, dt, m, k, n, stacked, gen)
+        eye = torch.eye(k, dtype=dt, device="cuda")
+        decoded = DM.dequant_matmul(eye, view)
+        exact = torch.equal(decoded, view.decode().to(dt))
+        del eye, decoded
+        if not exact:
+            raise RuntimeError(f"dequant_matmul ({case}): decode differs "
+                               "from dist.quant's")
+        got = DM.dequant_matmul(x, view).float()
+        want = ref.dequant_matmul_ref(x, view).float()
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            raise RuntimeError(f"dequant_matmul ({case}): non-finite output")
+        err = (got - want).abs()
+        tol = DEQUANT_TOL[dtype]
+        max_err = float(err.max())
+        if bool((err > tol + tol * want.abs()).any()):
+            raise RuntimeError(f"dequant_matmul ({case}): max |err| "
+                               f"{max_err} over tolerance {tol}")
+        del got, want, err
+        e = 2 if dtype == "bfloat16" else 4
+        nbytes = (x.numel() * e + view.q.numel() * view.q.element_size()
+                  + 4 * view.s.numel() + m * n * e)
+        sets = [(x, view)] + [dequant_inputs(torch, fmt, dt, m, k, n,
+                                             stacked, gen)
+                              for _ in range(copies(nbytes) - 1)]
+        ms = time_ms(torch, DM.dequant_matmul, sets, reps=5, launches=10)
+        plain_ms = time_ms(torch, ref.dequant_matmul_ref, sets, reps=3,
+                           launches=4)
+        dense = [(a, v.decode().to(dt)) for a, v in sets]
+        decoded_ms = time_ms(torch, torch.matmul, dense, reps=5, launches=10)
+        del dense
+        flops = 2 * m * k * n
+        bound_ms, bound_by = bound(flops, nbytes, dtype)
+        row = dict(kernel="dequant_matmul", case=case, fmt=fmt, dtype=dtype,
+                   shapes=dict(m=m, k=k, n=n, tile_rows=view.tile_rows),
+                   decode_bit_exact=exact, max_abs_err=max_err, tol=tol,
+                   ms=ms, plain_ms=plain_ms, library_ms=None,
+                   decoded_matmul_ms=decoded_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, flops=flops, bytes=nbytes,
+                   share_of_bound=bound_ms / ms)
+        emit("kernel", **row)
+        results.setdefault("dequant_matmul", row)   # the main path's case
+        del sets, x, view
+        gc.collect()
+        torch.cuda.empty_cache()
+    return results
+
+
+def phase_quant_codes(torch):
+    """The codec on the card and on the CPU from the same weights: one
+    llama2-7b layer group (9 leaves, stacked (1, K, N) and (1, d)) in fp32
+    and bf16, and the head (D, V) in fp32, in both formats; codes and
+    scales must be equal."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.dist import quant as Q
+    cfg = get_config("llama2-7b")
+    gen = torch.Generator().manual_seed(5)
+    leaves = [("layer", s, torch.float32) for s in group_shapes(cfg, "layer")]
+    leaves += [("layer", s, torch.bfloat16)
+               for s in group_shapes(cfg, "layer")]
+    leaves += [("head", (cfg.d_model, cfg.vocab_padded), torch.float32)]
+    t0 = time.perf_counter()
+    n_el = 0
+    for fmt in Q.QUANT_FORMATS:
+        for _, shape, dt in leaves:
+            w = (torch.randn(shape, generator=gen) / shape[-2] ** 0.5).to(dt)
+            cpu = Q.quantize_leaf(w, fmt)
+            card = Q.quantize_leaf(w.to("cuda"), fmt)
+            for key in ("q", "s"):
+                if not torch.equal(cpu[key], card[key].cpu()):
+                    raise RuntimeError(f"{fmt} {key} of a {tuple(shape)} "
+                                       f"{dt} leaf: card differs from CPU")
+            if card["t"].dtype != dt or tuple(card["t"].shape) != tuple(
+                    cpu["t"].shape):
+                raise RuntimeError("templates differ")
+            n_el += w.numel()
+            del w, cpu, card
+    emit("codes_card_vs_cpu", formats=list(Q.QUANT_FORMATS),
+         leaves=len(leaves), elements=n_el, equal=True,
+         seconds=time.perf_counter() - t0)
+
+
+def phase_train_quant_card_vs_cpu(torch):
+    """4 HiFT steps with AdamW and ``QuantConfig("nf4", "bf16")`` (embed,
+    layer 0, layer 1, head) of a 2-layer model at llama2-7b width, fp32,
+    batch 1 x 64, from the same params on the CPU (plain versions) and the
+    card (kernels).  The resident codes of both runners are equal; losses
+    within rtol 1e-4, for the reason of ``phase_train_card_vs_cpu``."""
+    from repro_torch.common.pytree import flatten_with_paths
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import LRSchedule, QuantConfig, make_runner
+    from repro_torch.kernels import dequant_matmul as DM
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(get_config("llama2-7b"), n_layers=2)
+    params = T.init(cfg, torch.Generator().manual_seed(0), device="cpu",
+                    dtype=torch.float32)
+    batches = train_batches(cfg, 64, 1, 4, "cpu")
+    out, codes = {}, {}
+    for dev in ("cpu", "cuda"):
+        runner = make_runner(cfg, "hift", params=params, optimizer="adamw",
+                             schedule=LRSchedule(base_lr=1e-4),
+                             quant=QuantConfig("nf4", "bf16"), device=dev)
+        codes[dev] = {k: t.cpu() for k, t in
+                      flatten_with_paths(runner.params).items()}
+        before = DM.dequant_matmul.launches
+        t0 = time.perf_counter()
+        out[dev] = [float(runner.train_step(b)) for b in batches]
+        secs = time.perf_counter() - t0
+        if dev == "cuda" and DM.dequant_matmul.launches == before:
+            raise RuntimeError("the card's quantized HiFT steps did not run "
+                               "the dequant-matmul kernel")
+        emit("train_quant_card_vs_cpu_run", device=dev, seconds=secs,
+             dequant_launches=DM.dequant_matmul.launches - before)
+        del runner
+    same = all(torch.equal(codes["cpu"][k], codes["cuda"][k])
+               for k in codes["cpu"])
+    rel = max(abs(a - b) / abs(a) for a, b in zip(out["cpu"], out["cuda"]))
+    emit("train_quant_card_vs_cpu", n_layers=cfg.n_layers,
+         d_model=cfg.d_model, quant="nf4/bf16", batch=1, seq=64,
+         resident_codes_equal=same, cpu_losses=out["cpu"],
+         cuda_losses=out["cuda"], max_rel_loss_gap=rel, rtol=1e-4)
+    if not same:
+        raise RuntimeError("card and CPU resident codes differ")
+    if not all(math.isfinite(x) for x in out["cuda"]) or rel > 1e-4:
+        raise RuntimeError(f"card and CPU quantized losses differ: {out}")
+    del params, codes
+    gc.collect()
+
+
+def phase_train_quant_full(torch):
+    """llama2-7b at full depth and width, HiFT m=1, AdamW, batch 4 x 512,
+    quantized residency: NF4 + bf16 moments at fp32 (embed, layers 0 and 1
+    bottom2up; head and layer 31 top2down), int8 + bf16 moments at fp32
+    and NF4 + bf16 moments under Mixed^Hi (embed and layer 0 each).  Each
+    runner encodes fresh random params from seed 0, which are then freed,
+    so a step's peak holds the encoded tree.  Per step: host clock, peak
+    memory (reset per step) and the dequant kernel's device time (CUDA
+    events around its launches) and launches; the kernels' launches are
+    counted over the run, which includes layer 2's step of the first NF4
+    runner, run under ``torch.profiler``."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import (HiFTConfig, LRSchedule, QuantConfig,
+                                  make_runner)
+    from repro_torch.dist.quant import quant_bytes
+    from repro_torch.kernels import dequant_matmul as DM
+    from repro_torch.kernels import fused_update as FU
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.mixed_precision import get_policy
+    cfg = get_config("llama2-7b")
+    batches = train_batches(cfg, 512, 4, 4, "cuda")
+    events = []
+    launch = DM._launch
+
+    def timed_launch(*args):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = launch(*args)
+        e1.record()
+        events.append((e0, e1))
+        return out
+
+    plan = [("nf4", "fp32", "bottom2up", 3), ("nf4", "fp32", "top2down", 2),
+            ("int8", "fp32", "bottom2up", 2),
+            ("nf4", "mixed_hi", "bottom2up", 2)]
+    steps, peaks = [], {}
+    DM._launch = timed_launch
+    DM.reset_launches()                 # count the main path's run only
+    FU.reset_launches()
+    try:
+        for fmt, policy, order, n in plan:
+            gc.collect()
+            torch.cuda.empty_cache()
+            dt = torch.bfloat16 if policy == "mixed_hi" else torch.float32
+            params = T.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                            device="cuda", dtype=dt)
+            t0 = time.perf_counter()
+            runner = make_runner(cfg, "hift", params=params, optimizer="adamw",
+                                 hift=HiFTConfig(m=1, strategy=order),
+                                 policy=get_policy(policy),
+                                 quant=QuantConfig(fmt, "bf16"),
+                                 schedule=LRSchedule(base_lr=1e-5),
+                                 device="cuda")
+            torch.cuda.synchronize()
+            encode_s = time.perf_counter() - t0
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+            resident = quant_bytes(runner.params)
+            for i in range(n):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                events.clear()
+                t0 = time.perf_counter()
+                loss = float(runner.train_step(batches[i]))
+                torch.cuda.synchronize()
+                host_ms = 1e3 * (time.perf_counter() - t0)
+                label = runner.last_metrics["group"]
+                peak = torch.cuda.max_memory_allocated()
+                key = (32, "hift", policy, fmt, "bf16")
+                steps.append(dict(
+                    quant=f"{fmt}/bf16", policy=policy, order=order,
+                    group=label, kind=_group_kind(label), loss=loss,
+                    host_ms=host_ms, peak_memory_bytes=peak,
+                    peak_memory_gib=peak / 2**30,
+                    analytic_pgs_gib=ANALYTIC_PGS_GIB_QUANT[key],
+                    resident_bytes=resident, encode_s=encode_s,
+                    dequant_kernel_ms=sum(a.elapsed_time(b)
+                                          for a, b in events),
+                    dequant_launches=len(events)))
+                emit("train_quant_step", arch=cfg.name, **steps[-1])
+                peaks[key] = max(peaks.get(key, 0), peak)
+                if not math.isfinite(loss):
+                    raise RuntimeError(f"non-finite loss at {label}")
+            if (fmt, policy, order) == ("nf4", "fp32", "bottom2up"):
+                phase_train_quant_profile(torch, cfg, runner, batches[3])
+            del runner
+        launches = {"dequant_matmul": DM.dequant_matmul.launches,
+                    **{fn.__name__.replace("_update", ""): fn.launches
+                       for fn in FU.KERNELS}}
+    finally:
+        DM._launch = launch
+    emit("train_quant_full_size", arch=cfg.name, n_layers=cfg.n_layers,
+         batch=4, seq=512, remat=cfg.remat, launches=launches,
+         peaks_vs_model=[dict(policy=k[2], quant=f"{k[3]}/{k[4]}",
+                              peak_memory_gib=v / 2**30,
+                              analytic_pgs_gib=ANALYTIC_PGS_GIB_QUANT[k])
+                         for k, v in peaks.items()])
+    if launches["dequant_matmul"] == 0 or launches["fused_adamw"] == 0:
+        raise RuntimeError(f"kernels never launched on the quantized "
+                           f"training path: {launches}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_quant_profile(torch, cfg, runner, batch):
+    """Where a deep quantized step's time goes: the NF4 runner's next step
+    (layer 2, backward through 30 layers) under ``torch.profiler``, with
+    the dequant kernel's share of the device's busy time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        float(runner.train_step(batch))
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    dev_us = [getattr(e, "self_device_time_total", 0.0) for e in kernels]
+    busy_ms = sum(dev_us) / 1e3
+    dq_ms = sum(us for us, e in zip(dev_us, kernels)
+                if "dequant_matmul" in e.key) / 1e3
+    top = sorted(zip(dev_us, kernels), key=lambda t: -t[0])[:10]
+    emit("train_quant_profile", group=runner.last_metrics["group"],
+         quant="nf4/bf16", host_ms=1e3 * host_s, device_busy_ms=busy_ms,
+         device_idle_share=1 - busy_ms / (1e3 * host_s),
+         dequant_kernel_ms=dq_ms, dequant_share_of_busy=dq_ms / busy_ms,
+         top_kernels=[dict(name=e.key[:80], ms=us / 1e3, calls=e.count)
+                      for us, e in top])
+
+
 # ------------------------------------------------------------ main
 
 def main() -> int:
@@ -967,6 +1310,11 @@ def main() -> int:
     launches.update(phase_train_full(torch))
     phase_train_mixed_hi(torch)
     phase_train_4_layers(torch)
+    rows.update(phase_dequant_kernel(torch))
+    phase_quant_codes(torch)
+    phase_train_quant_card_vs_cpu(torch)
+    launches["dequant_matmul"] = phase_train_quant_full(
+        torch)["dequant_matmul"]
 
     kernels = []
     for name, row in rows.items():

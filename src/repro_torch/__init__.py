@@ -5,7 +5,9 @@ param-dict layout and tensor layouts, imports ``torch`` and nothing of
 ``repro`` or ``jax``, and runs its kernels as hand-written CUDA
 (``repro_torch.kernels``) on the card.  Ported so far: the dense family's
 serving path (prefill, contiguous and paged decode, both engines and the
-serving launcher) and its training path (``hift`` and ``fpft`` with
+serving launcher), its training path (``hift`` and ``fpft`` with
 AdamW, SGD-momentum and AdaGrad, the precision policies, the synthetic
-data, the loop and the training launcher).
+data, the loop and the training launcher) and quantized resident state
+(``QuantConfig``: int8/NF4 codecs in ``dist.quant``, the dequant-matmul
+kernel, bf16 moments).
 """

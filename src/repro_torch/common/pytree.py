@@ -6,7 +6,7 @@ packages.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Mapping
+from typing import Any, Callable, Mapping, Optional
 
 import torch
 
@@ -36,9 +36,13 @@ def unflatten_from_paths(flat: Mapping[str, Any]) -> PyTree:
     return out
 
 
-def tree_map(fn: Callable, tree: PyTree) -> PyTree:
-    if isinstance(tree, Mapping):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+def tree_map(fn: Callable, tree: PyTree,
+             is_leaf: Optional[Callable] = None) -> PyTree:
+    """``fn`` over every leaf.  ``is_leaf(node)`` True stops the descent
+    there (``dist.quant.is_quantized`` treats a codec record as one leaf,
+    as the reference's ``jax.tree.map(..., is_leaf=is_quantized)``)."""
+    if isinstance(tree, Mapping) and not (is_leaf and is_leaf(tree)):
+        return {k: tree_map(fn, v, is_leaf) for k, v in tree.items()}
     return fn(tree)
 
 
@@ -52,7 +56,14 @@ def tree_bytes(tree: PyTree) -> int:
                for x in flatten_with_paths(tree).values())
 
 
+def is_record(node) -> bool:
+    """True for a ``{"q", "s", "t"}`` codec record (``dist.quant``)."""
+    return isinstance(node, Mapping) and set(node.keys()) == {"q", "s", "t"}
+
+
 def tree_cast(tree: PyTree, dtype: torch.dtype) -> PyTree:
-    """Cast floating leaves to ``dtype``; integer leaves pass through."""
-    return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x,
-                    tree)
+    """Cast floating leaves to ``dtype``; integer leaves pass through, and
+    so do codec records (``dist.quant``), whose template's dtype is the
+    record's own."""
+    return tree_map(lambda x: x if is_record(x) or not x.is_floating_point()
+                    else x.to(dtype), tree, is_leaf=is_record)

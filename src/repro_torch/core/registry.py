@@ -70,10 +70,16 @@ def make_runner(cfg, strategy: str = "hift", *, params: Any = None,
     (``kernels/csrc/fused_update.cu``).  ``None`` keeps the reference's
     rule: fused for the grouped strategies on the accelerator (here: when
     ``device`` is ``cuda``), unfused otherwise.  It needs the optimizer by
-    name, one of ``FUSED_OPTIMIZERS``.  ``pipeline_depth >= 2``,
-    ``stream_window``, ``mesh``, ``cross_pod`` and ``quant`` are not ported
-    yet and raise.  Remaining kwargs go to the strategy (``schedule``,
-    ``policy``, ``loss_fn``, ``hift=``)."""
+    name, one of ``FUSED_OPTIMIZERS``.
+
+    ``quant``: a ``QuantConfig``.  ``frozen="int8"|"nf4"`` codec-encodes
+    HiFT's resident tree; ``moments="bf16"`` rebuilds a by-name optimizer
+    with ``moment_dtype=bfloat16``, so it needs the optimizer given by name
+    and one of the moment-carrying ``FUSED_OPTIMIZERS``.
+
+    ``pipeline_depth >= 2``, ``stream_window``, ``mesh`` and ``cross_pod``
+    are not ported yet and raise.  Remaining kwargs go to the strategy
+    (``schedule``, ``policy``, ``loss_fn``, ``hift=``)."""
     import torch
 
     from repro_torch.common.device import resolve_device
@@ -85,6 +91,7 @@ def make_runner(cfg, strategy: str = "hift", *, params: Any = None,
     if kwargs.pop("stream_window", None) is not None:
         raise NotImplementedError("stream_window (fpft_streamed) is not "
                                   "ported yet")
+    quant = kwargs.pop("quant", None)
     grouped = strategy in ("hift", "hift_pipelined", "lisa")
     if isinstance(optimizer, str):
         fused = (device.type == "cuda" and grouped) \
@@ -94,10 +101,22 @@ def make_runner(cfg, strategy: str = "hift", *, params: Any = None,
         if fused_update and not okw:
             raise ValueError(f"no fused update kernel for {optimizer!r}; "
                              f"have {FUSED_OPTIMIZERS}")
+        if quant is not None and quant.moments:
+            if optimizer not in FUSED_OPTIMIZERS:
+                raise ValueError(
+                    "quant.moments applies to the moment-carrying "
+                    f"optimizers {FUSED_OPTIMIZERS}, not {optimizer!r}")
+            okw["moment_dtype"] = quant.moment_dtype
         optimizer = make_optimizer(optimizer, **okw)
     elif fused_update:
         raise ValueError("fused_update=True needs the optimizer given by "
                          "name so make_runner can rebuild it fused")
+    elif quant is not None and quant.moments:
+        raise ValueError("quant.moments needs the optimizer given by name "
+                         "so make_runner can rebuild it with "
+                         "moment_dtype=bf16")
+    if quant is not None:
+        kwargs["quant"] = quant
     if pipeline_depth is not None:
         if pipeline_depth >= 2:
             raise NotImplementedError("the bundle pipeline (pipeline_depth "

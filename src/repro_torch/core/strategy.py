@@ -24,7 +24,17 @@ require grad (``torch.autograd.grad`` over them, so no ``.grad`` is left
 behind and autograd never holds the frozen tree's gradients), and the
 updated group lands in the resident tree in place (:func:`write_back`).
 
-Not ported yet (they raise): ``mesh=``, ``cross_pod=``, ``quant=``,
+Quantized resident state (:class:`QuantConfig`): under
+``frozen="int8"|"nf4"`` HiFT keeps its resident tree codec-encoded
+(``dist.quant``) between steps.  Where the reference decodes the whole
+frozen tree inside its jitted step, the port decodes nothing beyond the
+layer in hand: every frozen projection and the frozen head multiply
+through the dequant-matmul kernel, which decodes inside the product.  The
+active group trains from an fp32 master in its bundle and is re-encoded
+after its update.  ``moments="bf16"`` (HiFT and FPFT) stores the optimizer
+moments in bf16.
+
+Not ported yet (they raise): ``mesh=``, ``cross_pod=``,
 ``param_sharding_fn=``, the bundle pipeline (``pipeline_depth >= 2``) and
 the other strategies (``hift_pipelined``, ``lisa``, ``fpft_streamed``,
 ``mezo``, ``lomo``, ``adalomo``).
@@ -46,6 +56,8 @@ from repro_torch.core.grouping import (Group, group_cut, make_groups,
                                        split_params)
 from repro_torch.core.registry import register_strategy
 from repro_torch.core.scheduler import LRSchedule
+from repro_torch.dist.quant import (QUANT_FORMATS, dequantize_tree,
+                                    quantize_tree, tree_logical_size)
 from repro_torch.models import get_family
 from repro_torch.models.base import unit_first_depth
 from repro_torch.optim.base import Optimizer, leaves, rebuild
@@ -96,7 +108,9 @@ def write_back(params: PyTree, new_active: PyTree, group: Group) -> PyTree:
     A stacked leaf that the fused update already wrote in place is left as
     it is; on the card any other is copied into the resident slice
     (``copy_``), so the full tree is never rebuilt; on the CPU the leaf is
-    rebuilt functionally and the input tree stays untouched."""
+    rebuilt functionally and the input tree stays untouched.  A codec
+    record folds as its three leaves: the re-encoded group's codes and
+    scales are copied into slices of the resident ``q`` and ``s``."""
     taken = {k: lo for k, lo, _ in group.stacked_ranges}
 
     def fold(full: torch.Tensor, new: torch.Tensor, lo: int) -> torch.Tensor:
@@ -151,6 +165,41 @@ class HiFTConfig:
     pipeline_depth: int = 1           # >= 2 (the bundle pipeline): not ported
 
 
+@dataclasses.dataclass
+class QuantConfig:
+    """Quantized resident state (the reference's ``QuantConfig``).
+
+    ``frozen``: the codec of the grouped strategies' resident tree,
+    ``"int8"`` or ``"nf4"`` (``dist.quant``); the tree stays encoded
+    between steps and the active group's fp32 master rides its bundle, so
+    codec rounding never compounds across revisits.  ``moments``:
+    ``"bf16"`` stores the optimizer moments in bf16 (every update computes
+    in fp32); ``make_runner`` wires it when the optimizer is given by
+    name."""
+    frozen: Optional[str] = None
+    moments: Optional[str] = None
+
+    def __post_init__(self):
+        if self.frozen is not None and self.frozen not in QUANT_FORMATS:
+            raise ValueError(
+                f"QuantConfig.frozen must be one of {QUANT_FORMATS} or "
+                f"None, got {self.frozen!r}")
+        if self.moments is not None and self.moments not in ("bf16",
+                                                             "bfloat16"):
+            raise ValueError(
+                "QuantConfig.moments supports 'bf16' (fp32 is the default "
+                f"resident moment dtype), got {self.moments!r}")
+        if self.frozen is None and self.moments is None:
+            raise ValueError(
+                "empty QuantConfig: set frozen='int8'|'nf4' and/or "
+                "moments='bf16'")
+
+    @property
+    def moment_dtype(self) -> Optional[torch.dtype]:
+        """The dtype ``moments`` resolves to (None = fp32 default)."""
+        return torch.bfloat16 if self.moments else None
+
+
 # -------------------------------------------------------------- TrainState
 
 @dataclasses.dataclass(frozen=True)
@@ -200,17 +249,31 @@ class Strategy:
 
     name = "base"
     k = 1   # steps per LR cycle (HiFT: number of groups; others: 1)
+    # what QuantConfig may ask of a strategy: a frozen resident tree to
+    # encode (grouped strategies), a moment tree to narrow
+    supports_quant_frozen = False
+    supports_quant_moments = False
 
     def __init__(self, cfg, optimizer: Optional[Optimizer], *,
                  schedule: Optional[LRSchedule] = None, policy: Policy = FP32,
                  loss_fn: Optional[Callable] = None, device="cuda",
                  mesh=None, param_sharding_fn: Optional[Callable] = None,
-                 cross_pod=None, quant=None):
+                 cross_pod=None, quant: Optional[QuantConfig] = None):
         for what, val in (("mesh=", mesh), ("cross_pod=", cross_pod),
-                          ("quant=", quant),
                           ("param_sharding_fn=", param_sharding_fn)):
             if val is not None:
                 raise NotImplementedError(f"{what} is not ported yet")
+        if quant is not None:
+            if quant.frozen and not self.supports_quant_frozen:
+                raise ValueError(
+                    f"strategy {self.name!r} does not support "
+                    f"quant.frozen={quant.frozen!r}: only the grouped "
+                    "strategies keep a frozen resident tree to encode")
+            if quant.moments and not self.supports_quant_moments:
+                raise ValueError(
+                    f"strategy {self.name!r} does not support "
+                    "quant.moments: it keeps no optimizer moment tree")
+        self.quant = quant
         self.cfg = cfg
         self.model = get_family(cfg)
         self.optimizer = optimizer
@@ -247,6 +310,12 @@ class _GroupedStrategy(Strategy):
 
     use_cut = True
     offload_optimizer = True
+    supports_quant_frozen = True
+    supports_quant_moments = True
+
+    @property
+    def _quant_frozen(self) -> Optional[str]:
+        return self.quant.frozen if self.quant is not None else None
 
     def _setup_groups(self, m: int) -> None:
         self.units = self.model.unit_spec(self.cfg)
@@ -256,14 +325,17 @@ class _GroupedStrategy(Strategy):
     def _resident_params(self, params: PyTree) -> PyTree:
         """The policy-cast resident tree on the device: bf16 under Mixed^Hi
         (fp32 masters ride the bundles), fp32 under fp32 and mixed, the
-        policy's param dtype otherwise."""
+        policy's param dtype otherwise — then, under
+        ``QuantConfig(frozen=...)``, codec-encoded on the device."""
         params = self._place(params)
         policy = self.policy
         if policy.master_active_group_only:
-            return tree_cast(params, torch.bfloat16)
-        if policy.master_fp32 or policy.name == "fp32":
-            return params
-        return tree_cast(params, policy.param_dtype)
+            params = tree_cast(params, torch.bfloat16)
+        elif not (policy.master_fp32 or policy.name == "fp32"):
+            params = tree_cast(params, policy.param_dtype)
+        if self._quant_frozen is not None:
+            params = quantize_tree(params, self._quant_frozen)
+        return params
 
     def _cut(self, group: Group) -> Optional[int]:
         if not self.use_cut:
@@ -272,7 +344,12 @@ class _GroupedStrategy(Strategy):
 
     def _init_bundle(self, active: PyTree) -> PyTree:
         """A group's optimizer bundle, created on its first visit (on the
-        device).  Under Mixed^Hi it carries the group's fp32 master."""
+        device).  Under quantized residency it carries an fp32 master
+        decoded from the group's first-visit codes; under Mixed^Hi one cast
+        from the group's bf16 params."""
+        if self._quant_frozen is not None:
+            master = tree_cast(dequantize_tree(active), torch.float32)
+            return {"opt": self.optimizer.init(master), "master": master}
         if self.policy.master_active_group_only:
             master = tree_cast(active, torch.float32)
             return {"opt": self.optimizer.init(master), "master": master}
@@ -288,14 +365,22 @@ class _GroupedStrategy(Strategy):
             return self.loss_fn(cfg, merge_params(a, frozen, group), batch,
                                 cut=cut, compute_dtype=policy.compute_dtype)
 
-        loss, grads = _value_and_grad(loss_of, active)
-        if policy.master_active_group_only:
-            # grads are w.r.t. the bf16 working params; the fp32 master
-            # takes the update and the resident slice its bf16 cast
+        qf = self._quant_frozen
+        # under quantized residency the active group computes from its
+        # master (the frozen records stay encoded; the forward multiplies
+        # through their views)
+        work = active if qf is None else tree_cast(bundle["master"],
+                                                   policy.param_dtype)
+        loss, grads = _value_and_grad(loss_of, work)
+        if "master" in bundle:
+            # grads are w.r.t. the working params; the fp32 master takes the
+            # update and the resident slice its cast (re-encoded if quant)
             new_master, new_st = opt.update(grads, bundle["opt"],
                                             bundle["master"], lr)
-            return (tree_cast(new_master, policy.param_dtype),
-                    {"opt": new_st, "master": new_master}, loss)
+            new_active = tree_cast(new_master, policy.param_dtype)
+            if qf is not None:
+                new_active = quantize_tree(new_active, qf)
+            return new_active, {"opt": new_st, "master": new_master}, loss
         new_active, new_st = opt.update(grads, bundle["opt"], active, lr)
         return new_active, {"opt": new_st}, loss
 
@@ -319,7 +404,9 @@ class _GroupedStrategy(Strategy):
         return write_back(state.params, new_active, group), opt_state, loss
 
     def peak_trainable_params(self, params: PyTree) -> int:
-        return max(tree_size(split_params(params, g)[0]) for g in self.groups)
+        # a codec record counts as the leaf it encodes
+        return max(tree_logical_size(split_params(params, g)[0])
+                   for g in self.groups)
 
     def group_at(self, state: TrainState, step: Optional[int] = None) -> Group:
         raise NotImplementedError
@@ -382,6 +469,9 @@ class FPFTStrategy(Strategy):
     """Standard full-parameter fine-tuning — the paper's baseline."""
 
     name = "fpft"
+    # every param trains every step (no frozen tree to encode), but the
+    # moment tree may be narrowed
+    supports_quant_moments = True
 
     def init(self, params: PyTree) -> TrainState:
         params = self._place(params)

@@ -14,6 +14,10 @@ contracted into a fused multiply-add; the bias corrections divide by a
 Python-float divisor may be turned into a multiply by its reciprocal on
 CUDA).  These are also the unfused updates of ``repro_torch.optim``.
 
+Dequant matmul (``csrc/dequant_matmul.cu``): the codec's own decode of
+the view, rounded through the template dtype and ``x.dtype``, then one
+fp32 product cast to ``x.dtype``.
+
 The wrappers call these on CPU tensors; the CPU tests hold them against
 the JAX package, and ``chip_smoke.py`` holds each kernel against them on
 the card.
@@ -132,3 +136,15 @@ def fused_adagrad_ref(p, g, a, *, lr, eps, weight_decay):
     a_ = a.float() + torch.square(g32)
     step = lr * g32 / (torch.sqrt(a_) + eps)
     return (p32 - step).to(p.dtype), a_.to(a.dtype)
+
+
+# ------------------------------------------------------- dequant matmul
+
+def dequant_matmul_ref(x: torch.Tensor, w) -> torch.Tensor:
+    """``x (M, K) @ dequant(w)`` for a ``dist.quant.QuantView`` ``w``:
+    decode with the codec (template dtype), round through ``x.dtype`` (the
+    model's ``w.astype(x.dtype)``), fp32 product, cast to ``x.dtype`` —
+    ``repro.kernels.ref.dequant_matmul_ref`` for the dtypes the model
+    pairs."""
+    w32 = w.decode().to(x.dtype).float()
+    return (x.float() @ w32).to(x.dtype)

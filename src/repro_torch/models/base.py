@@ -28,6 +28,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.pytree import flatten_with_paths, tree_map
+from repro_torch.dist.quant import is_quantized, layer_of
 
 PyTree = Any
 
@@ -84,9 +85,18 @@ class LayerStack:
     def layer(self, i: int) -> PyTree:
         for n, piece in self.pieces:
             if i < n:
-                return tree_map(lambda x: x[i], piece)
+                return _slice_layer(piece, i)
             i -= n
         raise IndexError("layer index out of range")
+
+
+def _slice_layer(stack: PyTree, i: int) -> PyTree:
+    """Layer ``i`` of a stacked sub-tree: plain slices, and for codec
+    records (quantized residency) a layer view of each matrix and the
+    decoded row of each ``(L, d)`` stack — nothing beyond the layer is
+    decoded."""
+    return tree_map(lambda x: layer_of(x, i) if is_quantized(x) else x[i],
+                    stack, is_leaf=is_quantized)
 
 
 def n_layers_of(layers) -> int:
@@ -96,7 +106,7 @@ def n_layers_of(layers) -> int:
 def layer_at(layers, i: int) -> PyTree:
     if isinstance(layers, LayerStack):
         return layers.layer(i)
-    return tree_map(lambda x: x[i], layers)
+    return _slice_layer(layers, i)
 
 
 def run_layers(step: Callable, layers, h: torch.Tensor,

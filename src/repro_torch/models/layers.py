@@ -15,6 +15,23 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.dist.quant import QuantView
+
+
+# ------------------------------------------------------------------ linear
+
+def linear(x: torch.Tensor, w) -> torch.Tensor:
+    """``x @ w`` for a weight tensor (cast to ``x.dtype`` at use, as in JAX)
+    or a codec view (``dist.quant.QuantView``), whose product goes through
+    ``kernels.dequant_matmul`` — on the card a hand-written kernel that
+    decodes the codes inside the product."""
+    if isinstance(w, QuantView):
+        # imported on use: the kernels' plain versions import this module
+        from repro_torch.kernels.dequant_matmul import dequant_matmul
+        y = dequant_matmul(x.reshape(-1, x.shape[-1]), w)
+        return y.reshape(*x.shape[:-1], y.shape[-1])
+    return x @ w.to(x.dtype)
+
 
 # ---------------------------------------------------------------- init utils
 #
@@ -229,17 +246,18 @@ def gqa_attention(p, x: torch.Tensor, cfg, cos, sin, impl: str = "chunked",
                   balanced: bool = False) -> torch.Tensor:
     """Training causal self-attention with grouped-query KV heads (the
     reference's ``gqa_attention``).  Weights are cast to ``x.dtype`` at
-    use.  ``impl="pallas"`` raises: the reference's flash kernel has no
-    backward, so no training path runs it."""
+    use, or are codec views (:func:`linear`).  ``impl="pallas"`` raises:
+    the reference's flash kernel has no backward, so no training path runs
+    it."""
     if impl == "pallas":
         raise NotImplementedError(
             "attention_impl='pallas' has no backward in the reference; the "
             "training forward runs 'chunked' or 'full'")
     b, s, _ = x.shape
     hd = cfg.head_dim
-    q = x @ p["wq"].to(x.dtype)
-    k = x @ p["wk"].to(x.dtype)
-    v = x @ p["wv"].to(x.dtype)
+    q = linear(x, p["wq"])
+    k = linear(x, p["wk"])
+    v = linear(x, p["wv"])
     if "bq" in p:
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
@@ -256,22 +274,23 @@ def gqa_attention(p, x: torch.Tensor, cfg, cos, sin, impl: str = "chunked",
         # the reference calls it with its default 512-wide blocks, not
         # cfg.block_q/block_k
         o = chunked_causal_attention(q, k, v, balanced=balanced)
-    return o.reshape(b, s, cfg.n_heads * hd) @ p["wo"].to(x.dtype)
+    return linear(o.reshape(b, s, cfg.n_heads * hd), p["wo"])
 
 
 # ----------------------------------------------------------------------- MLP
 #
 # Weights are cast to the activation dtype at use, as in JAX (a no-op when
-# they already match, as on the serving path, whose engines cast once).
+# they already match, as on the serving path, whose engines cast once), or
+# are codec views (:func:`linear`).
 
 def swiglu(p, x: torch.Tensor) -> torch.Tensor:
-    g = F.silu(x @ p["w_gate"].to(x.dtype))
-    u = x @ p["w_up"].to(x.dtype)
-    return (g * u) @ p["w_down"].to(x.dtype)
+    g = F.silu(linear(x, p["w_gate"]))
+    u = linear(x, p["w_up"])
+    return linear(g * u, p["w_down"])
 
 
 def gelu_mlp(p, x: torch.Tensor) -> torch.Tensor:
     # jax.nn.gelu defaults to the tanh approximation
-    h = F.gelu(x @ p["w_up"].to(x.dtype) + p["b_up"].to(x.dtype),
+    h = F.gelu(linear(x, p["w_up"]) + p["b_up"].to(x.dtype),
                approximate="tanh")
-    return h @ p["w_down"].to(x.dtype) + p["b_down"].to(x.dtype)
+    return linear(h, p["w_down"]) + p["b_down"].to(x.dtype)

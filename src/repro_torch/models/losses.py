@@ -14,13 +14,17 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.models.layers import linear
+
 
 def _block_xent(h_blk, w_head, tgt_blk):
-    """h_blk (B, T, D); w_head (D, V); tgt_blk (B, T), -1 = ignore.
+    """h_blk (B, T, D); w_head (D, V), a tensor or a codec view (the frozen
+    head under quantized residency, whose product is the dequant-matmul
+    kernel's on the card); tgt_blk (B, T), -1 = ignore.
     Returns (nll (B, T) fp32, mask (B, T) fp32).  The gold logit is a
     gather, which equals the reference's one-hot contraction exactly (every
     other term of that sum is an exact zero)."""
-    logits = (h_blk @ w_head.to(h_blk.dtype)).float()
+    logits = linear(h_blk, w_head).float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, tgt_blk.clamp(min=0)[..., None])[..., 0]
     mask = (tgt_blk >= 0).float()

@@ -28,6 +28,7 @@ import torch
 
 from repro_torch.common.pytree import tree_map
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import quant as Q
 from repro_torch.kernels.flash_attention import (flash_attention, flash_decode,
                                                  paged_flash_decode)
 from repro_torch.models import layers as L
@@ -88,11 +89,22 @@ def init(cfg: ArchConfig, generator: torch.Generator, device="cpu",
     return {"embed": embed, "layers": layers, "head": head}
 
 
-def head_weight(cfg: ArchConfig, params) -> torch.Tensor:
-    """(D, V): separate head weight, or the tied embedding transposed."""
+def head_weight(cfg: ArchConfig, params):
+    """(D, V): separate head weight, or the tied embedding transposed.  A
+    codec record (quantized residency) comes as its ``QuantView``; a tied
+    quantized embedding is decoded whole, since its (1, 128) scale blocks
+    run along D and the dequant-matmul kernel's along V."""
     if cfg.tie_embeddings:
-        return params["embed"]["tok"].T
-    return params["head"]["w"]
+        tok = params["embed"]["tok"]
+        return (Q.dequantize_leaf(tok) if Q.is_quantized(tok) else tok).T
+    w = params["head"]["w"]
+    return Q.view_of(w) if Q.is_quantized(w) else w
+
+
+def embed_lookup(tok, tokens: torch.Tensor) -> torch.Tensor:
+    """Rows ``tokens`` of the embedding table; of a codec record, the
+    gathered rows of its codes and scales, decoded."""
+    return Q.gather_rows(tok, tokens) if Q.is_quantized(tok) else tok[tokens]
 
 
 def _rope(cfg: ArchConfig, max_len: int, device):
@@ -149,14 +161,17 @@ def apply(cfg: ArchConfig, params: PyTree, batch, cut: Optional[int] = None,
 
     ``params["layers"]`` is the stacked sub-tree or a
     ``models.base.LayerStack`` (a grouped strategy's frozen and active
-    pieces).  ``cut``: the HiFT backward cut.  None = FPFT (gradients may
-    reach the embedding).  ``cut=c >= 0``: the embedding and the first c
+    pieces).  Any leaf may be a codec record (quantized residency): the
+    embedding decodes the gathered rows, each layer its norm rows, and
+    every projection and the head multiply through the dequant-matmul
+    kernel (``layers.linear``).  ``cut``: the HiFT backward cut.  None =
+    FPFT (gradients may reach the embedding).  ``cut=c >= 0``: the embedding and the first c
     layers are frozen — the embedding's output is detached whatever ``c``
     is, layers below ``c`` run without a graph, and the activation entering
     layer ``c`` is detached, so the backward never descends below the
     active group."""
     _check_family(cfg)
-    h = params["embed"]["tok"][batch["tokens"]].to(compute_dtype)
+    h = embed_lookup(params["embed"]["tok"], batch["tokens"]).to(compute_dtype)
     cos, sin = _rope(cfg, h.shape[1], h.device)
     if cut is not None:
         h = h.detach()
@@ -165,7 +180,7 @@ def apply(cfg: ArchConfig, params: PyTree, batch, cut: Optional[int] = None,
     h = _norm_fns(cfg)[1](params["head"]["final_norm"], h)
     if return_hidden:
         return h
-    return (h @ head_weight(cfg, params).to(h.dtype)).float()
+    return L.linear(h, head_weight(cfg, params)).float()
 
 
 def loss_fn(cfg: ArchConfig, params: PyTree, batch, cut: Optional[int] = None,

@@ -218,7 +218,7 @@ def test_to_tree_from_tree_round_trip():
 def test_unported_options_raise():
     _, cfg = _cfgs("llama2-7b")
     params = bridge.to_torch(_np_params("llama2-7b"))
-    for kw in ({"mesh": object()}, {"quant": object()},
+    for kw in ({"mesh": object()},
                {"cross_pod": object()}, {"pipeline_depth": 2},
                {"stream_window": 1 << 20}):
         with pytest.raises(NotImplementedError, match="not ported yet"):
