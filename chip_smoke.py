@@ -48,7 +48,23 @@ Phases, one JSON line each:
    NF4 (2 steps each) — with host time, peak memory beside the analytic
    P+G+S and the dequant kernel's device time and launches per step, the
    kernels' launches counted over that run, and a profile of a deep NF4
-   step.
+   step;
+13. the SSM scan kernel against its plain version at zamba2-2.7b's widths
+   (H 80, P = N = 64): batch 4 x 512 in fp32 and bf16, one 2048-token
+   prompt, a ragged S = 300, the published init's fast decay and a small
+   case; y and the final state within ``TOL``, with time, plain time and
+   bound;
+14. the prefill and contiguous-decode attention kernels at zamba2's shared
+   block (H = KV = 32, head dim 80), bf16 and fp32;
+15. hybrid serving, card against CPU at fp32: 12 layers (2 super-blocks) of
+   zamba2-2.7b at full width with slow-decay SSM scalars, 4 prompts of
+   mixed length, 8 new tokens: the same greedy tokens on both devices;
+16. hybrid serving at full size: zamba2-2.7b (54 layers, bf16, random
+   weights from a seed) through ``ServeEngine``, batch 4, prompts of
+   128-512 tokens, 32 new tokens, after one warm-up run: tokens/s, peak
+   memory, the kernels' launches over that run (54 scans a prefill), then
+   prefill and decode-step times (the step in rounds, as ``generate`` runs
+   it) and a profile of each.
 
 Then the ``nvidia-smi`` line, the kernels line and, last, the result line.
 Any failure raises: the script exits non-zero and prints no result.  It
@@ -61,6 +77,7 @@ import functools
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -84,6 +101,7 @@ KERNEL_ROWS = {
     "fused_sgdm": "src/repro/kernels/fused_sgdm.py:29",
     "fused_adagrad": "src/repro/kernels/fused_adagrad.py:30",
     "dequant_matmul": "src/repro/kernels/fused_dequant_matmul.py:64",
+    "ssm_scan": "src/repro/kernels/ssm_scan.py:57",
 }
 SOURCES = {
     **dict.fromkeys(("flash_attention", "flash_decode", "paged_flash_decode"),
@@ -91,6 +109,7 @@ SOURCES = {
     **dict.fromkeys(("fused_adamw", "fused_sgdm", "fused_adagrad"),
                     "src/repro_torch/kernels/csrc/fused_update.cu"),
     "dequant_matmul": "src/repro_torch/kernels/csrc/dequant_matmul.cu",
+    "ssm_scan": "src/repro_torch/kernels/csrc/ssm_scan.cu",
 }
 # The reference's analytic P+G+S (repro.core.memory_model.analyze, AdamW,
 # m=1) for llama2-7b at (n_layers, mode, precision), in GiB: a model, not
@@ -293,7 +312,9 @@ def library_call(torch, kernel, args, h, kvh):
                                                   attn_mask=mask, **gqa)
 
 
-def phase_kernels(torch):
+def phase_kernels(torch, cases=None):
+    """Each attention kernel against its plain version over ``cases``
+    (default: ``kernel_cases``); returns the first case's row of each."""
     from repro_torch.kernels import flash_attention as K
     from repro_torch.kernels import ref
     wrappers = {"flash_attention": K.flash_attention,
@@ -304,7 +325,7 @@ def phase_kernels(torch):
               "paged_flash_decode": ref.paged_flash_decode_ref}
     gen = torch.Generator(device="cuda").manual_seed(1234)
     results = {}
-    for kernel, case, dtype, sh in kernel_cases(torch):
+    for kernel, case, dtype, sh in cases or kernel_cases(torch):
         dt = getattr(torch, dtype)
         args = make_inputs(torch, kernel, dt, sh, gen)
         got = wrappers[kernel](*args)
@@ -473,13 +494,34 @@ def phase_full(torch):
     return launches
 
 
+def profile_summary(prof, host_ms: float, calls: int = 1, top: int = 8,
+                    **named):
+    """The device side of a ``torch.profiler`` run, per call: busy ms (the
+    sum of kernel times), idle share against ``host_ms`` (the host clock
+    per call), the top kernels, and for each ``key=substring`` in ``named``
+    the ms of the kernels whose name holds the substring."""
+    from torch.autograd import DeviceType
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    dev_us = [getattr(e, "self_device_time_total", 0.0) for e in kernels]
+    busy_ms = sum(dev_us) / 1e3 / calls
+    out = dict(host_ms=host_ms, device_busy_ms=busy_ms,
+               device_idle_share=1 - busy_ms / host_ms)
+    for key, sub in named.items():
+        out[key] = sum(us for us, e in zip(dev_us, kernels)
+                       if sub in e.key) / 1e3 / calls
+    ranked = sorted(zip(dev_us, kernels), key=lambda t: -t[0])[:top]
+    out["top_kernels"] = [dict(name=e.key[:80], ms=us / 1e3 / calls,
+                               calls=e.count / calls) for us, e in ranked]
+    return out
+
+
 def phase_profile(torch, cfg, params, prompts, steps: int = 8):
     """Where a decode step's time goes: ``torch.profiler`` over ``steps``
     contiguous decode steps of llama2-7b (batch 4, bf16) after one prefill.
     Reports the device's busy time per step (sum of kernel times), the
     host clock per step under the profiler, and the kernels that take the
     most device time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import transformer as T
     bf16 = torch.bfloat16
@@ -504,18 +546,8 @@ def phase_profile(torch, cfg, params, prompts, steps: int = 8):
             tok = logits[:, -1].argmax(-1, keepdim=True)
         torch.cuda.synchronize()
         host_s = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    dev_us = [getattr(e, "self_device_time_total", 0.0) for e in kernels]
-    busy_ms = sum(dev_us) / 1e3 / steps
-    top = sorted(zip(dev_us, kernels), key=lambda t: -t[0])[:8]
     emit("decode_profile", steps=steps, batch=len(prompts),
-         host_ms_per_step=1e3 * host_s / steps,
-         device_busy_ms_per_step=busy_ms,
-         device_idle_share=1 - busy_ms / (1e3 * host_s / steps),
-         top_kernels=[dict(name=e.key[:80], ms_per_step=us / 1e3 / steps,
-                           calls_per_step=e.count / steps)
-                      for us, e in top])
+         **profile_summary(prof, 1e3 * host_s / steps, steps))
 
 
 # ------------------------------------------------------------ phase 5
@@ -896,7 +928,6 @@ def phase_train_profile(torch, cfg, params, batch):
     """Where a full-size HiFT layer-group step's time goes: layer 1's step
     (AdamW, backward through 31 layers) under ``torch.profiler``, after
     the embed and layer 0 steps of a fresh runner."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import HiFTConfig, LRSchedule, make_runner
     runner = make_runner(cfg, "hift", params=params, optimizer="adamw",
@@ -911,19 +942,11 @@ def phase_train_profile(torch, cfg, params, batch):
         float(runner.train_step(batch))
         torch.cuda.synchronize()
         host_s = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    dev_us = [getattr(e, "self_device_time_total", 0.0) for e in kernels]
-    busy_ms = sum(dev_us) / 1e3
-    top = sorted(zip(dev_us, kernels), key=lambda t: -t[0])[:10]
     b, s = batch["tokens"].shape
     flops = hift_layer_step_flops(cfg, b, s, layer=1)
     emit("train_profile", group=runner.last_metrics["group"],
          flops=flops, bound_ms=1e3 * flops / PEAK_FLOPS["float32"],
-         host_ms=1e3 * host_s, device_busy_ms=busy_ms,
-         device_idle_share=1 - busy_ms / (1e3 * host_s),
-         top_kernels=[dict(name=e.key[:80], ms=us / 1e3, calls=e.count)
-                      for us, e in top])
+         **profile_summary(prof, 1e3 * host_s, top=10))
 
 
 def phase_train_4_layers(torch):
@@ -1248,7 +1271,6 @@ def phase_train_quant_profile(torch, cfg, runner, batch):
     """Where a deep quantized step's time goes: the NF4 runner's next step
     (layer 2, backward through 30 layers) under ``torch.profiler``, with
     the dequant kernel's share of the device's busy time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1257,19 +1279,360 @@ def phase_train_quant_profile(torch, cfg, runner, batch):
         float(runner.train_step(batch))
         torch.cuda.synchronize()
         host_s = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    dev_us = [getattr(e, "self_device_time_total", 0.0) for e in kernels]
-    busy_ms = sum(dev_us) / 1e3
-    dq_ms = sum(us for us, e in zip(dev_us, kernels)
-                if "dequant_matmul" in e.key) / 1e3
-    top = sorted(zip(dev_us, kernels), key=lambda t: -t[0])[:10]
+    prof_row = profile_summary(prof, 1e3 * host_s, top=10,
+                               dequant_kernel_ms="dequant_matmul")
     emit("train_quant_profile", group=runner.last_metrics["group"],
-         quant="nf4/bf16", host_ms=1e3 * host_s, device_busy_ms=busy_ms,
-         device_idle_share=1 - busy_ms / (1e3 * host_s),
-         dequant_kernel_ms=dq_ms, dequant_share_of_busy=dq_ms / busy_ms,
-         top_kernels=[dict(name=e.key[:80], ms=us / 1e3, calls=e.count)
-                      for us, e in top])
+         quant="nf4/bf16", dequant_share_of_busy=prof_row[
+             "dequant_kernel_ms"] / prof_row["device_busy_ms"], **prof_row)
+
+
+# ------------------------------------------------------------ phases 13-16
+
+# Decays per step: "slow" keeps the state alive across chunks (a_log in
+# [-0.05, 0]), "published" is the reference init's spread
+# (dt = softplus(N(0, 1)), A = -linspace(1, 16, H)).
+SSM_CASES = [   # (case, dtype, B, S, H, decay); P = N = 64
+    ("zamba2 prefill 4 x 512 fp32", "float32", 4, 512, 80, "slow"),
+    ("zamba2 prefill 4 x 512 bf16", "bfloat16", 4, 512, 80, "slow"),
+    ("one prompt 1 x 2048 fp32", "float32", 1, 2048, 80, "slow"),
+    ("ragged 4 x 300 fp32", "float32", 4, 300, 80, "slow"),
+    ("published decay 4 x 512 fp32", "float32", 4, 512, 80, "published"),
+    ("small 1 x 37, 4 heads fp32", "float32", 1, 37, 4, "slow"),
+]
+
+
+def ssm_inputs(torch, dt, b, s, h, decay, gen, p=64, n=64):
+    """(x, a_log, b, c) on the card: x ~ N(0, 1), b and c ~ N(0, 1/4) in
+    ``dt``, a_log fp32 at the case's decay."""
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(dt)
+    if decay == "slow":
+        a_log = -0.05 * torch.rand((b, s, h), generator=gen, device="cuda")
+    else:
+        raw = torch.randn((b, s, h), generator=gen, device="cuda")
+        rates = torch.linspace(1.0, 16.0, h, device="cuda")
+        a_log = -torch.nn.functional.softplus(raw) * rates
+    return (rnd(b, s, h, p), a_log, rnd(b, s, n, scale=0.5),
+            rnd(b, s, n, scale=0.5))
+
+
+def ssm_plain(x, a_log, b, c):
+    """The kernel's plain version: the reference's chunked scan
+    (``ref.gated_chunked_scan_ref``) in fp64 on the same inputs, y rounded
+    to x's dtype once and the state to fp32.  In fp32 the reference's
+    prefix sums of the decay lose ~1e-4 of y at the published init's fast
+    heads (|cum| near 1700 in a chunk of 128), over ``TOL``; the kernel
+    sums them in fp64.  (In bf16 the reference also rounds every product
+    to bf16.)  The gap of the reference's own arithmetic to this plain
+    version is reported beside each row."""
+    from repro_torch.kernels import ref
+    y, h = ref.gated_chunked_scan_ref(x.double(), a_log.double(), b.double(),
+                                      c.double())
+    return y.to(x.dtype), h.float()
+
+
+def ssm_chunked_flops(s, p, n, lc):
+    """FLOPs of the chunked scan per (batch row, head), in chunks of ``lc``
+    rows (the last one as long as the data): per chunk of L rows the masked
+    halves of C B^T and of its product with x, (N + P) L (L + 1), then C h^T
+    and the state's new term, 4 L N P, and the decay of the entering state
+    and its sum with the new term, 2 N P."""
+    rows = [min(lc, s - t) for t in range(0, s, lc)]
+    return sum((n + p) * r * (r + 1) + 4 * r * n * p + 2 * n * p
+               for r in rows)
+
+
+def ssm_work(dtype, b, s, h, p=64, n=64):
+    """(FLOPs, bytes) that one scan needs, whatever a kernel's chunking:
+    the fewer of the sequential recurrence's 5 N P a row (decay, outer
+    product and sum into h; h . c) and the chunked form at its cheapest
+    chunk length (8 rows at P = N = 64); x, a_log, b, c read once, y and
+    h_final written once."""
+    e = 2 if dtype == "bfloat16" else 4
+    per_head = min([5 * s * n * p] + [ssm_chunked_flops(s, p, n, lc)
+                                      for lc in range(1, s + 1)])
+    nbytes = (2 * b * s * h * p * e + 4 * b * s * h + 2 * b * s * n * e
+              + 4 * b * h * p * n)
+    return b * h * per_head, nbytes
+
+
+def phase_ssm_kernel(torch):
+    """The SSM scan kernel against its plain version on the card, timed
+    with its inputs rotated beyond L2, beside its bound.  No single
+    PyTorch call computes a gated linear scan, so ``library_ms`` is null;
+    the plain version (the chunked scan in eager ops) is no yardstick of
+    speed either."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssm_scan as S
+    gen = torch.Generator(device="cuda").manual_seed(2024)
+    results = {}
+    for case, dtype, b, s, h, decay in SSM_CASES:
+        dt = getattr(torch, dtype)
+        args = ssm_inputs(torch, dt, b, s, h, decay, gen)
+        got_y, got_h = S.ssm_scan(*args)
+        want_y, want_h = ssm_plain(*args)
+        torch.cuda.synchronize()
+        tol = TOL[dtype]
+        errs = {}
+        for what, got, want in (("y", got_y, want_y), ("h_final", got_h,
+                                                        want_h)):
+            got, want = got.float(), want.float()
+            if not torch.isfinite(got).all():
+                raise RuntimeError(f"ssm_scan ({case}): non-finite {what}")
+            err = (got - want).abs()
+            errs[what] = float(err.max())
+            if bool((err > tol + tol * want.abs()).any()):
+                raise RuntimeError(f"ssm_scan ({case}): {what} max |err| "
+                                   f"{errs[what]} over tolerance {tol}")
+        # the reference's own arithmetic in the case's dtype (fp32 decay
+        # prefix sums; in bf16 every product rounded) against the fp64
+        # plain version: reported, not held to TOL
+        flow_y, _ = ref.gated_chunked_scan_ref(*args)
+        row_extra = dict(
+            reference_flow_gap=float((flow_y.float()
+                                      - want_y.float()).abs().max()),
+            y_scale=float(want_y.float().abs().max()))
+        del flow_y
+        del got_y, got_h, want_y, want_h
+        nbytes = sum(a.numel() * a.element_size() for a in args)
+        sets = [args] + [ssm_inputs(torch, dt, b, s, h, decay, gen)
+                         for _ in range(copies(nbytes) - 1)]
+        ms = time_ms(torch, S.ssm_scan, sets)
+        plain_ms = time_ms(torch, ssm_plain, sets, reps=3, launches=4)
+        flops, wbytes = ssm_work(dtype, b, s, h)
+        bound_ms, bound_by = bound(flops, wbytes, dtype)
+        row = dict(kernel="ssm_scan", case=case, dtype=dtype,
+                   shapes=dict(b=b, s=s, h=h, p=64, n=64), decay=decay,
+                   max_abs_err=max(errs.values()), max_abs_err_y=errs["y"],
+                   max_abs_err_h=errs["h_final"], tol=tol, ms=ms,
+                   plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                   bound_by=bound_by, flops=flops, bytes=wbytes,
+                   kernel_flops=b * h * ssm_chunked_flops(s, 64, 64, 64),
+                   share_of_bound=bound_ms / ms, **row_extra)
+        emit("kernel", **row)
+        results.setdefault("ssm_scan", row)   # the first case is the main one
+        del sets, args
+        gc.collect()
+        torch.cuda.empty_cache()
+    return results
+
+
+def hybrid_attention_cases():
+    """Attention at zamba2's shared block: H = KV = 32, head dim 80; the
+    hybrid prefill masks no pad (starts 0)."""
+    zamba = dict(h=32, kvh=32, hd=80)
+    lengths4 = [544, 520, 300, 33]
+    return [
+        ("flash_attention", "zamba2 shared-block prefill hd80", "bfloat16",
+         dict(b=4, s=512, starts=[0] * 4, **zamba)),
+        ("flash_attention", "zamba2 shared-block prefill hd80 fp32",
+         "float32", dict(b=2, s=256, starts=[0] * 2, **zamba)),
+        ("flash_decode", "zamba2 shared-block decode hd80", "bfloat16",
+         dict(b=4, s=544, starts=[0] * 4, lengths=lengths4, **zamba)),
+        ("flash_decode", "zamba2 shared-block decode hd80 fp32", "float32",
+         dict(b=4, s=544, starts=[0] * 4, lengths=lengths4, **zamba)),
+    ]
+
+
+def slow_decay(torch, params, seed: int = 7):
+    """SSM scalars at a slow decay (A_log = log(U(0.02, 0.05)), dt_bias =
+    -4: a step decays the state by ~1e-3), so the state entering each chunk
+    and each decode step is large and a wrong carry shows."""
+    m = params["layers"]["mamba"]
+    g = torch.Generator().manual_seed(seed)
+    u = torch.rand(m["A_log"].shape, generator=g) * 0.03 + 0.02
+    m["A_log"] = torch.log(u).to(m["A_log"].device)
+    m["dt_bias"] = torch.full_like(m["dt_bias"], -4.0)
+
+
+def phase_hybrid_card_vs_cpu(torch):
+    """The same fp32 weights served on the CPU (plain versions) and the
+    card (kernels): 12 layers (2 super-blocks) of zamba2-2.7b at full
+    width, slow-decay SSM scalars, 4 prompts of mixed length (left pad
+    unmasked, as in the reference), 8 new tokens; then the logits of one
+    prefill and one decode step on both devices."""
+    from repro_torch.common.pytree import tree_map
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import zamba2 as Z
+    from repro_torch.serve.engine import ServeEngine
+    cfg = dataclasses.replace(get_config("zamba2-2.7b"), n_layers=12)
+    params = Z.init(cfg, torch.Generator().manual_seed(0), device="cpu",
+                    dtype=torch.float32)
+    slow_decay(torch, params)
+    rng = np.random.default_rng(5)
+    plens = [64, 37, 20, 50]
+    prompts = [rng.integers(0, cfg.vocab, n) for n in plens]
+    out, secs = {}, {}
+    for dev in ("cpu", "cuda"):
+        eng = ServeEngine(cfg, params, max_len=72, batch=4,
+                          compute_dtype=torch.float32, device=dev)
+        t0 = time.perf_counter()
+        out[dev] = eng.generate(prompts, max_new_tokens=8)
+        secs[dev] = time.perf_counter() - t0
+        del eng
+    toks = torch.from_numpy(np.stack([np.pad(p, (64 - len(p), 0))
+                                      for p in prompts])).long()
+    logits = {}
+    for dev in ("cpu", "cuda"):
+        p_dev = tree_map(lambda t: t.to(dev), params)
+        cache = Z.init_cache(cfg, 4, 72, dtype=torch.float32, device=dev)
+        lg, cache = Z.prefill(cfg, p_dev, {"tokens": toks.to(dev)}, cache,
+                              torch.float32)
+        nxt = lg[:, -1].argmax(-1, keepdim=True)
+        lg2, cache = Z.decode_step(cfg, p_dev, cache, nxt, torch.float32)
+        logits[dev] = (lg.cpu(), lg2.cpu(), cache["ssm"].cpu())
+        del p_dev, cache
+    gaps = [float((a - b).abs().max())
+            for a, b in zip(logits["cpu"], logits["cuda"])]
+    same = out["cpu"] == out["cuda"]
+    emit("hybrid_card_vs_cpu", n_layers=cfg.n_layers, d_model=cfg.d_model,
+         prompts=plens, new_tokens=8, tokens_equal=same,
+         max_logit_gap_prefill=gaps[0], max_logit_gap_decode=gaps[1],
+         max_ssm_state_gap=gaps[2],
+         ssm_state_scale=float(logits["cpu"][2].abs().max()),
+         seconds=secs, cpu_tokens=out["cpu"], cuda_tokens=out["cuda"])
+    if not same:
+        raise RuntimeError(f"card and CPU hybrid greedy tokens differ: {out}")
+    del params, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_hybrid_full(torch):
+    """zamba2-2.7b at full width and depth, bf16, random weights from seed
+    0, through ``ServeEngine``: batch 4, prompts of 128-512 tokens, 32 new
+    tokens, max_len 544.  After one warm-up run of the same requests, the
+    kernels' launches are counted over a second run, which is timed; then
+    prefill and decode-step times and profiles (``phase_hybrid_timing``)."""
+    from repro_torch.common.pytree import tree_bytes
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as K
+    from repro_torch.kernels import ssm_scan as S
+    from repro_torch.models import zamba2 as Z
+    from repro_torch.serve.engine import ServeEngine
+    cfg = get_config("zamba2-2.7b")
+    bf16 = torch.bfloat16
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = Z.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                    device="cuda", dtype=bf16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    plens = [int(n) for n in rng.integers(128, 513, 4)]
+    prompts = [rng.integers(0, cfg.vocab, n) for n in plens]
+    max_new, max_len = 32, 544
+    eng = ServeEngine(cfg, params, max_len=max_len, batch=4,
+                      compute_dtype=bf16, device="cuda")
+    t0 = time.perf_counter()
+    eng.generate(prompts, max_new_tokens=max_new)       # warm up
+    torch.cuda.synchronize()
+    cold_wall = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()                   # count the main path's run only
+    S.reset_launches()
+    t0 = time.perf_counter()
+    outs = eng.generate(prompts, max_new_tokens=max_new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"ssm_scan": S.ssm_scan.launches,
+                "flash_attention": K.flash_attention.launches,
+                "flash_decode": K.flash_decode.launches}
+    peak = torch.cuda.max_memory_allocated()
+    for toks in outs:
+        if len(toks) != max_new or not all(0 <= t < cfg.vocab_padded
+                                           for t in toks):
+            raise RuntimeError(f"bad generation {toks}")
+    n_sb = cfg.n_layers // cfg.attn_every
+    expect = {"ssm_scan": cfg.n_layers, "flash_attention": n_sb,
+              "flash_decode": n_sb * (max_new - 1)}
+    emit("hybrid_full_size", arch=cfg.name, n_layers=cfg.n_layers,
+         dtype="bfloat16", init_s=init_s, params_bytes=tree_bytes(params),
+         prompt_lens=plens, new_tokens=max_new, max_len=max_len,
+         cold_wall_s=cold_wall, wall_s=wall,
+         tokens_per_s=len(prompts) * max_new / wall,
+         peak_memory_bytes=peak, peak_memory_gib=peak / 2**30,
+         launches=launches, expected_launches=expect)
+    if launches != expect:
+        raise RuntimeError(f"hybrid serving launched {launches}, expected "
+                           f"{expect}")
+    phase_hybrid_timing(torch, cfg, eng.params, prompts)
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_hybrid_timing(torch, cfg, params, prompts, rounds: int = 5,
+                        steps: int = 8):
+    """Prefill and decode-step times on the host clock, then
+    ``torch.profiler`` over one prefill and over 8 decode steps.  The
+    prefill is the median of 3 after a warm-up, each ended by a
+    synchronise.  The decode step is timed as ``generate`` runs it, with no
+    synchronise between steps: after 4 warm-up steps, ``rounds`` rounds of
+    ``steps`` steps, each round ended by one synchronise; the host's CPU
+    time over each round (``process_time``) beside its wall time shows
+    whether the process waited for a core."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import zamba2 as Z
+    bf16 = torch.bfloat16
+    plen = max(len(p) for p in prompts)
+    toks = torch.tensor(np.stack([np.pad(p, (plen - len(p), 0))
+                                  for p in prompts]), device="cuda")
+    max_len = plen + 4 + (rounds + 1) * steps
+
+    def prefill():
+        cache = Z.init_cache(cfg, len(prompts), max_len, dtype=bf16,
+                             device="cuda")
+        return Z.prefill(cfg, params, {"tokens": toks}, cache, bf16)
+
+    def decode(n, cache, tok):
+        for _ in range(n):
+            logits, cache = Z.decode_step(cfg, params, cache, tok, bf16)
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+        return cache, tok
+
+    prefill_ms = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill()
+        torch.cuda.synchronize()
+        prefill_ms.append(1e3 * (time.perf_counter() - t0))
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    cache, tok = decode(4, cache, tok)                  # warm up
+    step_ms, cpu_share = [], []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0, c0 = time.perf_counter(), time.process_time()
+        cache, tok = decode(steps, cache, tok)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        step_ms.append(1e3 * wall / steps)
+        cpu_share.append((time.process_time() - c0) / wall)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        prefill()
+        torch.cuda.synchronize()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+    prefill_prof = profile_summary(prof, host_ms, ssm_scan_ms="ssm_scan")
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        cache, tok = decode(steps, cache, tok)
+        torch.cuda.synchronize()
+        host_ms = 1e3 * (time.perf_counter() - t0) / steps
+    decode_prof = profile_summary(prof, host_ms, steps)
+    emit("hybrid_timing", arch=cfg.name, batch=len(prompts), prompt=plen,
+         prefill_ms=prefill_ms[1:], prefill_ms_median=statistics.median(
+             prefill_ms[1:]), decode_step_ms_rounds=step_ms,
+         decode_step_ms_median=statistics.median(step_ms),
+         decode_step_ms_min=min(step_ms), decode_step_ms_max=max(step_ms),
+         host_cpu_share_rounds=cpu_share,
+         cpu_cores=len(os.sched_getaffinity(0)),
+         prefill_profile=prefill_prof, decode_profile=decode_prof)
 
 
 # ------------------------------------------------------------ main
@@ -1315,6 +1678,10 @@ def main() -> int:
     phase_train_quant_card_vs_cpu(torch)
     launches["dequant_matmul"] = phase_train_quant_full(
         torch)["dequant_matmul"]
+    rows.update(phase_ssm_kernel(torch))
+    phase_kernels(torch, hybrid_attention_cases())
+    phase_hybrid_card_vs_cpu(torch)
+    launches["ssm_scan"] = phase_hybrid_full(torch)["ssm_scan"]
 
     kernels = []
     for name, row in rows.items():

@@ -7,7 +7,8 @@ param-dict layout and tensor layouts, imports ``torch`` and nothing of
 serving path (prefill, contiguous and paged decode, both engines and the
 serving launcher), its training path (``hift`` and ``fpft`` with
 AdamW, SGD-momentum and AdaGrad, the precision policies, the synthetic
-data, the loop and the training launcher) and quantized resident state
+data, the loop and the training launcher), quantized resident state
 (``QuantConfig``: int8/NF4 codecs in ``dist.quant``, the dequant-matmul
-kernel, bf16 moments).
+kernel, bf16 moments) and the hybrid family's serving path (zamba2:
+``models.mamba2``, ``models.zamba2``, the SSM scan kernel).
 """

@@ -10,7 +10,7 @@ import importlib
 
 from repro_torch.configs.base import ArchConfig
 
-PORTED_IDS = ["llama2_7b", "qwen2_0_5b", "roberta_base"]
+PORTED_IDS = ["llama2_7b", "qwen2_0_5b", "roberta_base", "zamba2_2_7b"]
 
 
 def normalize(arch_id: str) -> str:

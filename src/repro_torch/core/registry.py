@@ -77,8 +77,9 @@ def make_runner(cfg, strategy: str = "hift", *, params: Any = None,
     with ``moment_dtype=bfloat16``, so it needs the optimizer given by name
     and one of the moment-carrying ``FUSED_OPTIMIZERS``.
 
-    ``pipeline_depth >= 2``, ``stream_window``, ``mesh`` and ``cross_pod``
-    are not ported yet and raise.  Remaining kwargs go to the strategy
+    ``pipeline_depth >= 2``, ``stream_window``, ``mesh``, ``cross_pod``
+    and the families other than dense (hybrid training among them) are
+    not ported yet and raise.  Remaining kwargs go to the strategy
     (``schedule``, ``policy``, ``loss_fn``, ``hift=``)."""
     import torch
 
@@ -87,6 +88,9 @@ def make_runner(cfg, strategy: str = "hift", *, params: Any = None,
     from repro_torch.models import get_family
     from repro_torch.optim import make_optimizer
 
+    if cfg.family != "dense":
+        raise NotImplementedError(f"training of the {cfg.family!r} family is "
+                                  "not ported yet (dense only)")
     device = resolve_device(device)
     if kwargs.pop("stream_window", None) is not None:
         raise NotImplementedError("stream_window (fpft_streamed) is not "

@@ -5,7 +5,8 @@
 //   - scores and the softmax are fp32; the output is written in q's dtype;
 //   - masked scores are the finite -1e30, never -inf, so a row that sees no
 //     key stays finite and no 0*NaN can arise;
-//   - dtypes float32 and bfloat16, head dim 64 or 128 (a template argument);
+//   - dtypes float32 and bfloat16, head dim 64, 80 (zamba2's shared block)
+//     or 128 (a template argument);
 //   - GQA by index: query head h reads kv head h / (H / KV); kv is never
 //     repeated in memory.
 //
@@ -51,6 +52,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "load_f32.cuh"
+
 namespace {
 
 constexpr float kNeg = -1e30f;
@@ -62,33 +65,6 @@ template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
-}
-
-// One 16-byte word -> 4 floats (fp32) or 8 floats (bf16).
-__device__ __forceinline__ void unpack(const uint4& r, float* o, float) {
-  o[0] = __uint_as_float(r.x);
-  o[1] = __uint_as_float(r.y);
-  o[2] = __uint_as_float(r.z);
-  o[3] = __uint_as_float(r.w);
-}
-__device__ __forceinline__ void unpack(const uint4& r, float* o, __nv_bfloat16) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    o[2 * i] = f.x;
-    o[2 * i + 1] = f.y;
-  }
-}
-
-// N contiguous elements at a 16-byte aligned address -> N floats.
-template <typename T, int N>
-__device__ __forceinline__ void load_f32(const T* __restrict__ p, float* o) {
-  constexpr int V = 16 / sizeof(T);
-  static_assert(N % V == 0, "row slice must be a whole number of 16-byte words");
-  const uint4* w = reinterpret_cast<const uint4*>(p);
-#pragma unroll
-  for (int i = 0; i < N / V; ++i) unpack(__ldg(w + i), o + i * V, T());
 }
 
 // ------------------------------------------------------------------ prefill
@@ -316,8 +292,10 @@ enum { kFloat32 = 0, kBFloat16 = 1 };
 #define REPRO_DISPATCH(DTYPE, HD_, LAUNCH)                                    \
   do {                                                                        \
     if ((DTYPE) == kFloat32 && (HD_) == 64) { LAUNCH(float, 64); }            \
+    else if ((DTYPE) == kFloat32 && (HD_) == 80) { LAUNCH(float, 80); }       \
     else if ((DTYPE) == kFloat32 && (HD_) == 128) { LAUNCH(float, 128); }     \
     else if ((DTYPE) == kBFloat16 && (HD_) == 64) { LAUNCH(__nv_bfloat16, 64); } \
+    else if ((DTYPE) == kBFloat16 && (HD_) == 80) { LAUNCH(__nv_bfloat16, 80); } \
     else if ((DTYPE) == kBFloat16 && (HD_) == 128) { LAUNCH(__nv_bfloat16, 128); } \
     else return (int)cudaErrorInvalidValue;                                   \
   } while (0)

@@ -24,7 +24,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels import ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 80, 128)
 # the paged kernel keeps a row's block table in shared memory, beside its
 # 16.6 KB of static shared memory, within the 48 KB a launch gets by default
 _MAX_TABLE = 7680

@@ -18,6 +18,11 @@ Dequant matmul (``csrc/dequant_matmul.cu``): the codec's own decode of
 the view, rounded through the template dtype and ``x.dtype``, then one
 fp32 product cast to ``x.dtype``.
 
+Gated linear scan (``csrc/ssm_scan.cu``): ``ssm_scan_ref`` is the
+reference's sequential oracle; ``gated_chunked_scan_ref`` is
+``repro.models.mamba2.gated_chunked_scan`` line for line, its bf16
+roundings included (the kernel computes in fp32 throughout).
+
 The wrappers call these on CPU tensors; the CPU tests hold them against
 the JAX package, and ``chip_smoke.py`` holds each kernel against them on
 the card.
@@ -28,6 +33,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models.layers import NEG, _repeat_kv
 
@@ -148,3 +154,103 @@ def dequant_matmul_ref(x: torch.Tensor, w) -> torch.Tensor:
     pairs."""
     w32 = w.decode().to(x.dtype).float()
     return (x.float() @ w32).to(x.dtype)
+
+
+# ------------------------------------------------------- gated linear scan
+
+def ssm_scan_ref(x, a, b, c):
+    """Sequential gated linear scan per head (``repro.kernels.ref.
+    ssm_scan_ref``).  x (B,S,H,P) scaled inputs; a (B,S,H) decays in
+    (0, 1]; b/c (B,S,N).  ``h_t = a_t h_{t-1} + x_t (x) b_t``,
+    ``y_t = h_t . c_t``, from a zero state, in fp32.  Returns
+    (y (B,S,H,P) in x's dtype, h_final (B,H,P,N) fp32)."""
+    bt, s, hh, p = x.shape
+    n = b.shape[-1]
+    h = torch.zeros((bt, hh, p, n), dtype=torch.float32, device=x.device)
+    a32, x32, b32, c32 = a.float(), x.float(), b.float(), c.float()
+    ys = []
+    for t in range(s):
+        h = h * a32[:, t, :, None, None] \
+            + x32[:, t, :, :, None] * b32[:, t, None, None, :]
+        ys.append(torch.einsum("bhpn,bn->bhp", h, c32[:, t]))
+    y = torch.stack(ys, dim=1) if ys else x32.new_zeros(x.shape)
+    return y.to(x.dtype), h
+
+
+def _segsum(a_log: torch.Tensor) -> torch.Tensor:
+    """(..., T) -> (..., T, T): the sum of a_log over (j, i] for i >= j,
+    -inf above the diagonal (masked before the exp, as the reference)."""
+    t = a_log.shape[-1]
+    cum = torch.cumsum(a_log, dim=-1)
+    diff = cum[..., :, None] - cum[..., None, :]
+    mask = torch.ones((t, t), dtype=torch.bool, device=a_log.device).tril()
+    return torch.where(mask, diff, torch.full_like(diff, -math.inf))
+
+
+def scan_chunking(s: int, chunk: int) -> tuple[int, int]:
+    """(chunk length, number of chunks) of the reference's rule
+    ``nc = max(1, S // chunk)``, ``Lc = S // nc``.  Where ``Lc`` does not
+    divide S (the reference rejects such an S) the last chunk is short."""
+    lc = s // max(1, s // chunk)
+    return lc, -(-s // lc)
+
+
+def gated_chunked_scan_ref(x, a_log, b, c, chunk: int = 128, h0=None):
+    """The chunked scan of ``repro.models.mamba2.gated_chunked_scan``, line
+    for line: intra-chunk scores ``(C B^T) * exp(segsum)``, chunk states,
+    a sequential scan over chunks, the entering state's output.  Every
+    product and the carried state round to x's dtype where the reference
+    rounds (bf16 in, bf16 out of each einsum; the 3-operand einsums in
+    JAX's contraction order).
+
+    x (Bt,S,H,P); a_log (Bt,S,H) log decays; b/c (Bt,S,N); h0 (Bt,H,P,N)
+    or None.  A short last chunk is zero rows: x = b = c = 0 adds nothing
+    and a_log = 0 decays nothing.  Returns (y in x's dtype, the final state
+    in x's dtype, as the reference returns it)."""
+    bt, s, hh, p = x.shape
+    n = b.shape[-1]
+    lc, nc = scan_chunking(s, chunk)
+    pad = nc * lc - s
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        a_log = F.pad(a_log, (0, 0, 0, pad))
+        b = F.pad(b, (0, 0, 0, pad))
+        c = F.pad(c, (0, 0, 0, pad))
+    dt = x.dtype
+    xc = x.reshape(bt, nc, lc, hh, p)
+    bc = b.reshape(bt, nc, lc, n)
+    cc = c.reshape(bt, nc, lc, n)
+    # the decays in fp32, as the reference; fp64 inputs stay fp64
+    acc = torch.promote_types(a_log.dtype, torch.float32)
+    al = a_log.reshape(bt, nc, lc, hh).to(acc).movedim(-1, 2)  # (Bt,nc,H,Lc)
+
+    # intra-chunk (attention-like)
+    lmat = torch.exp(_segsum(al))                        # (Bt,nc,H,Lc,Lc)
+    scores = torch.einsum("bcin,bcjn->bcij", cc, bc)     # b's dtype
+    scores = scores[:, :, None] * lmat                   # promotes to fp32
+    y_intra = torch.einsum("bchij,bcjhp->bcihp", scores.to(dt), xc.to(dt))
+
+    # chunk states: (B_j * decay_j) first, then the product with x
+    cum = torch.cumsum(al, dim=-1)
+    total = cum[..., -1:]
+    decay_to_end = torch.exp(total - cum).to(dt)         # (Bt,nc,H,Lc)
+    db = bc.to(dt)[..., None] * decay_to_end.permute(0, 1, 3, 2)[:, :, :, None]
+    states = torch.einsum("bcjnh,bcjhp->bchpn", db, xc.to(dt))
+
+    # inter-chunk scan, emitting the state entering each chunk
+    chunk_decay = torch.exp(total[..., 0])               # (Bt,nc,H)
+    h = torch.zeros((bt, hh, p, n), dtype=dt, device=x.device) \
+        if h0 is None else h0.to(dt)
+    h_enter = []
+    for ci in range(nc):
+        h_enter.append(h)
+        h = h * chunk_decay[:, ci, :, None, None].to(h.dtype) + states[:, ci]
+    h_enter = torch.stack(h_enter, dim=1)                # (Bt,nc,H,P,N)
+
+    # the entering state's output: (h . C_i) first, then the decay
+    decay_from_start = torch.exp(cum).to(dt)             # (Bt,nc,H,Lc)
+    hc = torch.einsum("bchpn,bcin->bchpi", h_enter, cc.to(dt))
+    y_inter = hc.permute(0, 1, 4, 2, 3) * \
+        decay_from_start.permute(0, 1, 3, 2)[..., None]
+    y = (y_intra + y_inter).reshape(bt, nc * lc, hh, p)[:, :s]
+    return y, h

@@ -1,12 +1,14 @@
 """Model-family registry (port of ``repro.models.get_family``).
 
-Only the dense family is ported so far; every other family raises.  (The
-vlm family reuses the dense module in JAX but needs ``vision_tokens`` on
-the serving path, which is not ported yet.)
+The dense family (serving and training) and the hybrid family (serving)
+are ported; every other family raises.  (The vlm family reuses the dense
+module in JAX but needs ``vision_tokens`` on the serving path, which is
+not ported yet.)
 """
 import importlib
 
-_FAMILIES = {"dense": "repro_torch.models.transformer"}
+_FAMILIES = {"dense": "repro_torch.models.transformer",
+             "hybrid": "repro_torch.models.zamba2"}
 
 
 def get_family(cfg):
@@ -14,5 +16,6 @@ def get_family(cfg):
     # and the family modules import the kernels
     if cfg.family not in _FAMILIES:
         raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet (dense only)")
+            f"model family {cfg.family!r} is not ported yet (ported: "
+            f"{', '.join(_FAMILIES)})")
     return importlib.import_module(_FAMILIES[cfg.family])

@@ -1,13 +1,14 @@
-"""Serving engines: prefill + batched decode over KV caches (dense family).
+"""Serving engines: prefill + batched decode over KV (and SSM) caches.
 
 Port of ``repro.serve.engine``:
 
-- :class:`ServeEngine` — fixed decode batch over a contiguous cache; the
-  simple baseline and the token-for-token oracle of the continuous engine.
-- :class:`ContinuousServeEngine` — slot-level continuous batching over the
-  paged cache (``serve.kv_cache``) driven by ``serve.scheduler``: per-slot
-  admission with full-budget reservation, per-request max_new/EOS stop,
-  and mid-decode refill.
+- :class:`ServeEngine` — fixed decode batch over a contiguous cache, for
+  the dense and hybrid families; the simple baseline and the
+  token-for-token oracle of the continuous engine.
+- :class:`ContinuousServeEngine` — dense family only: slot-level
+  continuous batching over the paged cache (``serve.kv_cache``) driven
+  by ``serve.scheduler``: per-slot admission with full-budget
+  reservation, per-request max_new/EOS stop, and mid-decode refill.
 
 Both run on ``device="cuda"`` unless told otherwise, and raise if no card
 is present; ``device="cpu"`` serves through the kernels' plain versions.
@@ -26,13 +27,16 @@ import numpy as np
 import torch
 
 from repro_torch.common.device import resolve_device
-from repro_torch.common.pytree import tree_map
+from repro_torch.common.pytree import (flatten_with_paths,
+                                       unflatten_from_paths)
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import get_family
 from repro_torch.serve.kv_cache import PagedKVCache
 from repro_torch.serve.scheduler import Scheduler, ServeRequest
 
 PyTree = Any
+
+_PAD_FAMILIES = ("dense",)   # families whose prefill masks left pad
 
 
 def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
@@ -51,11 +55,20 @@ def _extract_params(state_or_params):
     return params
 
 
-def _place(params: PyTree, device: torch.device, dtype) -> PyTree:
-    """Params on ``device``, floating leaves cast to ``dtype`` — once, here.
-    Leaves already in place are shared with the caller, not copied."""
-    return tree_map(lambda t: t.to(device=device, dtype=dtype)
-                    if t.is_floating_point() else t.to(device), params)
+def _place(params: PyTree, device: torch.device, dtype,
+           keep_fp32: tuple = ()) -> PyTree:
+    """Params on ``device``, floating leaves cast to ``dtype`` — once, here
+    — except the leaves named in ``keep_fp32`` (the family's
+    ``FP32_LEAVES``: per-head scalars the reference reads in fp32), which
+    stay fp32.  Leaves already in place are shared with the caller, not
+    copied."""
+    def leaf(path, t):
+        if not t.is_floating_point():
+            return t.to(device)
+        keep = path.split("/")[-1] in keep_fp32
+        return t.to(device=device, dtype=torch.float32 if keep else dtype)
+    return unflatten_from_paths({path: leaf(path, t) for path, t in
+                                 flatten_with_paths(params).items()})
 
 
 class ServeEngine:
@@ -65,7 +78,8 @@ class ServeEngine:
         self.cfg = cfg
         self.model = get_family(cfg)
         self.device = resolve_device(device)
-        self.params = _place(params, self.device, compute_dtype)
+        self.params = _place(params, self.device, compute_dtype,
+                             getattr(self.model, "FP32_LEAVES", ()))
         self.max_len = max_len
         self.batch = batch
         self.compute_dtype = compute_dtype
@@ -80,9 +94,10 @@ class ServeEngine:
 
     def generate(self, prompts, max_new_tokens: int = 16) -> list[list[int]]:
         """Batched greedy generation.  Prompts (1-D int sequences) are
-        left-padded to equal length and the pad keys masked out of
-        attention.  Sampled tokens stay on the device and reach the host in
-        one copy at the end."""
+        left-padded to equal length; the pad families (dense) mask the pad
+        keys out of attention, the others run the pad tokens unmasked, as
+        the reference does.  Sampled tokens stay on the device and reach
+        the host in one copy at the end."""
         if len(prompts) > self.batch:
             raise ValueError(f"{len(prompts)} prompts for batch {self.batch}")
         prompts = [np.asarray(p, np.int64).reshape(-1) for p in prompts]
@@ -96,8 +111,10 @@ class ServeEngine:
         for i, p in enumerate(prompts):
             padded[i, plen - len(p):] = p
         dev = self.device
-        batch_in = {"tokens": torch.from_numpy(padded).to(dev),
-                    "pad": torch.tensor(pads, dtype=torch.int32, device=dev)}
+        batch_in = {"tokens": torch.from_numpy(padded).to(dev)}
+        if self.cfg.family in _PAD_FAMILIES:
+            batch_in["pad"] = torch.tensor(pads, dtype=torch.int32,
+                                           device=dev)
         cdt = torch.float32 if self.compute_dtype == torch.float32 \
             else torch.bfloat16
         cache = self.model.init_cache(self.cfg, self.batch, self.max_len,

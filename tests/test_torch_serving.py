@@ -378,6 +378,9 @@ def test_port_imports_neither_jax_nor_repro():
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "new = ['repro_torch.models.zamba2', 'repro_torch.models.mamba2', "
+        "'repro_torch.kernels.ssm_scan', 'repro_torch.configs.zamba2_2_7b']\n"
+        "assert all(m in sys.modules for m in new), new\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print('LOADED', len([m for m in sys.modules "
