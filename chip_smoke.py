@@ -7,17 +7,23 @@ Phases, one JSON line each:
 
 0. the card (``nvidia-smi`` name and power limit, torch and CUDA versions);
 1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
-   per source, all at once);
+   per source, all at once), with ptxas's registers and spills per kernel
+   and the tensor-core instructions (HMMA, HGMMA) in the SASS of the bf16
+   prefill and dequant kernels;
 2. each attention kernel against its plain PyTorch version at the serving
    shapes (llama2-7b width in bf16, qwen2-0.5b's GQA widths, one fp32
-   case), with its time, the plain version's, the library call's where one
-   PyTorch call computes the same function, and the bound of the work;
+   case; pad rows finite), with its time, the plain version's, the
+   library call's where one PyTorch call computes the same function, and
+   the bound of the work.  The prefill has two instantiations: bf16 on the
+   tensor cores (``flash_attention``), fp32 on the CUDA cores
+   (``flash_attention_fp32``);
 3. serving, card against CPU at fp32: a 2-layer model at llama2-7b width,
-   both engines, the same greedy tokens on both devices;
+   both engines, the same greedy tokens on both devices (the fp32
+   prefill's launches counted over the card's run);
 4. serving at full size: llama2-7b (32 layers, bf16, random weights from a
    seed) served by ``ContinuousServeEngine`` and then ``ServeEngine``, with
-   the attention kernels' launches counted over that run, and a profile of
-   a decode step;
+   the attention kernels' launches counted over that run, then a profile
+   of a prefill (batch 4, the attention's share) and of a decode step;
 5. each fused update kernel (AdamW, SGD-momentum, AdaGrad) against its
    plain version at one llama2-7b layer group, the embedding group, a
    Mixed^Hi case (f32 master, bf16 grads) and bf16 moments, with times,
@@ -35,7 +41,8 @@ Phases, one JSON line each:
 9. the dequant-matmul kernel against its plain version at llama2-7b's
    shapes (M = 4 x 512; the three projection shapes of a stacked layer,
    scale tile rows 8; the head, tile rows 1; one ragged case), int8 and
-   NF4, fp32 and bf16: decode bit-exact (x = the identity) and the
+   NF4, fp32 x (CUDA cores, ``dequant_matmul``) and bf16 x (tensor cores,
+   ``dequant_matmul_bf16``): decode bit-exact (x = the identity) and the
    product within tolerance, with its time, the plain version's, the
    time of ``torch.matmul`` on the pre-decoded weight, and the bound;
 10. codes on the card equal codes on the CPU: a llama2-7b layer group and
@@ -46,9 +53,10 @@ Phases, one JSON line each:
    512 — NF4 with bf16 moments (embed, layers 0 and 1 bottom2up, then the
    head and layer 31 top2down), int8 with bf16 moments and Mixed^Hi with
    NF4 (2 steps each) — with host time, peak memory beside the analytic
-   P+G+S and the dequant kernel's device time and launches per step, the
-   kernels' launches counted over that run, and a profile of a deep NF4
-   step;
+   P+G+S and the dequant kernel's device time and launches per step (the
+   Mixed^Hi steps' on the tensor cores), the kernels' launches counted
+   over that run, and profiles of a deep NF4 step and a deep Mixed^Hi +
+   NF4 step;
 13. the SSM scan kernel against its plain version at zamba2-2.7b's widths
    (H 80, P = N = 64): batch 4 x 512 in fp32 and bf16, one 2048-token
    prompt, a ragged S = 300, the published init's fast decay and a small
@@ -64,7 +72,8 @@ Phases, one JSON line each:
    128-512 tokens, 32 new tokens, after one warm-up run: tokens/s, peak
    memory, the kernels' launches over that run (54 scans a prefill), then
    prefill and decode-step times (the step in rounds, as ``generate`` runs
-   it) and a profile of each.
+   it) and a profile of each (the scan's and the attention's share of
+   the prefill).
 
 Then the ``nvidia-smi`` line, the kernels line and, last, the result line.
 Any failure raises: the script exits non-zero and prints no result.  It
@@ -93,22 +102,26 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # H100 SXM, dense
 HBM_BYTES_PER_S = 3.35e12
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}             # atol = rtol
 L2_BYTES = 50 * 2**20
-KERNEL_ROWS = {
+KERNEL_ROWS = {   # instantiations by name: the bf16 ones run on tensor cores
     "flash_attention": "src/repro/kernels/flash_attention.py:63",
+    "flash_attention_fp32": "src/repro/kernels/flash_attention.py:63",
     "flash_decode": "src/repro/kernels/flash_attention.py:141",
     "paged_flash_decode": "src/repro/kernels/flash_attention.py:230",
     "fused_adamw": "src/repro/kernels/fused_adamw.py:41",
     "fused_sgdm": "src/repro/kernels/fused_sgdm.py:29",
     "fused_adagrad": "src/repro/kernels/fused_adagrad.py:30",
     "dequant_matmul": "src/repro/kernels/fused_dequant_matmul.py:64",
+    "dequant_matmul_bf16": "src/repro/kernels/fused_dequant_matmul.py:64",
     "ssm_scan": "src/repro/kernels/ssm_scan.py:57",
 }
 SOURCES = {
-    **dict.fromkeys(("flash_attention", "flash_decode", "paged_flash_decode"),
+    **dict.fromkeys(("flash_attention", "flash_attention_fp32",
+                     "flash_decode", "paged_flash_decode"),
                     "src/repro_torch/kernels/csrc/flash_attention.cu"),
     **dict.fromkeys(("fused_adamw", "fused_sgdm", "fused_adagrad"),
                     "src/repro_torch/kernels/csrc/fused_update.cu"),
-    "dequant_matmul": "src/repro_torch/kernels/csrc/dequant_matmul.cu",
+    **dict.fromkeys(("dequant_matmul", "dequant_matmul_bf16"),
+                    "src/repro_torch/kernels/csrc/dequant_matmul.cu"),
     "ssm_scan": "src/repro_torch/kernels/csrc/ssm_scan.cu",
 }
 # The reference's analytic P+G+S (repro.core.memory_model.analyze, AdamW,
@@ -312,9 +325,23 @@ def library_call(torch, kernel, args, h, kvh):
                                                   attn_mask=mask, **gqa)
 
 
+def instance(kernel: str, dtype: str) -> str:
+    """The kernels line's name of a kernel's instantiation: the prefill
+    attention in fp32 runs on the CUDA cores (``flash_attention_fp32``),
+    in bf16 on the tensor cores (``flash_attention``); the dequant matmul
+    with bf16 x runs on the tensor cores (``dequant_matmul_bf16``), with
+    fp32 x on the CUDA cores (``dequant_matmul``)."""
+    if kernel == "flash_attention" and dtype == "float32":
+        return "flash_attention_fp32"
+    if kernel == "dequant_matmul" and dtype == "bfloat16":
+        return "dequant_matmul_bf16"
+    return kernel
+
+
 def phase_kernels(torch, cases=None):
     """Each attention kernel against its plain version over ``cases``
-    (default: ``kernel_cases``); returns the first case's row of each."""
+    (default: ``kernel_cases``); returns the first case's row of each
+    instantiation (``instance``)."""
     from repro_torch.kernels import flash_attention as K
     from repro_torch.kernels import ref
     wrappers = {"flash_attention": K.flash_attention,
@@ -331,9 +358,12 @@ def phase_kernels(torch, cases=None):
         got = wrappers[kernel](*args)
         want = plains[kernel](*args)
         torch.cuda.synchronize()
-        if kernel == "flash_attention":       # pad rows are undefined
+        if kernel == "flash_attention":       # pad rows: finite, else free
             keep = torch.arange(sh["s"], device="cuda")[None, :] >= \
                 args[3].long()[:, None]
+            pad_finite = bool(torch.isfinite(got[~keep].float()).all())
+            if not pad_finite:
+                raise RuntimeError(f"{kernel} ({case}): non-finite pad row")
             got, want = got[keep], want[keep]
         got, want = got.float(), want.float()
         if not torch.isfinite(got).all():
@@ -355,13 +385,15 @@ def phase_kernels(torch, cases=None):
             torch, lambda f: f(), [(f,) for f in lib])
         flops, wbytes = work(kernel, dtype, sh)
         bound_ms, bound_by = bound(flops, wbytes, dtype)
-        row = dict(kernel=kernel, case=case, dtype=dtype, shapes=sh,
-                   max_abs_err=max_err, tol=tol, ms=ms, plain_ms=plain_ms,
-                   library_ms=library_ms, bound_ms=bound_ms,
-                   bound_by=bound_by, flops=flops, bytes=wbytes,
-                   share_of_bound=bound_ms / ms)
+        row = dict(kernel=instance(kernel, dtype), case=case, dtype=dtype,
+                   shapes=sh, max_abs_err=max_err, tol=tol, ms=ms,
+                   plain_ms=plain_ms, library_ms=library_ms,
+                   bound_ms=bound_ms, bound_by=bound_by, flops=flops,
+                   bytes=wbytes, share_of_bound=bound_ms / ms)
+        if kernel == "flash_attention":
+            row["pad_rows_finite"] = pad_finite
         emit("kernel", **row)
-        results.setdefault(kernel, row)      # the first case is the main one
+        results.setdefault(row["kernel"], row)   # the first case is the main one
         del sets, lib, args
         torch.cuda.empty_cache()
     return results
@@ -399,9 +431,12 @@ def serve_both(torch, cfg, params, prompts, max_new, dtype, device,
 
 
 def phase_card_vs_cpu(torch):
-    """Same fp32 weights on CPU (plain versions) and card (kernels)."""
+    """Same fp32 weights on CPU (plain versions) and card (kernels).  The
+    fp32 prefill runs on the CUDA cores: its launches (both engines, the
+    card's serving run only) are returned as ``flash_attention_fp32``."""
     from repro_torch.common.pytree import tree_map
     from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as K
     from repro_torch.models import transformer as T
     cfg = dataclasses.replace(get_config("llama2-7b"), n_layers=2)
     params = T.init(cfg, torch.Generator().manual_seed(0), device="cpu",
@@ -410,10 +445,13 @@ def phase_card_vs_cpu(torch):
     prompts = [rng.integers(0, cfg.vocab, n) for n in (64, 37, 20)]
     out = {}
     for dev in ("cpu", "cuda"):
+        K.reset_launches()                 # count the card's run only
         _, cont, fixed, _, _ = serve_both(torch, cfg, params, prompts, 8,
                                           torch.float32, dev, slots=2,
                                           prefill_bucket=64)
         out[dev] = (cont, fixed)
+    fp32_launches = (K.flash_attention.launches
+                     - K.flash_attention.launches_tc)
     # logits of one prefill and one decode step on both devices
     toks = torch.from_numpy(np.stack([np.pad(p, (64 - len(p), 0))
                                       for p in prompts])).long()
@@ -435,11 +473,16 @@ def phase_card_vs_cpu(torch):
     emit("card_vs_cpu", n_layers=cfg.n_layers, d_model=cfg.d_model,
          prompts=[len(p) for p in prompts], new_tokens=8,
          tokens_equal=same, max_logit_gap=max(gaps),
-         cpu_continuous=out["cpu"][0], cuda_continuous=out["cuda"][0])
+         cpu_continuous=out["cpu"][0], cuda_continuous=out["cuda"][0],
+         flash_attention_fp32_launches=fp32_launches)
     if not same:
         raise RuntimeError(f"card and CPU greedy tokens differ: {out}")
     if out["cuda"][0] != out["cuda"][1]:
         raise RuntimeError("continuous and fixed-batch tokens differ at fp32")
+    if fp32_launches == 0:
+        raise RuntimeError("the fp32 serving run never launched the fp32 "
+                           "prefill kernel")
+    return {"flash_attention_fp32": fp32_launches}
 
 
 def phase_full(torch):
@@ -464,6 +507,10 @@ def phase_full(torch):
         torch, cfg, params, prompts, max_new, bf16, "cuda", slots=4,
         prefill_bucket=32, max_blocks=-(-(512 + max_new) // 16))
     launches = {fn.__name__: fn.launches for fn in K.KERNELS}
+    simt = launches["flash_attention"] - K.flash_attention.launches_tc
+    if simt:
+        raise RuntimeError(f"bf16 serving ran the fp32 prefill kernel {simt} "
+                           "times")
     peak = torch.cuda.max_memory_allocated()
     for toks in cont + fixed:
         if len(toks) != max_new or not all(0 <= t < cfg.vocab_padded
@@ -517,11 +564,12 @@ def profile_summary(prof, host_ms: float, calls: int = 1, top: int = 8,
 
 
 def phase_profile(torch, cfg, params, prompts, steps: int = 8):
-    """Where a decode step's time goes: ``torch.profiler`` over ``steps``
-    contiguous decode steps of llama2-7b (batch 4, bf16) after one prefill.
-    Reports the device's busy time per step (sum of kernel times), the
-    host clock per step under the profiler, and the kernels that take the
-    most device time."""
+    """Where a prefill's and a decode step's time go: ``torch.profiler``
+    over one prefill of llama2-7b (batch 4, bf16, after a warm-up
+    prefill), with the prefill attention's share, then over ``steps``
+    contiguous decode steps.  Reports the device's busy time (sum of
+    kernel times) per call, the host clock per call under the profiler,
+    and the kernels that take the most device time."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import transformer as T
     bf16 = torch.bfloat16
@@ -530,10 +578,22 @@ def phase_profile(torch, cfg, params, prompts, steps: int = 8):
                                   for p in prompts]), device="cuda")
     pad = torch.tensor([plen - len(p) for p in prompts], dtype=torch.int32,
                        device="cuda")
-    cache = T.init_cache(cfg, len(prompts), plen + 2 * steps, dtype=bf16,
-                         device="cuda")
-    logits, cache = T.prefill(cfg, params, {"tokens": toks, "pad": pad},
-                              cache, bf16)
+    def prefill():
+        cache = T.init_cache(cfg, len(prompts), plen + 2 * steps,
+                             dtype=bf16, device="cuda")
+        return T.prefill(cfg, params, {"tokens": toks, "pad": pad}, cache,
+                         bf16)
+
+    prefill()                                           # warm up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        logits, cache = prefill()
+        torch.cuda.synchronize()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+    emit("prefill_profile", arch=cfg.name, batch=len(prompts), prompt=plen,
+         **profile_summary(prof, host_ms, attention_ms="flash_attention"))
     tok = logits[:, -1].argmax(-1, keepdim=True)
     for _ in range(2):                                  # warm up
         logits, cache = T.decode_step(cfg, params, cache, tok, bf16)
@@ -1020,7 +1080,9 @@ def phase_dequant_kernel(torch):
     M = 2048 (batch 4 x 512): decode bit-exact through one-hot rows of x,
     the product within ``DEQUANT_TOL``; times beside the bound and the
     product of ``torch.matmul`` on the pre-decoded weight (no single
-    PyTorch call decodes and multiplies, so ``library_ms`` is null)."""
+    PyTorch call decodes and multiplies, so ``library_ms`` is null).  bf16
+    x runs on the tensor cores (``dequant_matmul_bf16``, bound at the bf16
+    tensor-core rate), fp32 x on the CUDA cores (``dequant_matmul``)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import dequant_matmul as DM
     from repro_torch.kernels import ref
@@ -1064,7 +1126,8 @@ def phase_dequant_kernel(torch):
         del dense
         flops = 2 * m * k * n
         bound_ms, bound_by = bound(flops, nbytes, dtype)
-        row = dict(kernel="dequant_matmul", case=case, fmt=fmt, dtype=dtype,
+        row = dict(kernel=instance("dequant_matmul", dtype), case=case,
+                   fmt=fmt, dtype=dtype,
                    shapes=dict(m=m, k=k, n=n, tile_rows=view.tile_rows),
                    decode_bit_exact=exact, max_abs_err=max_err, tol=tol,
                    ms=ms, plain_ms=plain_ms, library_ms=None,
@@ -1072,7 +1135,7 @@ def phase_dequant_kernel(torch):
                    bound_by=bound_by, flops=flops, bytes=nbytes,
                    share_of_bound=bound_ms / ms)
         emit("kernel", **row)
-        results.setdefault("dequant_matmul", row)   # the main path's case
+        results.setdefault(row["kernel"], row)   # the main path's cases
         del sets, x, view
         gc.collect()
         torch.cuda.empty_cache()
@@ -1168,9 +1231,11 @@ def phase_train_quant_full(torch):
     runner encodes fresh random params from seed 0, which are then freed,
     so a step's peak holds the encoded tree.  Per step: host clock, peak
     memory (reset per step) and the dequant kernel's device time (CUDA
-    events around its launches) and launches; the kernels' launches are
-    counted over the run, which includes layer 2's step of the first NF4
-    runner, run under ``torch.profiler``."""
+    events around its launches) and launches, those on the tensor cores
+    (bf16 x: the Mixed^Hi steps) apart; the kernels' launches are counted
+    over the run, which includes a profiled deep step of the first NF4
+    runner (layer 2) and of the Mixed^Hi runner (layer 1), each run under
+    ``torch.profiler``."""
     from repro_torch.configs.registry import get_config
     from repro_torch.core import (HiFTConfig, LRSchedule, QuantConfig,
                                   make_runner)
@@ -1224,6 +1289,7 @@ def phase_train_quant_full(torch):
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
                 events.clear()
+                tc0 = DM.dequant_matmul.launches_tc
                 t0 = time.perf_counter()
                 loss = float(runner.train_step(batches[i]))
                 torch.cuda.synchronize()
@@ -1240,15 +1306,19 @@ def phase_train_quant_full(torch):
                     resident_bytes=resident, encode_s=encode_s,
                     dequant_kernel_ms=sum(a.elapsed_time(b)
                                           for a, b in events),
-                    dequant_launches=len(events)))
+                    dequant_launches=len(events),
+                    dequant_launches_tc=DM.dequant_matmul.launches_tc - tc0))
                 emit("train_quant_step", arch=cfg.name, **steps[-1])
                 peaks[key] = max(peaks.get(key, 0), peak)
                 if not math.isfinite(loss):
                     raise RuntimeError(f"non-finite loss at {label}")
-            if (fmt, policy, order) == ("nf4", "fp32", "bottom2up"):
-                phase_train_quant_profile(torch, cfg, runner, batches[3])
+            if order == "bottom2up" and fmt == "nf4":   # a deep step
+                phase_train_quant_profile(torch, cfg, runner, batches[n],
+                                          f"{fmt}/bf16", policy)
             del runner
-        launches = {"dequant_matmul": DM.dequant_matmul.launches,
+        tc = DM.dequant_matmul.launches_tc
+        launches = {"dequant_matmul": DM.dequant_matmul.launches - tc,
+                    "dequant_matmul_bf16": tc,
                     **{fn.__name__.replace("_update", ""): fn.launches
                        for fn in FU.KERNELS}}
     finally:
@@ -1259,7 +1329,8 @@ def phase_train_quant_full(torch):
                               peak_memory_gib=v / 2**30,
                               analytic_pgs_gib=ANALYTIC_PGS_GIB_QUANT[k])
                          for k, v in peaks.items()])
-    if launches["dequant_matmul"] == 0 or launches["fused_adamw"] == 0:
+    if 0 in (launches["dequant_matmul"], launches["dequant_matmul_bf16"],
+             launches["fused_adamw"]):
         raise RuntimeError(f"kernels never launched on the quantized "
                            f"training path: {launches}")
     gc.collect()
@@ -1267,10 +1338,11 @@ def phase_train_quant_full(torch):
     return launches
 
 
-def phase_train_quant_profile(torch, cfg, runner, batch):
-    """Where a deep quantized step's time goes: the NF4 runner's next step
-    (layer 2, backward through 30 layers) under ``torch.profiler``, with
-    the dequant kernel's share of the device's busy time."""
+def phase_train_quant_profile(torch, cfg, runner, batch, quant, policy):
+    """Where a deep quantized step's time goes: a runner's next step (the
+    NF4 fp32 runner's layer 2, the Mixed^Hi runner's layer 1: a backward
+    through 30 or 31 layers) under ``torch.profiler``, with the dequant
+    kernel's share of the device's busy time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1282,7 +1354,7 @@ def phase_train_quant_profile(torch, cfg, runner, batch):
     prof_row = profile_summary(prof, 1e3 * host_s, top=10,
                                dequant_kernel_ms="dequant_matmul")
     emit("train_quant_profile", group=runner.last_metrics["group"],
-         quant="nf4/bf16", dequant_share_of_busy=prof_row[
+         quant=quant, policy=policy, dequant_share_of_busy=prof_row[
              "dequant_kernel_ms"] / prof_row["device_busy_ms"], **prof_row)
 
 
@@ -1538,8 +1610,10 @@ def phase_hybrid_full(torch):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"ssm_scan": S.ssm_scan.launches,
-                "flash_attention": K.flash_attention.launches,
+                "flash_attention": K.flash_attention.launches_tc,
                 "flash_decode": K.flash_decode.launches}
+    if K.flash_attention.launches != K.flash_attention.launches_tc:
+        raise RuntimeError("bf16 hybrid serving ran the fp32 prefill kernel")
     peak = torch.cuda.max_memory_allocated()
     for toks in outs:
         if len(toks) != max_new or not all(0 <= t < cfg.vocab_padded
@@ -1618,7 +1692,8 @@ def phase_hybrid_timing(torch, cfg, params, prompts, rounds: int = 5,
         prefill()
         torch.cuda.synchronize()
         host_ms = 1e3 * (time.perf_counter() - t0)
-    prefill_prof = profile_summary(prof, host_ms, ssm_scan_ms="ssm_scan")
+    prefill_prof = profile_summary(prof, host_ms, ssm_scan_ms="ssm_scan",
+                                   attention_ms="flash_attention")
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         cache, tok = decode(steps, cache, tok)
@@ -1636,6 +1711,36 @@ def phase_hybrid_timing(torch, cfg, params, prompts, rounds: int = 5,
 
 
 # ------------------------------------------------------------ main
+
+TC_KERNELS = ("flash_attention_tc_kernel", "dequant_matmul_wgmma_kernel")
+
+
+def sass_mma(libs) -> dict:
+    """Tensor-core instructions in the built kernels' SASS (``cuobjdump
+    -sass`` beside nvcc): for each kernel of ``TC_KERNELS``, its
+    instantiations and the number of HMMA (``mma.sync``) and HGMMA
+    (``wgmma``) instructions in each."""
+    from repro_torch.kernels import build
+    tool = Path(build.find_nvcc()).parent / "cuobjdump"
+    out = {}
+    for lib in libs.values():
+        sass = subprocess.run([str(tool), "-sass", str(lib)],
+                              capture_output=True, text=True, check=True,
+                              timeout=120).stdout
+        fn = None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                name = line.split("Function :")[1].strip()
+                fn = next((k for k in TC_KERNELS if k in name), None)
+                if fn:
+                    key = f"{fn}#{sum(k.startswith(fn) for k in out)}"
+                    out[key] = dict(symbol=name[:120], hmma=0, hgmma=0)
+            elif fn and "HGMMA" in line:
+                out[key]["hgmma"] += 1
+            elif fn and "HMMA" in line:
+                out[key]["hmma"] += 1
+    return out
+
 
 def main() -> int:
     import torch
@@ -1658,14 +1763,22 @@ def main() -> int:
     libs = build.build_all()
     ptxas = [ln.strip() for log in build.last_build.get("logs", {}).values()
              for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
+             if "registers" in ln or "spill" in ln
+             or "entry function" in ln]
     emit("build", seconds=time.perf_counter() - t0,
          libraries=[str(p.relative_to(ROOT)) for p in libs.values()],
          ptxas=ptxas)
+    mma = sass_mma(libs)
+    emit("sass", tensor_core_kernels=mma)
+    for name in TC_KERNELS:
+        inst = [v for k, v in mma.items() if k.startswith(name)]
+        if not inst or any(v["hmma"] + v["hgmma"] == 0 for v in inst):
+            raise RuntimeError(f"{name}: no tensor-core instruction in its "
+                               f"SASS: {inst}")
 
     rows = phase_kernels(torch)
-    phase_card_vs_cpu(torch)
-    launches = phase_full(torch)
+    launches = phase_card_vs_cpu(torch)
+    launches.update(phase_full(torch))
     gc.collect()
     torch.cuda.empty_cache()
     rows.update(phase_update_kernels(torch))
@@ -1676,12 +1789,16 @@ def main() -> int:
     rows.update(phase_dequant_kernel(torch))
     phase_quant_codes(torch)
     phase_train_quant_card_vs_cpu(torch)
-    launches["dequant_matmul"] = phase_train_quant_full(
-        torch)["dequant_matmul"]
+    quant = phase_train_quant_full(torch)
+    launches.update({k: quant[k] for k in ("dequant_matmul",
+                                           "dequant_matmul_bf16")})
     rows.update(phase_ssm_kernel(torch))
     phase_kernels(torch, hybrid_attention_cases())
     phase_hybrid_card_vs_cpu(torch)
-    launches["ssm_scan"] = phase_hybrid_full(torch)["ssm_scan"]
+    hybrid = phase_hybrid_full(torch)
+    launches["ssm_scan"] = hybrid["ssm_scan"]
+    # the bf16 prefill's main path: the llama2-7b and the zamba2 prefills
+    launches["flash_attention"] += hybrid["flash_attention"]
 
     kernels = []
     for name, row in rows.items():

@@ -15,7 +15,9 @@ frozen and get no gradient):
 - on CUDA tensors it checks device, dtypes, shapes and contiguity and
   launches the kernel on ``torch.cuda.current_stream()``, or raises; it
   never falls back to the plain version, and counts its launches in
-  ``dequant_matmul.launches`` (and nowhere else);
+  ``dequant_matmul.launches`` (and nowhere else); bf16 ``x`` runs on the
+  tensor cores and is counted in ``dequant_matmul.launches_tc`` as well,
+  fp32 ``x`` runs on the CUDA cores;
 - its backward is ``dy @ dequant(W)^T``: the reference differentiates
   ``dequantize_leaf`` + ``dot`` with XLA outside any Pallas kernel, so
   here the one weight is decoded with ``dist.quant`` and multiplied by
@@ -90,6 +92,8 @@ def _launch(x: torch.Tensor, w) -> torch.Tensor:
         raise RuntimeError(f"dequant_matmul: CUDA kernel launch failed with "
                            f"cudaError {err}")
     dequant_matmul.launches += 1
+    if x.dtype == bf16:
+        dequant_matmul.launches_tc += 1
     return out
 
 
@@ -121,8 +125,10 @@ def dequant_matmul(x: torch.Tensor, w) -> torch.Tensor:
 
 
 dequant_matmul.launches = 0
+dequant_matmul.launches_tc = 0
 KERNELS = (dequant_matmul,)
 
 
 def reset_launches() -> None:
     dequant_matmul.launches = 0
+    dequant_matmul.launches_tc = 0

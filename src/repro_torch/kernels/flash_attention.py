@@ -9,7 +9,9 @@ Port of ``repro.kernels.flash_attention`` (``flash_attention_pallas``,
   ``torch.cuda.current_stream()`` and raises if the launch is refused.
   It never falls back to the plain version;
 - counts its kernel launches in its ``launches`` attribute (and nowhere
-  else), so a run can show that it went through the kernel.
+  else), so a run can show that it went through the kernel.  The prefill
+  has two kernels: bf16 runs on the tensor cores and is counted in
+  ``flash_attention.launches_tc`` as well; fp32 runs on the CUDA cores.
 """
 from __future__ import annotations
 
@@ -135,6 +137,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             out.data_ptr(), b, s, h, kvh, hd, _DTYPES[q.dtype], int(causal),
             1.0 / math.sqrt(hd))
     flash_attention.launches += 1
+    if q.dtype == torch.bfloat16:
+        flash_attention.launches_tc += 1
     return out
 
 
@@ -208,6 +212,7 @@ def paged_flash_decode(q: torch.Tensor, k_pool: torch.Tensor,
 
 
 flash_attention.launches = 0
+flash_attention.launches_tc = 0
 flash_decode.launches = 0
 paged_flash_decode.launches = 0
 KERNELS = (flash_attention, flash_decode, paged_flash_decode)
@@ -216,3 +221,4 @@ KERNELS = (flash_attention, flash_decode, paged_flash_decode)
 def reset_launches() -> None:
     for fn in KERNELS:
         fn.launches = 0
+    flash_attention.launches_tc = 0
