@@ -8,15 +8,17 @@ Phases, one JSON line each:
 0. the card (``nvidia-smi`` name and power limit, torch and CUDA versions);
 1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
    per source, all at once), with ptxas's registers and spills per kernel
-   and the tensor-core instructions (HMMA, HGMMA) in the SASS of the bf16
-   prefill and dequant kernels;
+   and the tensor-core instructions (HMMA, HGMMA) in the SASS of the two
+   prefill kernels and the bf16 dequant kernel;
 2. each attention kernel against its plain PyTorch version at the serving
-   shapes (llama2-7b width in bf16, qwen2-0.5b's GQA widths, one fp32
-   case; pad rows finite), with its time, the plain version's, the
+   shapes (llama2-7b width in bf16 and fp32, batched and ragged; qwen2-0.5b's
+   GQA widths; one long chat session, 1 x 4096 keys; windows that are
+   empty; pad rows finite), with its time, the plain version's, the
    library call's where one PyTorch call computes the same function, and
-   the bound of the work.  The prefill has two instantiations: bf16 on the
-   tensor cores (``flash_attention``), fp32 on the CUDA cores
-   (``flash_attention_fp32``);
+   the bound of the work.  The prefill has two instantiations, both on the
+   tensor cores: bf16 through ``wgmma`` (``flash_attention``), fp32 as
+   three-pass TF32 (``flash_attention_fp32``, bound by TF32's rate x 3);
+   the decodes split each row's window over blocks;
 3. serving, card against CPU at fp32: a 2-layer model at llama2-7b width,
    both engines, the same greedy tokens on both devices (the fp32
    prefill's launches counted over the card's run);
@@ -24,6 +26,8 @@ Phases, one JSON line each:
    seed) served by ``ContinuousServeEngine`` and then ``ServeEngine``, with
    the attention kernels' launches counted over that run, then a profile
    of a prefill (batch 4, the attention's share) and of a decode step;
+   then the same at fp32, the launcher's default dtype (``full_size_fp32``:
+   27 GB of weights, 16 new tokens a request);
 5. each fused update kernel (AdamW, SGD-momentum, AdaGrad) against its
    plain version at one llama2-7b layer group, the embedding group, a
    Mixed^Hi case (f32 master, bf16 grads) and bf16 moments, with times,
@@ -62,8 +66,8 @@ Phases, one JSON line each:
    prompt, a ragged S = 300, the published init's fast decay and a small
    case; y and the final state within ``TOL``, with time, plain time and
    bound;
-14. the prefill and contiguous-decode attention kernels at zamba2's shared
-   block (H = KV = 32, head dim 80), bf16 and fp32;
+14. the attention kernels at zamba2's shared block (H = KV = 32, head dim
+   80): the prefill and both decodes in bf16 and fp32;
 15. hybrid serving, card against CPU at fp32: 12 layers (2 super-blocks) of
    zamba2-2.7b at full width with slow-decay SSM scalars, 4 prompts of
    mixed length, 8 new tokens: the same greedy tokens on both devices;
@@ -98,7 +102,9 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # H100 SXM, dense
+# H100 SXM, dense; "tf32" is the tensor cores' rate that the fp32 prefill's
+# three TF32 passes run at
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
 HBM_BYTES_PER_S = 3.35e12
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}             # atol = rtol
 L2_BYTES = 50 * 2**20
@@ -213,6 +219,7 @@ def kernel_cases(torch):
     qwen = dict(h=14, kvh=2, hd=64)
     starts4 = [0, 37, 100, 5]
     lengths4 = [544, 520, 300, 33]
+    empty4 = [0, 37, 300, 5]                    # row 2's window is empty
     return [
         ("flash_attention", "llama2-7b continuous prefill", "bfloat16",
          dict(b=1, s=512, starts=[37], **llama)),
@@ -237,6 +244,28 @@ def kernel_cases(torch):
         ("paged_flash_decode", "llama2-7b paged decode fp32", "float32",
          dict(b=4, bs=16, max_blocks=34, starts=starts4, lengths=lengths4,
               **llama)),
+        ("flash_attention", "llama2-7b batched prefill fp32 (ragged)",
+         "float32", dict(b=4, s=301, starts=[0, 50, 120, 300], **llama)),
+        ("flash_decode", "llama2-7b long decode (1 x 4096)", "bfloat16",
+         dict(b=1, s=4096, starts=[0], lengths=[4096], **llama)),
+        ("flash_decode", "llama2-7b long decode fp32 (1 x 4096)", "float32",
+         dict(b=1, s=4096, starts=[0], lengths=[4096], **llama)),
+        ("paged_flash_decode", "llama2-7b long paged decode (1 x 4096)",
+         "bfloat16", dict(b=1, bs=16, max_blocks=256, starts=[0],
+                          lengths=[4096], **llama)),
+        ("flash_decode", "qwen2-0.5b GQA decode fp32", "float32",
+         dict(b=4, s=544, starts=starts4, lengths=lengths4, **qwen)),
+        ("paged_flash_decode", "qwen2-0.5b GQA paged decode fp32",
+         "float32", dict(b=4, bs=16, max_blocks=34, starts=starts4,
+                         lengths=lengths4, **qwen)),
+        ("flash_decode", "GQA hd 128, 8 heads a kv head (two head groups)",
+         "bfloat16", dict(b=4, s=544, starts=starts4, lengths=lengths4,
+                          h=32, kvh=4, hd=128)),
+        ("flash_decode", "llama2-7b decode, an empty window", "bfloat16",
+         dict(b=4, s=544, starts=empty4, lengths=lengths4, **llama)),
+        ("paged_flash_decode", "llama2-7b paged decode fp32, an empty window",
+         "float32", dict(b=4, bs=16, max_blocks=34, starts=empty4,
+                         lengths=lengths4, **llama)),
     ]
 
 
@@ -282,13 +311,13 @@ def work(kernel, dtype, sh):
         nbytes = sum(valid) * (h + 2 * kvh) * hd * e       # q, k, v rows
         nbytes += sh["b"] * s * h * hd * e + 4 * sh["b"]    # out, starts
         return 4 * hd * h * pairs, nbytes
-    window = [ln - st for st, ln in zip(sh["starts"], sh["lengths"])]
+    window = [max(0, ln - st) for st, ln in zip(sh["starts"], sh["lengths"])]
     nbytes = 2 * sh["b"] * h * hd * e + 8 * sh["b"]         # q, out, idx
     nbytes += sum(window) * 2 * kvh * hd * e                # k, v rows
     if kernel == "paged_flash_decode":
         bs = sh["bs"]
         pages = sum((ln - 1) // bs - st // bs + 1
-                    for st, ln in zip(sh["starts"], sh["lengths"]))
+                    for st, ln in zip(sh["starts"], sh["lengths"]) if ln > st)
         nbytes += 4 * pages                                 # table entries
     return 4 * hd * h * sum(window), nbytes
 
@@ -327,8 +356,8 @@ def library_call(torch, kernel, args, h, kvh):
 
 def instance(kernel: str, dtype: str) -> str:
     """The kernels line's name of a kernel's instantiation: the prefill
-    attention in fp32 runs on the CUDA cores (``flash_attention_fp32``),
-    in bf16 on the tensor cores (``flash_attention``); the dequant matmul
+    attention in fp32 runs as three-pass TF32 (``flash_attention_fp32``),
+    in bf16 through ``wgmma`` (``flash_attention``); the dequant matmul
     with bf16 x runs on the tensor cores (``dequant_matmul_bf16``), with
     fp32 x on the CUDA cores (``dequant_matmul``)."""
     if kernel == "flash_attention" and dtype == "float32":
@@ -355,9 +384,12 @@ def phase_kernels(torch, cases=None):
     for kernel, case, dtype, sh in cases or kernel_cases(torch):
         dt = getattr(torch, dtype)
         args = make_inputs(torch, kernel, dt, sh, gen)
+        split0 = getattr(wrappers[kernel], "launches_split", 0)
         got = wrappers[kernel](*args)
+        split = getattr(wrappers[kernel], "launches_split", 0) > split0
         want = plains[kernel](*args)
         torch.cuda.synchronize()
+        extra = {}
         if kernel == "flash_attention":       # pad rows: finite, else free
             keep = torch.arange(sh["s"], device="cuda")[None, :] >= \
                 args[3].long()[:, None]
@@ -365,6 +397,16 @@ def phase_kernels(torch, cases=None):
             if not pad_finite:
                 raise RuntimeError(f"{kernel} ({case}): non-finite pad row")
             got, want = got[keep], want[keep]
+            extra["pad_rows_finite"] = pad_finite
+        else:                                 # empty windows come out as 0
+            keep = torch.tensor([ln > st for st, ln in
+                                 zip(sh["starts"], sh["lengths"])],
+                                device="cuda")
+            if not bool((got[~keep] == 0).all()):
+                raise RuntimeError(f"{kernel} ({case}): an empty window's "
+                                   "row is not 0")
+            got, want = got[keep], want[keep]
+            extra.update(split=split, empty_windows=int((~keep).sum()))
         got, want = got.float(), want.float()
         if not torch.isfinite(got).all():
             raise RuntimeError(f"{kernel} ({case}): non-finite output")
@@ -385,13 +427,16 @@ def phase_kernels(torch, cases=None):
             torch, lambda f: f(), [(f,) for f in lib])
         flops, wbytes = work(kernel, dtype, sh)
         bound_ms, bound_by = bound(flops, wbytes, dtype)
+        if instance(kernel, dtype) == "flash_attention_fp32":
+            # three TF32 passes; the CUDA cores' fp32 bound beside it
+            extra["bound_cuda_cores_ms"] = bound_ms
+            bound_ms, bound_by = bound(3 * flops, wbytes, "tf32")
+            extra["products"] = "3xTF32 mma.sync"
         row = dict(kernel=instance(kernel, dtype), case=case, dtype=dtype,
                    shapes=sh, max_abs_err=max_err, tol=tol, ms=ms,
                    plain_ms=plain_ms, library_ms=library_ms,
                    bound_ms=bound_ms, bound_by=bound_by, flops=flops,
-                   bytes=wbytes, share_of_bound=bound_ms / ms)
-        if kernel == "flash_attention":
-            row["pad_rows_finite"] = pad_finite
+                   bytes=wbytes, share_of_bound=bound_ms / ms, **extra)
         emit("kernel", **row)
         results.setdefault(row["kernel"], row)   # the first case is the main one
         del sets, lib, args
@@ -431,9 +476,10 @@ def serve_both(torch, cfg, params, prompts, max_new, dtype, device,
 
 
 def phase_card_vs_cpu(torch):
-    """Same fp32 weights on CPU (plain versions) and card (kernels).  The
-    fp32 prefill runs on the CUDA cores: its launches (both engines, the
-    card's serving run only) are returned as ``flash_attention_fp32``."""
+    """Same fp32 weights on CPU (plain versions) and card (kernels): the
+    fp32 prefill (three-pass TF32) and both decodes must give the CPU's
+    greedy tokens; the fp32 prefill's launches over the card's serving run
+    must be non-zero."""
     from repro_torch.common.pytree import tree_map
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import flash_attention as K
@@ -482,35 +528,43 @@ def phase_card_vs_cpu(torch):
     if fp32_launches == 0:
         raise RuntimeError("the fp32 serving run never launched the fp32 "
                            "prefill kernel")
-    return {"flash_attention_fp32": fp32_launches}
 
 
-def phase_full(torch):
-    """llama2-7b at full width and depth, bf16, both engines."""
+def phase_full(torch, dtype: str = "bfloat16", max_new: int = 32):
+    """llama2-7b at full width and depth, both engines, in ``dtype``: bf16
+    (``full_size``), or fp32 (``full_size_fp32``), the launcher's default,
+    whose prefill runs ``flash_attention_fp32``.  Returns the attention
+    kernels' launches over the run by instantiation (``instance``)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import flash_attention as K
     from repro_torch.models import transformer as T
     cfg = get_config("llama2-7b")
-    bf16 = torch.bfloat16
+    dt = getattr(torch, dtype)
+    gc.collect()
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     params = T.init(cfg, torch.Generator(device="cuda").manual_seed(0),
-                    device="cuda", dtype=bf16)
+                    device="cuda", dtype=dt)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     rng = np.random.default_rng(0)
     plens = [int(n) for n in rng.integers(32, 513, 8)]
     prompts = [rng.integers(0, cfg.vocab, n) for n in plens]
-    max_new = 32
     torch.cuda.reset_peak_memory_stats()
     K.reset_launches()                   # count the main path's run only
     ceng, cont, fixed, t_cont, t_fixed = serve_both(
-        torch, cfg, params, prompts, max_new, bf16, "cuda", slots=4,
+        torch, cfg, params, prompts, max_new, dt, "cuda", slots=4,
         prefill_bucket=32, max_blocks=-(-(512 + max_new) // 16))
-    launches = {fn.__name__: fn.launches for fn in K.KERNELS}
-    simt = launches["flash_attention"] - K.flash_attention.launches_tc
-    if simt:
-        raise RuntimeError(f"bf16 serving ran the fp32 prefill kernel {simt} "
-                           "times")
+    prefill = instance("flash_attention", dtype)
+    launches = {prefill: K.flash_attention.launches_tc
+                if dtype == "bfloat16" else
+                K.flash_attention.launches - K.flash_attention.launches_tc,
+                **{fn.__name__: fn.launches for fn in K.KERNELS[1:]}}
+    split = {fn.__name__: fn.launches_split for fn in K.KERNELS[1:]}
+    if launches[prefill] != K.flash_attention.launches:
+        raise RuntimeError(f"{dtype} serving ran the other prefill kernel "
+                           f"{K.flash_attention.launches - launches[prefill]}"
+                           " times")
     peak = torch.cuda.max_memory_allocated()
     for toks in cont + fixed:
         if len(toks) != max_new or not all(0 <= t < cfg.vocab_padded
@@ -520,7 +574,8 @@ def phase_full(torch):
     agree = sum(a == b for a, b in zip(cont, fixed))
     prefix = [next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
                    len(a)) for a, b in zip(cont, fixed)]
-    emit("full_size", arch=cfg.name, n_layers=cfg.n_layers, dtype="bfloat16",
+    emit("full_size" if dtype == "bfloat16" else "full_size_fp32",
+         arch=cfg.name, n_layers=cfg.n_layers, dtype=dtype, depth="full",
          init_s=init_s, prompt_lens=plens, new_tokens=max_new,
          continuous=dict(slots=4, block_size=16, wall_s=t_cont,
                          tokens_per_s=n_tok / t_cont, steps=ceng.steps,
@@ -530,14 +585,18 @@ def phase_full(torch):
                          refills=ceng.scheduler.stats.n_refills),
          fixed_batch=dict(batch=4, wall_s=t_fixed,
                           tokens_per_s=n_tok / t_fixed),
-         peak_memory_bytes=peak, launches=launches,
+         peak_memory_bytes=peak, peak_memory_gib=peak / 2**30,
+         launches=launches, decode_launches_split=split,
          engines_agree=f"{agree}/{len(prompts)} requests",
          agreeing_prefix_tokens=prefix)
     missing = [k for k, n in launches.items() if n == 0]
     if missing:
         raise RuntimeError(f"kernels never launched on the main path: "
                            f"{missing}")
-    phase_profile(torch, cfg, params, prompts[:4])
+    phase_profile(torch, cfg, params, prompts[:4], dt)
+    del ceng, params
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -563,16 +622,16 @@ def profile_summary(prof, host_ms: float, calls: int = 1, top: int = 8,
     return out
 
 
-def phase_profile(torch, cfg, params, prompts, steps: int = 8):
+def phase_profile(torch, cfg, params, prompts, dt, steps: int = 8):
     """Where a prefill's and a decode step's time go: ``torch.profiler``
-    over one prefill of llama2-7b (batch 4, bf16, after a warm-up
+    over one prefill of llama2-7b (batch 4, in ``dt``, after a warm-up
     prefill), with the prefill attention's share, then over ``steps``
-    contiguous decode steps.  Reports the device's busy time (sum of
-    kernel times) per call, the host clock per call under the profiler,
-    and the kernels that take the most device time."""
+    contiguous decode steps, with the decode attention's.  Reports the
+    device's busy time (sum of kernel times) per call, the host clock per
+    call under the profiler, and the kernels that take the most device
+    time."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import transformer as T
-    bf16 = torch.bfloat16
     plen = max(len(p) for p in prompts)
     toks = torch.tensor(np.stack([np.pad(p, (plen - len(p), 0))
                                   for p in prompts]), device="cuda")
@@ -580,9 +639,9 @@ def phase_profile(torch, cfg, params, prompts, steps: int = 8):
                        device="cuda")
     def prefill():
         cache = T.init_cache(cfg, len(prompts), plen + 2 * steps,
-                             dtype=bf16, device="cuda")
+                             dtype=dt, device="cuda")
         return T.prefill(cfg, params, {"tokens": toks, "pad": pad}, cache,
-                         bf16)
+                         dt)
 
     prefill()                                           # warm up
     torch.cuda.synchronize()
@@ -592,22 +651,25 @@ def phase_profile(torch, cfg, params, prompts, steps: int = 8):
         logits, cache = prefill()
         torch.cuda.synchronize()
         host_ms = 1e3 * (time.perf_counter() - t0)
-    emit("prefill_profile", arch=cfg.name, batch=len(prompts), prompt=plen,
+    dtype = str(dt).replace("torch.", "")
+    emit("prefill_profile", arch=cfg.name, dtype=dtype, batch=len(prompts),
+         prompt=plen,
          **profile_summary(prof, host_ms, attention_ms="flash_attention"))
     tok = logits[:, -1].argmax(-1, keepdim=True)
     for _ in range(2):                                  # warm up
-        logits, cache = T.decode_step(cfg, params, cache, tok, bf16)
+        logits, cache = T.decode_step(cfg, params, cache, tok, dt)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            logits, cache = T.decode_step(cfg, params, cache, tok, bf16)
+            logits, cache = T.decode_step(cfg, params, cache, tok, dt)
             tok = logits[:, -1].argmax(-1, keepdim=True)
         torch.cuda.synchronize()
         host_s = time.perf_counter() - t0
-    emit("decode_profile", steps=steps, batch=len(prompts),
-         **profile_summary(prof, 1e3 * host_s / steps, steps))
+    emit("decode_profile", dtype=dtype, steps=steps, batch=len(prompts),
+         **profile_summary(prof, 1e3 * host_s / steps, steps,
+                           attention_ms="flash_decode"))
 
 
 # ------------------------------------------------------------ phase 5
@@ -1504,6 +1566,12 @@ def hybrid_attention_cases():
          dict(b=4, s=544, starts=[0] * 4, lengths=lengths4, **zamba)),
         ("flash_decode", "zamba2 shared-block decode hd80 fp32", "float32",
          dict(b=4, s=544, starts=[0] * 4, lengths=lengths4, **zamba)),
+        ("paged_flash_decode", "paged decode hd80 (zamba2's widths)",
+         "bfloat16", dict(b=4, bs=16, max_blocks=34, starts=[0] * 4,
+                          lengths=lengths4, **zamba)),
+        ("paged_flash_decode", "paged decode hd80 fp32 (zamba2's widths)",
+         "float32", dict(b=4, bs=16, max_blocks=34, starts=[0] * 4,
+                         lengths=lengths4, **zamba)),
     ]
 
 
@@ -1699,7 +1767,8 @@ def phase_hybrid_timing(torch, cfg, params, prompts, rounds: int = 5,
         cache, tok = decode(steps, cache, tok)
         torch.cuda.synchronize()
         host_ms = 1e3 * (time.perf_counter() - t0) / steps
-    decode_prof = profile_summary(prof, host_ms, steps)
+    decode_prof = profile_summary(prof, host_ms, steps,
+                                  attention_ms="flash_decode")
     emit("hybrid_timing", arch=cfg.name, batch=len(prompts), prompt=plen,
          prefill_ms=prefill_ms[1:], prefill_ms_median=statistics.median(
              prefill_ms[1:]), decode_step_ms_rounds=step_ms,
@@ -1712,7 +1781,8 @@ def phase_hybrid_timing(torch, cfg, params, prompts, rounds: int = 5,
 
 # ------------------------------------------------------------ main
 
-TC_KERNELS = ("flash_attention_tc_kernel", "dequant_matmul_wgmma_kernel")
+TC_KERNELS = ("flash_attention_tc_kernel", "flash_attention_3xtf32_kernel",
+              "dequant_matmul_wgmma_kernel")
 
 
 def sass_mma(libs) -> dict:
@@ -1777,10 +1847,11 @@ def main() -> int:
                                f"SASS: {inst}")
 
     rows = phase_kernels(torch)
-    launches = phase_card_vs_cpu(torch)
-    launches.update(phase_full(torch))
-    gc.collect()
-    torch.cuda.empty_cache()
+    phase_card_vs_cpu(torch)
+    launches = phase_full(torch)
+    # the launcher's default path: fp32 serving at full size
+    for name, n in phase_full(torch, "float32", max_new=16).items():
+        launches[name] = launches.get(name, 0) + n
     rows.update(phase_update_kernels(torch))
     phase_train_card_vs_cpu(torch)
     launches.update(phase_train_full(torch))
@@ -1797,8 +1868,9 @@ def main() -> int:
     phase_hybrid_card_vs_cpu(torch)
     hybrid = phase_hybrid_full(torch)
     launches["ssm_scan"] = hybrid["ssm_scan"]
-    # the bf16 prefill's main path: the llama2-7b and the zamba2 prefills
+    # the attention's main paths: llama2-7b and zamba2 serving
     launches["flash_attention"] += hybrid["flash_attention"]
+    launches["flash_decode"] += hybrid["flash_decode"]
 
     kernels = []
     for name, row in rows.items():

@@ -11,61 +11,93 @@
 //     repeated in memory.
 //
 // Prefill (replaces flash_attention_pallas, src/repro/kernels/
-//   flash_attention.py:63, _flash_kernel :24).  Two instantiations:
+//   flash_attention.py:63, _flash_kernel :24).  Two kernels, both on the
+//   tensor cores:
 //
-// flash_attention_tc_kernel<HD>  bf16 q/k/v, on the tensor cores.  Bound:
-//   at llama2-7b's prefill (1 x 512, 32 heads of 128) the work is ~1.9
-//   GFLOP against ~16 MB of q/k/v/out, 5 us by bytes and 2 us by bf16
-//   operations, so a launch this small is held back by latency (one K/V
-//   tile after another, up to 8 on the diagonal) more than by either
-//   roof.  Design: one warpgroup per (head, batch row, 64-row q tile).
-//   Q and two stages of K/V tiles of 64 keys come in by cp.async (keys
-//   past S zero-filled), the next tile's copy overlapping this tile's
-//   products, into the 128-byte swizzled layout wgmma reads (head dims
-//   past a multiple of 64, as 80, in a zero-filled second atom).
-//   S = Q K^T is one chain of wgmma.m64n64k16 (Q and K both K-major in
-//   shared memory); the online softmax runs on the fp32 accumulator in
-//   registers (row max by two quad shuffles, exp2 with the scale folded
-//   into log2 e, row sums summed per thread and reduced once at the end);
-//   P is rounded to bf16 in registers (the rounding the reference applies
-//   to its probabilities) and is the register A operand of O += P V, a
-//   wgmma.m64n{HD}k16 with V read from shared memory through the transpose
-//   bit (the head dim contiguous).  q tiles are launched longest first
-//   (the diagonal tiles do up to 8x the work of the first), and a causal
-//   q tile wholly inside the left pad is written as zeros without reading
-//   a key.
+// flash_attention_tc_kernel<HD>  bf16 q/k/v.  Bound: at llama2-7b's
+//   prefill (1 x 512, 32 heads of 128) the work is ~1.9 GFLOP against ~16
+//   MB of q/k/v/out, 5 us by bytes and 2 us by bf16 operations, so a
+//   launch this small is held back by latency (one K/V tile after another,
+//   up to 8 on the diagonal) more than by either roof.  Design: one
+//   warpgroup per (head, batch row, 64-row q tile).  Q and two stages of
+//   K/V tiles of 64 keys come in by cp.async (keys past S zero-filled), the
+//   next tile's copy overlapping this tile's products, into the 128-byte
+//   swizzled layout wgmma reads (head dims past a multiple of 64, as 80, in
+//   a zero-filled second atom).  S = Q K^T is one chain of wgmma.m64n64k16
+//   (Q and K both K-major in shared memory); the online softmax runs on the
+//   fp32 accumulator in registers (row max by two quad shuffles, exp2 with
+//   the scale folded into log2 e, row sums summed per thread and reduced
+//   once at the end); P is rounded to bf16 in registers (the rounding the
+//   reference applies to its probabilities) and is the register A operand
+//   of O += P V, a wgmma.m64n{HD}k16 with V read from shared memory through
+//   the transpose bit (the head dim contiguous).
 //
-// flash_attention_kernel<float, HD>  fp32, on the CUDA cores (TF32 stays
-//   off, as in the reference).  Bound: operations at 67 TFLOP/s.  One
-//   block per (64-row q tile, head, batch); K/V tiles of 32 keys are
-//   staged in shared memory, four threads share a query row (each owns a
-//   quarter of the head dim, read as float4 so the shared loads are free
-//   of bank conflicts), and the online softmax lives in registers.
+// flash_attention_3xtf32_kernel<HD>  fp32 q/k/v, at fp32 accuracy.  TF32
+//   stays off as in the reference: each product a * b is taken as three
+//   TF32 products, a_big b_big + a_big b_small + a_small b_big, where
+//   x_big = tf32(x) and x_small = tf32(x - x_big) (both rounded to
+//   nearest) and the sums are fp32; the dropped a_small b_small and the
+//   rounding of the small parts are ~2^-21 of each product.  Bound: at
+//   llama2-7b's 1 x 256 the bytes (16 MB, 4.8 us) over the three passes'
+//   TF32 operations (3 x 0.49 GFLOP at 495 TFLOP/s, 3.0 us); what holds a
+//   launch this small back is the chain of dependent products in the
+//   longest q tile.  Design: wgmma takes TF32 only K-major on both sides,
+//   which V (the head dim contiguous) is not, so this kernel uses
+//   mma.sync.m16n8k8, whose fragments the threads load themselves from any
+//   layout.  One block per (head, batch row, 32-row q tile), so llama2-7b's
+//   1 x 256 is 256 blocks on 132 SMs; its four warps are two key parts of
+//   two warps (16 rows each): part p takes the 16-key tiles t_lo + p,
+//   t_lo + p + 2, .., so the diagonal tile's chain is halved and an SM
+//   holds two warps a scheduler, and the parts merge their (m, l, o)
+//   through shared memory at the end (four parts, or 8-key tiles, measured
+//   no faster).  Q is split once into big and small parts in shared
+//   memory; each part's K/V tiles come in raw by cp.async (16 bytes a
+//   thread) into padded rows (HD + 4 floats, so every fragment load is
+//   free of bank conflicts), two stages, the next tile's copy overlapping
+//   this tile's products, the part's warps meeting at their own named
+//   barrier; each thread splits its K and V fragments as it loads them.  The S accumulator's layout is the A fragment of P V with the
+//   keys of each k8 step permuted (thread t holds keys 2t and 2t + 1; V's B
+//   fragment reads those two key rows), so P is split in registers with no
+//   shuffle.  The online softmax runs in fp32 registers with exp2 and the
+//   scale folded into log2 e.
 //
 // Both start the kv loop at the tile that holds starts[b] (left pad) and
 // stop at the diagonal; the ragged edge is masked, so S need not divide
-// the tile.  A q row inside the pad sees no key and comes out finite (the
-// mean of the visited values, or 0 for a skipped tile).
+// the tile.  q tiles are launched longest first (the diagonal tiles do the
+// most work), a warp whose rows all precede a key tile skips its products,
+// and a causal q tile wholly inside the left pad is written as zeros
+// without reading a key.  A q row inside the pad otherwise sees no key and
+// comes out finite (the mean of the visited values).
 //
-// flash_decode_kernel<.., PAGED=false>  replaces flash_decode_pallas
-//   (:141, _decode_kernel :109).  Bound: bytes.  One query per row reads
-//   the whole valid window of its kv head once, 2*hd*elem bytes per key,
-//   against 4*hd operations.  One block per (head, batch row); 32 groups of
-//   8 lanes each own every 32nd key, so a warp reads 4 whole kv rows per
-//   load (coalesced 16-byte loads); a group loads 4 keys before it uses
-//   any, to keep enough bytes in flight with only B*H blocks on the card,
-//   and keeps its own online softmax state; the 32 partial (m, l, acc) are
-//   combined through shared memory at the end.  Only keys in
-//   [starts[b], lengths[b]) are read.
+// Decode (replaces flash_decode_pallas, :141, _decode_kernel :109, and
+//   paged_flash_decode_pallas, :230, _paged_decode_kernel :187):
 //
-// flash_decode_kernel<.., PAGED=true>  replaces paged_flash_decode_pallas
-//   (:230, _paged_decode_kernel :187).  Bound: bytes, as above.  On the TPU
-//   the pages were the sequential inner grid dimension with the softmax
-//   carried in scratch; blocks here run in no order, so the walk over the
-//   logical pages that overlap the window moves inside the block: the block
-//   first copies its row of the block table into shared memory, each key of
-//   the window resolves its physical page there, and the rest is the
-//   contiguous kernel.
+// flash_decode_split_kernel<T, HD, GM, PAGED>  Bound: bytes.  One query
+//   per row reads the whole valid window of its kv head once, 2*hd*elem
+//   bytes per key, against 4*hd operations per query head.  Split-KV
+//   ("flash-decoding"): the grid is (kv head x head group, batch row,
+//   split), and each block takes the keys of its row's window [starts[b],
+//   lengths[b]) that fall in [split * chunk, (split + 1) * chunk); the host
+//   picks the chunk from the cache's capacity so the longest row is cut
+//   into enough pieces to fill the card, and a block whose chunk misses
+//   the window exits at once.  One block serves GM query heads of its kv
+//   head (all of them where they fit in registers: GQA reads each K/V row
+//   once, not H / KV times).  K/V rows come into a three-stage ring of
+//   32-key tiles by cp.async, 16 bytes a thread, so two tiles (32 KB in
+//   bf16 at hd 128) stay in flight per block without registers (deeper
+//   rings, at fewer blocks an SM, measured slower); 16 groups of 8 lanes
+//   each take a key of the tile at a time (a lane owns 16-byte chunks lane,
+//   lane + 8, .. of the row, so a quarter-warp's shared loads are
+//   contiguous) and
+//   keep their own online softmax per head (one exp2 a key and head), and
+//   the block merges its 16 partial (m, l, acc) by shuffles and shared
+//   memory.  With one split the block writes the output; with more it
+//   writes its partial (m, l, acc) in fp32 to scratch, and
+//   flash_decode_combine_kernel, launched as its programmatic dependent,
+//   merges a row's splits into the output.
+//   The paged kernel resolves each key's page from block_tables once (a
+//   lane per key of a tile) as it issues the copies, for its own chunk
+//   only, so a table has no size limit.
 //
 // Rows whose window is empty come out as 0 here, where JAX's kernels give
 // the mean of the visited values; both are finite garbage that callers
@@ -81,8 +113,7 @@
 namespace {
 
 constexpr float kNeg = -1e30f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
+constexpr float kLog2e = 1.4426950408889634f;
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
@@ -90,123 +121,308 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(x);
 }
 
-// ------------------------------------------------------------------ prefill
+// ------------------------------------------------------- prefill, fp32
 
-constexpr int kFaBQ = 64;                    // query rows per block
-constexpr int kFaBK = 32;                    // keys per shared-memory tile
-constexpr int kFaTPR = 4;                    // threads per query row
-constexpr int kFaThreads = kFaBQ * kFaTPR;   // 256
+// x -> (tf32(x), tf32(x - tf32(x))), both rounded to nearest (ties away).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(x));
+  const float rest = x - __uint_as_float(big);
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(small) : "f"(rest));
+}
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(kFaThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, const int* __restrict__ starts,
-                       T* __restrict__ out, int S, int H, int KV, int causal,
-                       float scale) {
-  // Thread `part` of a row owns dims 16*g + 4*part + e (g < HD/16, e < 4):
-  // four float4 granules side by side, so one LDS.128 per granule serves a
-  // quarter-warp with no bank conflict (the 8 rows of a warp broadcast).
-  constexpr int G = HD / 16;
-  constexpr int D = 4 * G;
-  constexpr int V = 16 / sizeof(T);
-  __shared__ __align__(16) float ks[kFaBK][HD];
-  __shared__ __align__(16) float vs[kFaBK][HD];
+// d (16 x 8 fp32) += A (16 x 8 tf32) * B (8 x 8 tf32).  Per thread (g =
+// lane / 4, t = lane % 4): a = (g, t), (g + 8, t), (g, t + 4), (g + 8,
+// t + 4); b = (k t, n g), (k t + 4, n g); d = (g, 2t), (g, 2t + 1),
+// (g + 8, 2t), (g + 8, 2t + 1).
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kFaBQ;
+// d += a * b in three passes, the small products first.
+__device__ __forceinline__ void mma_3xtf32(float* d, const uint32_t* a_big,
+                                           const uint32_t* a_small, float b0,
+                                           float b1) {
+  uint32_t b0_big, b0_small, b1_big, b1_small;
+  split_tf32(b0, b0_big, b0_small);
+  split_tf32(b1, b1_big, b1_small);
+  mma_tf32(d, a_small, b0_big, b1_big);
+  mma_tf32(d, a_big, b0_small, b1_small);
+  mma_tf32(d, a_big, b0_big, b1_big);
+}
+
+constexpr int kF3BQ = 32;                    // query rows per block
+constexpr int kF3BK = 16;                    // keys per K/V tile
+constexpr int kF3NT = kF3BK / 8;             // n8 tiles of keys
+constexpr int kF3Stages = 2;                 // K/V tiles in flight per part
+constexpr int kF3Parts = 2;                  // key parts, two warps each
+constexpr int kF3Threads = 64 * kF3Parts;
+
+// Dynamic shared memory (floats of HD + 4 per row): Q big and small (32
+// rows each) and, for each key part, a ring of K and V tiles.
+template <int HD>
+constexpr int f3_smem_bytes() {
+  return (2 * kF3BQ + kF3Parts * 2 * kF3Stages * kF3BK) * (HD + 4) * 4;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kF3Threads)
+flash_attention_3xtf32_kernel(const float* __restrict__ q,
+                              const float* __restrict__ k,
+                              const float* __restrict__ v,
+                              const int* __restrict__ starts,
+                              float* __restrict__ out, int S, int H, int KV,
+                              int causal, float scale_log2) {
+  constexpr int LD = HD + 4;                 // padded row, in floats
+  constexpr int C4 = HD / 4;                 // 16-byte chunks of a row
+  constexpr int TILE = kF3BK * LD;
+  static_assert(HD % 8 == 0, "head dim must be a multiple of 8");
+  static_assert((kF3Parts - 1) * 64 * (HD / 2 + 4) <=
+                kF3Parts * 2 * kF3Stages * TILE, "the merge slots fit the rings");
+  extern __shared__ __align__(16) float f3_smem[];
+  float* q_big = f3_smem;                    // [32][LD]
+  float* q_small = q_big + kF3BQ * LD;       // [32][LD]
+  float* ring = q_small + kF3BQ * LD;        // [parts][K, V][stages][BK][LD]
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kF3BQ;   // longest first
   const int kvh = h / (H / KV);
-  const int tid = threadIdx.x;
-  const int row = tid / kFaTPR, part = tid % kFaTPR;
-  const int qi = q0 + row;
-  const bool active = qi < S;
-  const int start = starts ? starts[b] : 0;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int part = warp / 2, pt = tid % 64;  // key part; thread in the part
+  float* ks = ring + part * 2 * kF3Stages * TILE;
+  float* vs = ks + kF3Stages * TILE;
+  // The two warps of a key part meet at their own named barrier.
+  auto part_sync = [&]() {
+    asm volatile("bar.sync %0, 64;\n" ::"r"(1 + part) : "memory");
+  };
+  const int start = starts ? max(starts[b], 0) : 0;
+  const size_t q_stride = (size_t)H * HD, kv_stride = (size_t)KV * HD;
+  const float* qb = q + ((size_t)b * S * H + h) * HD;
+  const float* kb = k + ((size_t)b * S * KV + kvh) * HD;
+  const float* vb = v + ((size_t)b * S * KV + kvh) * HD;
+  float* ob = out + ((size_t)b * S * H + h) * HD;
+  const int q_end = min(q0 + kF3BQ, S);
 
-  float qr[D], acc[D];
+  if (causal && q_end <= start) {            // every row in the pad
+    for (int c = tid; c < (q_end - q0) * C4; c += kF3Threads)
+      *reinterpret_cast<float4*>(ob + (size_t)(q0 + c / C4) * q_stride +
+                                 (c % C4) * 4) = make_float4(0.f, 0.f, 0.f, 0.f);
+    return;
+  }
+
+  // The part's K and V rows from position k0 on into stage st; rows past S
+  // are zero-filled.
+  auto load_kv = [&](int st, int k0) {
+    for (int c = pt; c < kF3BK * C4; c += 64) {
+      const int r = c / C4, cc = c % C4, pos = k0 + r;
+      const bool ok = pos < S;
+      const size_t off = ok ? (size_t)pos * kv_stride + cc * 4 : 0;
+      const uint32_t dst = (st * TILE + r * LD + cc * 4) * 4;
+      cp_async16(smem_u32(ks) + dst, kb + off, ok ? 16 : 0);
+      cp_async16(smem_u32(vs) + dst, vb + off, ok ? 16 : 0);
+    }
+  };
+
+  // Key tiles [t_lo, t_hi); part p takes t_lo + p, t_lo + p + parts, ..
+  const int kv_end = causal ? q_end : S;     // keys [.., kv_end)
+  const int t_lo = min(start, kv_end) / kF3BK + part;
+  const int t_hi = (kv_end + kF3BK - 1) / kF3BK;
+  const int n_mine = max(0, (t_hi - t_lo + kF3Parts - 1) / kF3Parts);
 #pragma unroll
-  for (int g = 0; g < G; ++g)
+  for (int i = 0; i < kF3Stages - 1; ++i) {
+    if (i < n_mine) load_kv(i, (t_lo + kF3Parts * i) * kF3BK);
+    cp_async_commit();
+  }
+
+  // Q, split once: rows past S read as zeros.
+  for (int c = tid; c < kF3BQ * C4; c += kF3Threads) {
+    const int r = c / C4, cc = c % C4, pos = q0 + r;
+    const float4 x = pos < S
+        ? __ldg(reinterpret_cast<const float4*>(qb + (size_t)pos * q_stride + cc * 4))
+        : make_float4(0.f, 0.f, 0.f, 0.f);
+    const float xs[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const size_t off = ((size_t)(b * S + qi) * H + h) * HD + 16 * g + 4 * part + e;
-      qr[4 * g + e] = active ? to_f(q[off]) : 0.f;
-      acc[4 * g + e] = 0.f;
+      uint32_t big, small;
+      split_tf32(xs[e], big, small);
+      q_big[r * LD + cc * 4 + e] = __uint_as_float(big);
+      q_small[r * LD + cc * 4 + e] = __uint_as_float(small);
     }
-  float m = kNeg, l = 0.f;
-
-  const int q_last = min(q0 + kFaBQ, S) - 1;
-  const int kv_end = causal ? q_last + 1 : S;            // keys [.., kv_end)
-  const int t_lo = min(max(start, 0), kv_end) / kFaBK;
-  const int t_hi = (kv_end + kFaBK - 1) / kFaBK;
-
-  for (int t = t_lo; t < t_hi; ++t) {
-    const int k0 = t * kFaBK;
-    __syncthreads();                                     // last tile consumed
-    for (int c = tid; c < kFaBK * HD / V; c += kFaThreads) {
-      const int r = c / (HD / V), col = (c % (HD / V)) * V;
-      const int kp = k0 + r;
-      float tk[V], tv[V];
-      if (kp < S) {
-        const size_t off = ((size_t)(b * S + kp) * KV + kvh) * HD + col;
-        load_f32<T, V>(k + off, tk);
-        load_f32<T, V>(v + off, tv);
-      } else {
-#pragma unroll
-        for (int e = 0; e < V; ++e) tk[e] = tv[e] = 0.f;
-      }
-#pragma unroll
-      for (int e = 0; e < V; e += 4) {
-        *reinterpret_cast<float4*>(&ks[r][col + e]) = make_float4(tk[e], tk[e + 1], tk[e + 2], tk[e + 3]);
-        *reinterpret_cast<float4*>(&vs[r][col + e]) = make_float4(tv[e], tv[e + 1], tv[e + 2], tv[e + 3]);
-      }
-    }
-    __syncthreads();
-
-    float sc[kFaBK];
-    float tile_max = kNeg;
-#pragma unroll
-    for (int j = 0; j < kFaBK; ++j) {
-      float dot = 0.f;
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        const float4 kk = *reinterpret_cast<const float4*>(&ks[j][16 * g + 4 * part]);
-        dot += qr[4 * g] * kk.x + qr[4 * g + 1] * kk.y + qr[4 * g + 2] * kk.z + qr[4 * g + 3] * kk.w;
-      }
-      dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-      dot += __shfl_xor_sync(0xffffffffu, dot, 2);
-      const int kp = k0 + j;
-      const bool ok = kp < S && kp >= start && (!causal || kp <= qi);
-      sc[j] = ok ? dot * scale : kNeg;
-      tile_max = fmaxf(tile_max, sc[j]);
-    }
-    const float m_new = fmaxf(m, tile_max);
-    const float corr = expf(m - m_new);
-    l *= corr;
-#pragma unroll
-    for (int i = 0; i < D; ++i) acc[i] *= corr;
-#pragma unroll
-    for (int j = 0; j < kFaBK; ++j) {
-      const float p = expf(sc[j] - m_new);
-      l += p;
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        const float4 vv = *reinterpret_cast<const float4*>(&vs[j][16 * g + 4 * part]);
-        acc[4 * g] += p * vv.x;
-        acc[4 * g + 1] += p * vv.y;
-        acc[4 * g + 2] += p * vv.z;
-        acc[4 * g + 3] += p * vv.w;
-      }
-    }
-    m = m_new;
   }
 
-  if (active) {
-    const float inv = 1.f / fmaxf(l, 1e-30f);
+  __syncthreads();                           // Q's split is visible
+  const int g = lane / 4, t4 = lane % 4;
+  const int rw = 16 * (warp % 2);            // this warp's first row in the tile
+  const int row0 = q0 + rw + g;              // this thread's rows: row0, +8
+  float o[HD / 8][4];
 #pragma unroll
-    for (int g = 0; g < G; ++g)
+  for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m_r[2] = {kNeg, kNeg}, l_r[2] = {0.f, 0.f};
+  const uint32_t* qbg = reinterpret_cast<const uint32_t*>(q_big) + (rw + g) * LD + t4;
+  const uint32_t* qsm = reinterpret_cast<const uint32_t*>(q_small) + (rw + g) * LD + t4;
+
+  for (int i = 0; i < n_mine; ++i) {
+    const int st = i % kF3Stages;
+    if (i + kF3Stages - 1 < n_mine)
+      load_kv((i + kF3Stages - 1) % kF3Stages,
+              (t_lo + kF3Parts * (i + kF3Stages - 1)) * kF3BK);
+    cp_async_commit();
+    cp_async_wait<kF3Stages - 1>();          // this tile landed
+    part_sync();
+    const int k0 = (t_lo + kF3Parts * i) * kF3BK;
+    if (causal && k0 > q0 + rw + 15) {       // every key after this warp's rows
+      part_sync();
+      continue;
+    }
+    const float* kt = ks + st * TILE;
+    const float* vt = vs + st * TILE;
+
+    // S = Q K^T (16 x 16 per warp): k8 steps over the head dim, two n8
+    // tiles of keys; K's B fragment is (dim 8kk + t4 (+4), key 8n + g).
+    // The three passes sum into three accumulators, so no product waits
+    // for another of the same k8 step.
+    float sc[kF3NT][4], s1[kF3NT][4], s2[kF3NT][4];
+#pragma unroll
+    for (int n = 0; n < kF3NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] = s1[n][e] = s2[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HD / 8; ++kk) {
+      const uint32_t a_big[4] = {qbg[8 * kk], qbg[8 * LD + 8 * kk],
+                                 qbg[8 * kk + 4], qbg[8 * LD + 8 * kk + 4]};
+      const uint32_t a_small[4] = {qsm[8 * kk], qsm[8 * LD + 8 * kk],
+                                   qsm[8 * kk + 4], qsm[8 * LD + 8 * kk + 4]};
+#pragma unroll
+      for (int n = 0; n < kF3NT; ++n) {
+        const float* kr = kt + (8 * n + g) * LD + 8 * kk + t4;
+        uint32_t b0_big, b0_small, b1_big, b1_small;
+        split_tf32(kr[0], b0_big, b0_small);
+        split_tf32(kr[4], b1_big, b1_small);
+        mma_tf32(s1[n], a_small, b0_big, b1_big);
+        mma_tf32(s2[n], a_big, b0_small, b1_small);
+        mma_tf32(sc[n], a_big, b0_big, b1_big);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < kF3NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] += s1[n][e] + s2[n][e];
+
+    // Scale into log2 units and mask; the online softmax of rows row0 and
+    // row0 + 8, each row's 16 scores spread over the 4 threads of a quad.
+    const bool edge = k0 < start || k0 + kF3BK > S ||
+                      (causal && k0 + kF3BK - 1 > q0 + rw);
+    float mx[2] = {m_r[0], m_r[1]};
+#pragma unroll
+    for (int n = 0; n < kF3NT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const size_t off = ((size_t)(b * S + qi) * H + h) * HD + 16 * g + 4 * part + e;
-        out[off] = from_f<T>(acc[4 * g + e] * inv);
+        float s = sc[n][e] * scale_log2;
+        if (edge) {
+          const int kp = k0 + 8 * n + 2 * t4 + (e & 1);
+          const int qi = row0 + (e >> 1) * 8;
+          if (kp < start || kp >= S || (causal && kp > qi)) s = kNeg;
+        }
+        sc[n][e] = s;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s);
       }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float corr = exp2f(m_r[i] - mx[i]);
+      m_r[i] = mx[i];
+      l_r[i] *= corr;
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n) {
+        o[n][2 * i] *= corr;
+        o[n][2 * i + 1] *= corr;
+      }
+    }
+
+    // O += P V: k8 step j is the S tile n = j.  Its accumulator (g, 2t4),
+    // (g, 2t4 + 1), (g + 8, 2t4), (g + 8, 2t4 + 1) serves as the A
+    // fragment with k index t4 -> key 2t4 and t4 + 4 -> key 2t4 + 1, so
+    // V's B fragment reads key rows 8j + 2t4 and 8j + 2t4 + 1 at dim 8n + g.
+#pragma unroll
+    for (int j = 0; j < kF3NT; ++j) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[e] = exp2f(sc[j][e] - m_r[e >> 1]);
+        l_r[e >> 1] += p[e];
+      }
+      uint32_t p_big[4], p_small[4];
+      split_tf32(p[0], p_big[0], p_small[0]);   // (g, key 2t4)
+      split_tf32(p[2], p_big[1], p_small[1]);   // (g + 8, key 2t4)
+      split_tf32(p[1], p_big[2], p_small[2]);   // (g, key 2t4 + 1)
+      split_tf32(p[3], p_big[3], p_small[3]);   // (g + 8, key 2t4 + 1)
+      const float* vr = vt + (8 * j + 2 * t4) * LD + g;
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n)
+        mma_3xtf32(o[n], p_big, p_small, vr[8 * n], vr[LD + 8 * n]);
+    }
+    part_sync();                             // stage st free for reuse
   }
+  cp_async_wait<0>();                        // drain (no key tile: Q only)
+
+  // Parts 1.. hand their (m, l, o) to the thread of part 0 that holds the
+  // same rows and columns, through the rings (free once all are here).
+  constexpr int SLOT = HD / 2 + 4;
+  __syncthreads();
+  if (part > 0) {
+    float* slot = ring + (((part - 1) * 2 + warp % 2) * 32 + lane) * SLOT;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) slot[4 * n + e] = o[n][e];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      slot[HD / 2 + i] = m_r[i];
+      slot[HD / 2 + 2 + i] = l_r[i];
+    }
+  }
+  __syncthreads();
+  if (part > 0) return;
+#pragma unroll
+  for (int p = 1; p < kF3Parts; ++p) {
+    const float* slot = ring + (((p - 1) * 2 + warp % 2) * 32 + lane) * SLOT;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float m1 = slot[HD / 2 + i], mx = fmaxf(m_r[i], m1);
+      const float a = exp2f(m_r[i] - mx), c = exp2f(m1 - mx);
+      l_r[i] = l_r[i] * a + slot[HD / 2 + 2 + i] * c;
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n) {
+        o[n][2 * i] = o[n][2 * i] * a + slot[4 * n + 2 * i] * c;
+        o[n][2 * i + 1] = o[n][2 * i + 1] * a + slot[4 * n + 2 * i + 1] * c;
+      }
+      m_r[i] = mx;
+    }
+  }
+
+  // Normalise and write the rows.
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 1);
+    l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 2);
+    l_r[i] = 1.f / fmaxf(l_r[i], 1e-30f);
+  }
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int qi = row0 + 8 * i;
+      if (qi < S)
+        *reinterpret_cast<float2*>(ob + (size_t)qi * q_stride + 8 * n + 2 * t4) =
+            make_float2(o[n][2 * i] * l_r[i], o[n][2 * i + 1] * l_r[i]);
+    }
 }
 
 // ------------------------------------------------------- prefill, bf16
@@ -513,100 +729,303 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
 
 // ------------------------------------------------------------------- decode
 
-constexpr int kDecThreads = 256;
+constexpr int kDecThreads = 128;
 constexpr int kDecLPK = 8;                          // lanes per key
-constexpr int kDecGroups = kDecThreads / kDecLPK;   // 32 groups of 8 lanes
-constexpr int kDecUnroll = 4;                       // keys per group per step
+constexpr int kDecGroups = kDecThreads / kDecLPK;   // 16 key groups
+constexpr int kDecWarps = kDecThreads / 32;
+constexpr int kDecTK = 32;                          // keys per ring stage
+constexpr int kDecStages = 3;
+
+// Query heads one block serves at most: q and acc take 2 * GM * (the
+// lane's slice of the row) registers, 8 floats a head at hd 64, 12-16 at
+// hd 80 and 128.
+template <int HD> __host__ __device__ constexpr int dec_gmax() {
+  return HD <= 64 ? 8 : 4;
+}
+
+template <typename T, int HD>
+struct DecShape {
+  static constexpr int V = 16 / sizeof(T);                  // elements a chunk
+  static constexpr int CH = HD / V;                         // chunks a row
+  static constexpr int CPL = (CH + kDecLPK - 1) / kDecLPK;  // chunks a lane
+  static constexpr int ROW = HD * sizeof(T);                // bytes a row
+  static_assert(HD % V == 0, "a row must be whole 16-byte chunks");
+};
+
+// Dynamic shared memory: the ring of K/V tiles, reused after the key loop
+// for the per-warp partials (acc, then m and l).
+template <typename T, int HD, int GM>
+__host__ __device__ constexpr int dec_smem_bytes() {
+  constexpr int ring = kDecStages * 2 * kDecTK * DecShape<T, HD>::ROW;
+  constexpr int merge = kDecWarps * GM * (HD + 2) * 4;
+  return ring > merge ? ring : merge;
+}
+
+// 16 bytes of shared memory -> 4 floats (fp32) or 8 floats (bf16).
+template <typename T>
+__device__ __forceinline__ void smem_f32(const unsigned char* p, float* o) {
+  const uint4 w = *reinterpret_cast<const uint4*>(p);
+  const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) unpack(u[i], o + i * (4 / sizeof(T)), T());
+}
+
+// The keys of row b's window [start, len) that split sp covers.
+__device__ __forceinline__ void split_range(int start, int len, int sp,
+                                            int chunk, int& lo, int& hi) {
+  lo = max(start, sp * chunk);
+  hi = min(len, (sp + 1) * chunk);
+}
 
 // Contiguous cache: k/v (B, S, KV, HD), `seq` = S.
 // Paged cache:      k/v (n_blocks, bs, KV, HD), `seq` = bs, tables (B, max_blocks).
-template <typename T, int HD, bool PAGED>
+// part: (B, H, n_split, HD) acc, then (B, H, n_split, 2) (m, l), fp32, in
+// log2 units; written only with more than one split.
+template <typename T, int HD, int GM, bool PAGED>
 __global__ void __launch_bounds__(kDecThreads)
-flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const int* __restrict__ tables,
-                    const int* __restrict__ starts, const int* __restrict__ lengths,
-                    T* __restrict__ out, int seq, int H, int KV, int max_blocks,
-                    float scale) {
-  constexpr int DPL = HD / kDecLPK;                 // dims per lane, contiguous
-  __shared__ float sm_m[kDecGroups], sm_l[kDecGroups];
-  __shared__ float sm_acc[kDecGroups][HD];
-  extern __shared__ int sm_table[];                 // PAGED: this row's table
+flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const int* __restrict__ tables,
+                          const int* __restrict__ starts,
+                          const int* __restrict__ lengths, T* __restrict__ out,
+                          float* __restrict__ part, int seq, int H, int KV,
+                          int max_blocks, int chunk, float scale_log2) {
+  using Sh = DecShape<T, HD>;
+  constexpr int V = Sh::V, CH = Sh::CH, CPL = Sh::CPL, ROW = Sh::ROW;
+  constexpr int D = CPL * V;                        // floats a lane holds
+  extern __shared__ __align__(16) unsigned char dec_smem[];
 
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int kvh = h / (H / KV);
-  const int tid = threadIdx.x;
-  const int grp = tid / kDecLPK, lane = tid % kDecLPK;
-  const unsigned gmask = 0xffu << ((threadIdx.x & 31) & ~(kDecLPK - 1));
+  const int G = H / KV;                             // query heads a kv head
+  const int n_hg = (G + GM - 1) / GM;
+  const int kvh = blockIdx.x / n_hg, hg = blockIdx.x % n_hg;
+  const int h0 = kvh * G + hg * GM;                 // this block's first head
+  const int gn = min(GM, G - hg * GM);              // and its number of heads
+  const int b = blockIdx.y, sp = blockIdx.z, n_split = gridDim.z;
+  const int B = gridDim.y;
+  const int tid = threadIdx.x, grp = tid / kDecLPK, lane = tid % kDecLPK;
+  const int warp = tid / 32, wl = tid % 32;
+  const unsigned gmask = 0xffu << (wl & ~(kDecLPK - 1));
 
-  float qv[DPL], acc[DPL];
-  load_f32<T, DPL>(q + ((size_t)b * H + h) * HD + lane * DPL, qv);
-#pragma unroll
-  for (int i = 0; i < DPL; ++i) acc[i] = 0.f;
-  float m = kNeg, l = 0.f;
-
-  if (PAGED) {
-    for (int i = tid; i < max_blocks; i += kDecThreads)
-      sm_table[i] = tables[(size_t)b * max_blocks + i];
-    __syncthreads();
-  }
+  // The combine may be scheduled now: it waits for this grid to finish
+  // before it reads a partial.
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   const int start = starts ? max(starts[b], 0) : 0;
   const int len = min(lengths[b], PAGED ? max_blocks * seq : seq);
-  // kDecUnroll keys per group per iteration, all loaded before any is used,
-  // so each lane keeps 2*kDecUnroll row loads in flight instead of 2.
-  for (int base = start + grp; base < len; base += kDecUnroll * kDecGroups) {
-    float kr[kDecUnroll][DPL], vr[kDecUnroll][DPL];
+  int lo, hi;
+  split_range(start, len, sp, chunk, lo, hi);
+  if (lo >= hi) {                                   // nothing of the window here
+    if (n_split == 1)                               // (the combine skips it)
+      for (int i = tid; i < gn * HD; i += kDecThreads)
+        out[((size_t)b * H + h0) * HD + i] = from_f<T>(0.f);
+    return;
+  }
+
+  // Tile i (keys lo + 32 i ..) into ring stage i % kDecStages: one 16-byte
+  // copy per chunk of a K and a V row; keys at or past hi are not read.
+  const int n_tiles = (hi - lo + kDecTK - 1) / kDecTK;
+  static_assert(kDecTK == 32, "a paged tile's keys are resolved one a lane");
+  auto row_of = [&](int pos) -> size_t {             // element offset of a row
+    if (PAGED) {
+      const int page = __ldg(tables + (size_t)b * max_blocks + pos / seq);
+      return (((size_t)page * seq + pos % seq) * KV + kvh) * HD;
+    }
+    return (((size_t)b * seq + pos) * KV + kvh) * HD;
+  };
+  auto load_tile = [&](int i) {
+    const int t0 = lo + i * kDecTK;
+    const uint32_t ks = smem_u32(dec_smem) + (i % kDecStages) * 2 * kDecTK * ROW;
+    const uint32_t vs = ks + kDecTK * ROW;
+    // The paged cache resolves each key's page once: lane l looks up key
+    // t0 + l, and the copies of a row take its offset by a shuffle (a
+    // warp's trip count below is uniform: kDecTK * CH is a multiple of 32).
+    unsigned long long lane_row = 0;
+    if (PAGED && t0 + wl < hi) lane_row = row_of(t0 + wl);
+    for (int c = tid; c < kDecTK * CH; c += kDecThreads) {
+      const int r = c / CH, cc = c % CH;
+      size_t row = 0;
+      if (PAGED) row = __shfl_sync(0xffffffffu, lane_row, r);
+      if (t0 + r < hi) {
+        if (!PAGED) row = row_of(t0 + r);
+        const size_t off = row + cc * V;
+        cp_async16(ks + r * ROW + cc * 16, k + off, 16);
+        cp_async16(vs + r * ROW + cc * 16, v + off, 16);
+      }
+    }
+  };
 #pragma unroll
-    for (int u = 0; u < kDecUnroll; ++u) {
-      const int pos = base + u * kDecGroups;
-      if (pos < len) {
-        size_t row;
-        if (PAGED) {
-          const int page = sm_table[pos / seq];
-          row = ((size_t)page * seq + pos % seq) * KV + kvh;
-        } else {
-          row = ((size_t)b * seq + pos) * KV + kvh;
-        }
-        load_f32<T, DPL>(k + row * HD + lane * DPL, kr[u]);
-        load_f32<T, DPL>(v + row * HD + lane * DPL, vr[u]);
+  for (int i = 0; i < kDecStages - 1; ++i) {
+    if (i < n_tiles) load_tile(i);
+    cp_async_commit();
+  }
+
+  // This lane's chunks of the row: lane, lane + 8, ..; q pre-scaled into
+  // log2 units.
+  float qr[GM][D], acc[GM][D], m[GM], l[GM];
+#pragma unroll
+  for (int g = 0; g < GM; ++g) {
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) {
+      const int c = i * kDecLPK + lane;
+      if (g < gn && c < CH) {
+        load_f32<T, V>(q + ((size_t)b * H + h0 + g) * HD + c * V, &qr[g][i * V]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < V; ++e) qr[g][i * V + e] = 0.f;
       }
     }
 #pragma unroll
-    for (int u = 0; u < kDecUnroll; ++u) {
-      if (base + u * kDecGroups >= len) break;        // uniform per group
-      float dot = 0.f;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) dot += qv[i] * kr[u][i];
-#pragma unroll
-      for (int o = 1; o < kDecLPK; o <<= 1) dot += __shfl_xor_sync(gmask, dot, o);
-      const float s = dot * scale;
-      const float m_new = fmaxf(m, s);
-      const float corr = expf(m - m_new);
-      const float p = expf(s - m_new);
-      l = l * corr + p;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) acc[i] = acc[i] * corr + p * vr[u][i];
-      m = m_new;
+    for (int e = 0; e < D; ++e) {
+      qr[g][e] *= scale_log2;
+      acc[g][e] = 0.f;
     }
+    m[g] = kNeg;
+    l[g] = 0.f;
   }
 
-  if (lane == 0) {
-    sm_m[grp] = m;
-    sm_l[grp] = l;
-  }
+  for (int i = 0; i < n_tiles; ++i) {
+    if (i + kDecStages - 1 < n_tiles) load_tile(i + kDecStages - 1);
+    cp_async_commit();
+    cp_async_wait<kDecStages - 1>();                // tile i landed
+    __syncthreads();
+    const unsigned char* ks = dec_smem + (i % kDecStages) * 2 * kDecTK * ROW;
+    const unsigned char* vs = ks + kDecTK * ROW;
+    const int t0 = lo + i * kDecTK;
 #pragma unroll
-  for (int i = 0; i < DPL; ++i) sm_acc[grp][lane * DPL + i] = acc[i];
-  __syncthreads();
-  if (tid < HD) {
-    float mx = kNeg;
-    for (int g = 0; g < kDecGroups; ++g) mx = fmaxf(mx, sm_m[g]);
-    float lsum = 0.f, o = 0.f;
-    for (int g = 0; g < kDecGroups; ++g) {
-      const float w = expf(sm_m[g] - mx);
-      lsum += sm_l[g] * w;
-      o += sm_acc[g][tid] * w;
+    for (int u = 0; u < kDecTK / kDecGroups; ++u) {
+      const int r = grp + u * kDecGroups;
+      if (t0 + r >= hi) break;                      // uniform per group
+      float kr[D], vr[D];
+#pragma unroll
+      for (int i2 = 0; i2 < CPL; ++i2) {
+        const int c = i2 * kDecLPK + lane;
+        if (c < CH) {
+          smem_f32<T>(ks + r * ROW + c * 16, &kr[i2 * V]);
+          smem_f32<T>(vs + r * ROW + c * 16, &vr[i2 * V]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < V; ++e) kr[i2 * V + e] = vr[i2 * V + e] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < GM; ++g) {
+        float s = 0.f;
+#pragma unroll
+        for (int e = 0; e < D; ++e) s += qr[g][e] * kr[e];
+#pragma unroll
+        for (int o = 1; o < kDecLPK; o <<= 1) s += __shfl_xor_sync(gmask, s, o);
+        // One exp2 a key: the larger of (m, s) becomes the new max, and
+        // the other's weight is exp2(smaller - larger).
+        const bool grow = s > m[g];
+        const float w = exp2f(fminf(m[g], s) - fmaxf(m[g], s));
+        const float corr = grow ? w : 1.f, p = grow ? 1.f : w;
+        m[g] = fmaxf(m[g], s);
+        l[g] = l[g] * corr + p;
+#pragma unroll
+        for (int e = 0; e < D; ++e) acc[g][e] = acc[g][e] * corr + p * vr[e];
+      }
     }
-    out[((size_t)b * H + h) * HD + tid] = from_f<T>(o / fmaxf(lsum, 1e-30f));
+    __syncthreads();                                // stage free for reuse
   }
+  cp_async_wait<0>();
+
+  // Merge the 4 key groups of a warp (lanes 8 and 16 apart), then the
+  // warps through shared memory (the ring is free: every thread passed the
+  // loop's last barrier).
+#pragma unroll
+  for (int off = kDecLPK; off < 32; off <<= 1)
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[g], off);
+      const float lo_ = __shfl_xor_sync(0xffffffffu, l[g], off);
+      const float mx = fmaxf(m[g], mo);
+      const float a = exp2f(m[g] - mx), c = exp2f(mo - mx);
+      l[g] = l[g] * a + lo_ * c;
+#pragma unroll
+      for (int e = 0; e < D; ++e)
+        acc[g][e] = acc[g][e] * a + __shfl_xor_sync(0xffffffffu, acc[g][e], off) * c;
+      m[g] = mx;
+    }
+  float* sm_acc = reinterpret_cast<float*>(dec_smem);   // [warps][GM][HD]
+  float* sm_ml = sm_acc + kDecWarps * GM * HD;          // [warps][GM][2]
+  if (wl < kDecLPK) {
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+#pragma unroll
+      for (int i = 0; i < CPL; ++i) {
+        const int c = i * kDecLPK + lane;
+        if (c < CH)
+#pragma unroll
+          for (int e = 0; e < V; ++e)
+            sm_acc[(warp * GM + g) * HD + c * V + e] = acc[g][i * V + e];
+      }
+      if (wl == 0) {
+        sm_ml[(warp * GM + g) * 2] = m[g];
+        sm_ml[(warp * GM + g) * 2 + 1] = l[g];
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < gn * HD; i += kDecThreads) {
+    const int g = i / HD, d = i % HD;
+    float mx = kNeg;
+#pragma unroll
+    for (int w = 0; w < kDecWarps; ++w) mx = fmaxf(mx, sm_ml[(w * GM + g) * 2]);
+    float lsum = 0.f, o = 0.f;
+#pragma unroll
+    for (int w = 0; w < kDecWarps; ++w) {
+      const float f = exp2f(sm_ml[(w * GM + g) * 2] - mx);
+      lsum += sm_ml[(w * GM + g) * 2 + 1] * f;
+      o += sm_acc[(w * GM + g) * HD + d] * f;
+    }
+    const size_t bh = (size_t)b * H + h0 + g;
+    if (n_split == 1) {
+      out[bh * HD + d] = from_f<T>(o / fmaxf(lsum, 1e-30f));
+    } else {
+      part[(bh * n_split + sp) * HD + d] = o;
+      if (d == 0) {
+        float* ml = part + (size_t)B * H * n_split * HD + (bh * n_split + sp) * 2;
+        ml[0] = mx;
+        ml[1] = lsum;
+      }
+    }
+  }
+}
+
+// Merges each (row, head)'s non-empty splits: one block per (head, row),
+// one thread per head dim.  A row whose window is empty comes out as 0.
+// Launched as a programmatic dependent of the split kernel, so its launch
+// and its reads of the windows overlap that kernel's tail; it reads the
+// partials only after griddepcontrol.wait (the split kernel done, its
+// writes visible).
+template <typename T, int HD>
+__global__ void __launch_bounds__(HD)
+flash_decode_combine_kernel(const float* __restrict__ part,
+                            const int* __restrict__ starts,
+                            const int* __restrict__ lengths,
+                            T* __restrict__ out, int H, int n_split, int chunk,
+                            int cap) {
+  const int h = blockIdx.x, b = blockIdx.y, B = gridDim.y, d = threadIdx.x;
+  const int start = starts ? max(starts[b], 0) : 0;
+  const int len = min(lengths[b], cap);
+  const size_t bh = (size_t)b * H + h;
+  const float* acc = part + bh * n_split * HD;
+  const float* ml = part + (size_t)B * H * n_split * HD + bh * n_split * 2;
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  // One online pass; the loads are unconditional (an empty split's slots
+  // hold garbage that is never used) so unrolled splits load together.
+  float mx = kNeg, lsum = 0.f, o = 0.f;
+#pragma unroll 4
+  for (int sp = 0; sp < n_split; ++sp) {
+    const float m = ml[2 * sp], l = ml[2 * sp + 1], a = acc[sp * HD + d];
+    int lo, hi;
+    split_range(start, len, sp, chunk, lo, hi);
+    if (lo >= hi) continue;
+    const float mn = fmaxf(mx, m);
+    const float f0 = exp2f(mx - mn), f1 = exp2f(m - mn);
+    lsum = lsum * f0 + l * f1;
+    o = o * f0 + a * f1;
+    mx = mn;
+  }
+  out[bh * HD + d] = from_f<T>(o / fmaxf(lsum, 1e-30f));
 }
 
 }  // namespace
@@ -614,41 +1033,99 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // dtype codes shared with kernels/flash_attention.py
 enum { kFloat32 = 0, kBFloat16 = 1 };
 
-#define REPRO_DISPATCH(DTYPE, HD_, LAUNCH)                                    \
+// Sets a kernel's dynamic shared memory limit once per instantiation.
+#define REPRO_SMEM_ATTR(KERNEL, BYTES)                                        \
   do {                                                                        \
-    if ((DTYPE) == kFloat32 && (HD_) == 64) { LAUNCH(float, 64); }            \
-    else if ((DTYPE) == kFloat32 && (HD_) == 80) { LAUNCH(float, 80); }       \
-    else if ((DTYPE) == kFloat32 && (HD_) == 128) { LAUNCH(float, 128); }     \
-    else if ((DTYPE) == kBFloat16 && (HD_) == 64) { LAUNCH(__nv_bfloat16, 64); } \
-    else if ((DTYPE) == kBFloat16 && (HD_) == 80) { LAUNCH(__nv_bfloat16, 80); } \
-    else if ((DTYPE) == kBFloat16 && (HD_) == 128) { LAUNCH(__nv_bfloat16, 128); } \
-    else return (int)cudaErrorInvalidValue;                                   \
+    static bool attr_set = false;                                             \
+    if (!attr_set) {                                                          \
+      const cudaError_t e = cudaFuncSetAttribute(                             \
+          KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, (BYTES));      \
+      if (e != cudaSuccess) return (int)e;                                    \
+      attr_set = true;                                                        \
+    }                                                                         \
   } while (0)
+
+// The decode's instantiations: GM = 1 (one query head a kv head) or the
+// head dim's most.
+#define REPRO_DECODE_DISPATCH(DTYPE, HD_, G, LAUNCH)                          \
+  do {                                                                        \
+    const bool one = (G) == 1;                                                \
+    if ((DTYPE) == kFloat32 && (HD_) == 64) {                                 \
+      if (one) LAUNCH(float, 64, 1); else LAUNCH(float, 64, dec_gmax<64>());  \
+    } else if ((DTYPE) == kFloat32 && (HD_) == 80) {                          \
+      if (one) LAUNCH(float, 80, 1); else LAUNCH(float, 80, dec_gmax<80>());  \
+    } else if ((DTYPE) == kFloat32 && (HD_) == 128) {                         \
+      if (one) LAUNCH(float, 128, 1); else LAUNCH(float, 128, dec_gmax<128>()); \
+    } else if ((DTYPE) == kBFloat16 && (HD_) == 64) {                         \
+      if (one) LAUNCH(__nv_bfloat16, 64, 1);                                  \
+      else LAUNCH(__nv_bfloat16, 64, dec_gmax<64>());                         \
+    } else if ((DTYPE) == kBFloat16 && (HD_) == 80) {                         \
+      if (one) LAUNCH(__nv_bfloat16, 80, 1);                                  \
+      else LAUNCH(__nv_bfloat16, 80, dec_gmax<80>());                         \
+    } else if ((DTYPE) == kBFloat16 && (HD_) == 128) {                        \
+      if (one) LAUNCH(__nv_bfloat16, 128, 1);                                 \
+      else LAUNCH(__nv_bfloat16, 128, dec_gmax<128>());                       \
+    } else {                                                                  \
+      return (int)cudaErrorInvalidValue;                                      \
+    }                                                                         \
+  } while (0)
+
+namespace {
+
+// Both decodes: the split kernel over grid (KV x head groups, B, n_split),
+// then, with more than one split, the combine over (H, B).
+template <typename T, int HD, int GM, bool PAGED>
+int launch_decode(const void* q, const void* k, const void* v,
+                  const void* tables, const void* starts, const void* lengths,
+                  void* out, void* part, int B, int seq, int H, int KV,
+                  int max_blocks, int n_split, int chunk, float scale,
+                  cudaStream_t st) {
+  constexpr int bytes = dec_smem_bytes<T, HD, GM>();
+  REPRO_SMEM_ATTR((flash_decode_split_kernel<T, HD, GM, PAGED>), bytes);
+  const int n_hg = (H / KV + GM - 1) / GM;
+  const dim3 grid(KV * n_hg, B, n_split);
+  flash_decode_split_kernel<T, HD, GM, PAGED><<<grid, kDecThreads, bytes, st>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const int*)tables,
+      (const int*)starts, (const int*)lengths, (T*)out, (float*)part, seq, H,
+      KV, max_blocks, chunk, scale * kLog2e);
+  if (n_split > 1) {
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr.val.programmaticStreamSerializationAllowed = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(H, B);
+    cfg.blockDim = dim3(HD);
+    cfg.stream = st;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    return (int)cudaLaunchKernelEx(
+        &cfg, flash_decode_combine_kernel<T, HD>, (const float*)part,
+        (const int*)starts, (const int*)lengths, (T*)out, H, n_split, chunk,
+        PAGED ? max_blocks * seq : seq);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
 
 extern "C" {
 
 // q (B,S,H,hd); k, v (B,S,KV,hd); starts (B,) int32 or NULL; out like q.
-// bf16 runs on the tensor cores, fp32 on the CUDA cores.
+// bf16 runs through wgmma, fp32 as three-pass TF32 mma.sync.
 int flash_attention_fwd(const void* q, const void* k, const void* v,
                         const void* starts, void* out, int B, int S, int H,
                         int KV, int hd, int dtype, int causal, float scale,
                         void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int n_qt = (S + kFaBQ - 1) / kFaBQ;
+  const float scale_log2 = scale * kLog2e;
   if (dtype == kBFloat16) {
     const dim3 grid(H, B, (S + kTcBQ - 1) / kTcBQ);
-    const float scale_log2 = scale * 1.4426950408889634f;
 #define LAUNCH_TC(HD)                                                         \
   do {                                                                        \
     constexpr int bytes = tc_smem_bytes<HD>();                                \
-    static bool attr_set = false;                                             \
-    if (!attr_set) {                                                          \
-      const cudaError_t e = cudaFuncSetAttribute(                             \
-          flash_attention_tc_kernel<HD>,                                      \
-          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);                \
-      if (e != cudaSuccess) return (int)e;                                    \
-      attr_set = true;                                                        \
-    }                                                                         \
+    REPRO_SMEM_ATTR(flash_attention_tc_kernel<HD>, bytes);                    \
     flash_attention_tc_kernel<HD><<<grid, kTcThreads, bytes, st>>>(           \
         (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,                     \
         (const __nv_bfloat16*)v, (const int*)starts, (__nv_bfloat16*)out, S,  \
@@ -662,55 +1139,59 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
     return (int)cudaGetLastError();
   }
   if (dtype != kFloat32) return (int)cudaErrorInvalidValue;
-  const dim3 grid(n_qt, H, B);
-#define LAUNCH(HD)                                                            \
-  flash_attention_kernel<float, HD><<<grid, kFaThreads, 0, st>>>(             \
-      (const float*)q, (const float*)k, (const float*)v, (const int*)starts,  \
-      (float*)out, S, H, KV, causal, scale)
-  if (hd == 64) LAUNCH(64);
-  else if (hd == 80) LAUNCH(80);
-  else if (hd == 128) LAUNCH(128);
+  const dim3 grid(H, B, (S + kF3BQ - 1) / kF3BQ);
+#define LAUNCH_F3(HD)                                                         \
+  do {                                                                        \
+    constexpr int bytes = f3_smem_bytes<HD>();                                \
+    REPRO_SMEM_ATTR(flash_attention_3xtf32_kernel<HD>, bytes);                \
+    flash_attention_3xtf32_kernel<HD><<<grid, kF3Threads, bytes, st>>>(       \
+        (const float*)q, (const float*)k, (const float*)v,                    \
+        (const int*)starts, (float*)out, S, H, KV, causal, scale_log2);       \
+  } while (0)
+  if (hd == 64) LAUNCH_F3(64);
+  else if (hd == 80) LAUNCH_F3(80);
+  else if (hd == 128) LAUNCH_F3(128);
   else return (int)cudaErrorInvalidValue;
-#undef LAUNCH
+#undef LAUNCH_F3
   return (int)cudaGetLastError();
 }
 
 // q (B,H,hd); k, v (B,S,KV,hd); starts, lengths (B,) int32 (starts may be
-// NULL); out (B,H,hd).
+// NULL); out (B,H,hd); part fp32 scratch of B*H*n_split*(hd+2) floats (read
+// only with n_split > 1); keys [c * chunk, (c + 1) * chunk) are split c.
 int flash_decode_fwd(const void* q, const void* k, const void* v,
-                     const void* starts, const void* lengths, void* out, int B,
-                     int S, int H, int KV, int hd, int dtype, float scale,
+                     const void* starts, const void* lengths, void* out,
+                     void* part, int B, int S, int H, int KV, int hd,
+                     int dtype, int n_split, int chunk, float scale,
                      void* stream) {
-  const dim3 grid(H, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define LAUNCH(T, HD)                                                         \
-  flash_decode_kernel<T, HD, false><<<grid, kDecThreads, 0, st>>>(            \
-      (const T*)q, (const T*)k, (const T*)v, nullptr, (const int*)starts,     \
-      (const int*)lengths, (T*)out, S, H, KV, 0, scale)
-  REPRO_DISPATCH(dtype, hd, LAUNCH);
+#define LAUNCH(T, HD, GM)                                                     \
+  return launch_decode<T, HD, GM, false>(q, k, v, nullptr, starts, lengths,   \
+                                         out, part, B, S, H, KV, 0, n_split,  \
+                                         chunk, scale, st)
+  REPRO_DECODE_DISPATCH(dtype, hd, H / KV, LAUNCH);
 #undef LAUNCH
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;               // (not reached)
 }
 
 // q (B,H,hd); k_pool, v_pool (n_blocks, block_size, KV, hd); block_tables
-// (B, max_blocks) int32; starts, lengths (B,) int32; out (B,H,hd).
+// (B, max_blocks) int32; starts, lengths (B,) int32; out (B,H,hd); part
+// and the splits as for flash_decode_fwd, over max_blocks * block_size.
 int paged_flash_decode_fwd(const void* q, const void* k_pool,
                            const void* v_pool, const void* block_tables,
                            const void* starts, const void* lengths, void* out,
-                           int B, int H, int KV, int hd, int block_size,
-                           int max_blocks, int dtype, float scale,
-                           void* stream) {
-  const dim3 grid(H, B);
+                           void* part, int B, int H, int KV, int hd,
+                           int block_size, int max_blocks, int dtype,
+                           int n_split, int chunk, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define LAUNCH(T, HD)                                                         \
-  flash_decode_kernel<T, HD, true>                                            \
-      <<<grid, kDecThreads, max_blocks * sizeof(int), st>>>(                  \
-      (const T*)q, (const T*)k_pool, (const T*)v_pool,                        \
-      (const int*)block_tables, (const int*)starts, (const int*)lengths,      \
-      (T*)out, block_size, H, KV, max_blocks, scale)
-  REPRO_DISPATCH(dtype, hd, LAUNCH);
+#define LAUNCH(T, HD, GM)                                                     \
+  return launch_decode<T, HD, GM, true>(q, k_pool, v_pool, block_tables,      \
+                                        starts, lengths, out, part, B,        \
+                                        block_size, H, KV, max_blocks,        \
+                                        n_split, chunk, scale, st)
+  REPRO_DECODE_DISPATCH(dtype, hd, H / KV, LAUNCH);
 #undef LAUNCH
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;               // (not reached)
 }
 
 }  // extern "C"

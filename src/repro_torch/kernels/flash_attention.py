@@ -9,9 +9,13 @@ Port of ``repro.kernels.flash_attention`` (``flash_attention_pallas``,
   ``torch.cuda.current_stream()`` and raises if the launch is refused.
   It never falls back to the plain version;
 - counts its kernel launches in its ``launches`` attribute (and nowhere
-  else), so a run can show that it went through the kernel.  The prefill
-  has two kernels: bf16 runs on the tensor cores and is counted in
-  ``flash_attention.launches_tc`` as well; fp32 runs on the CUDA cores.
+  else), one a call, so a run can show that it went through the kernel.
+  The prefill has two kernels, both on the tensor cores: bf16 through
+  ``wgmma``, counted in ``flash_attention.launches_tc`` as well, and fp32
+  as three-pass TF32 ``mma.sync`` (fp32 accuracy; ``launches`` minus
+  ``launches_tc``).  The decodes split each row's key window over blocks
+  (``split_plan``); a call whose window needs more than one split also
+  runs a combine kernel and counts in ``launches_split`` as well.
 """
 from __future__ import annotations
 
@@ -27,9 +31,8 @@ from repro_torch.kernels import ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 80, 128)
-# the paged kernel keeps a row's block table in shared memory, beside its
-# 16.6 KB of static shared memory, within the 48 KB a launch gets by default
-_MAX_TABLE = 7680
+_SPLIT_KEYS = 32        # a split is whole ring tiles of the decode kernel
+_MIN_SPLIT = 64         # and at least this many keys
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
@@ -37,11 +40,12 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # q, k, v, starts, out, B, S, H, KV, hd, dtype, causal, scale, stream
     "flash_attention_fwd": [_P] * 5 + [_I] * 7 + [_F, _P],
-    # q, k, v, starts, lengths, out, B, S, H, KV, hd, dtype, scale, stream
-    "flash_decode_fwd": [_P] * 6 + [_I] * 6 + [_F, _P],
-    # q, k_pool, v_pool, tables, starts, lengths, out,
-    # B, H, KV, hd, block_size, max_blocks, dtype, scale, stream
-    "paged_flash_decode_fwd": [_P] * 7 + [_I] * 7 + [_F, _P],
+    # q, k, v, starts, lengths, out, part,
+    # B, S, H, KV, hd, dtype, n_split, chunk, scale, stream
+    "flash_decode_fwd": [_P] * 7 + [_I] * 8 + [_F, _P],
+    # q, k_pool, v_pool, tables, starts, lengths, out, part,
+    # B, H, KV, hd, block_size, max_blocks, dtype, n_split, chunk, scale, stream
+    "paged_flash_decode_fwd": [_P] * 8 + [_I] * 9 + [_F, _P],
 }
 
 
@@ -74,30 +78,80 @@ def _check(name: str, tensors: dict, device: torch.device) -> None:
             raise ValueError(f"{name}: {what} must be 16-byte aligned")
 
 
-def _check_qkv(name: str, q, k, v, n_heads: int, kv_heads: int,
-               hd: int) -> None:
+def _fit(name: str, q, k, v, kv_heads: int) -> None:
+    """Shapes and devices every path needs: k and v alike and on q's
+    device, and the kv heads dividing the query heads."""
+    if k.shape != v.shape:
+        raise ValueError(f"{name}: k {tuple(k.shape)} != v {tuple(v.shape)}")
+    for what, t in (("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"{name}: {what} is on {t.device}, q on "
+                             f"{q.device}")
+    if kv_heads <= 0 or q.shape[-2] % kv_heads:
+        raise ValueError(f"{name}: {q.shape[-2]} heads over {kv_heads} kv "
+                         "heads")
+
+
+def _check_kernel(name: str, q, k, v, hd: int) -> None:
+    """What the CUDA kernels take: dtype and head dim."""
     if q.dtype not in _DTYPES:
         raise ValueError(f"{name}: dtype {q.dtype} not supported "
                          "(float32, bfloat16)")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"{name}: q, k, v dtypes differ "
                          f"({q.dtype}, {k.dtype}, {v.dtype})")
-    if k.shape != v.shape:
-        raise ValueError(f"{name}: k {tuple(k.shape)} != v {tuple(v.shape)}")
     if hd not in _HEAD_DIMS:
         raise ValueError(f"{name}: head dim {hd} not supported on CUDA "
                          f"({_HEAD_DIMS})")
-    if kv_heads <= 0 or n_heads % kv_heads:
-        raise ValueError(f"{name}: {n_heads} heads over {kv_heads} kv heads")
 
 
-def _index(name: str, t: Optional[torch.Tensor], b: int, device):
-    if t is None:
-        return None
-    if t.shape != (b,):
+def _check_index(name: str, t: Optional[torch.Tensor], b: int) -> None:
+    if t is not None and tuple(t.shape) != (b,):
         raise ValueError(f"{name}: expected ({b},) indices, got "
                          f"{tuple(t.shape)}")
+
+
+def _index(t: Optional[torch.Tensor], device):
+    if t is None:
+        return None
     return t.to(device=device, dtype=torch.int32).contiguous()
+
+
+def split_plan(cap: int, blocks: int, sms: int) -> tuple[int, int]:
+    """(n_split, chunk) of a decode: split c takes the keys of each row's
+    window in [c * chunk, (c + 1) * chunk).  ``cap`` is the most keys a
+    window can hold (the cache's S, or max_blocks x block_size), so the
+    host needs no device read; ``blocks`` the blocks of one split (B x KV).
+    The longest row is cut into enough pieces for two blocks an SM, each
+    piece whole 32-key ring tiles and at least 64 keys."""
+    want = max(1, -(-2 * sms // max(blocks, 1)))
+    chunk = max(_MIN_SPLIT, -(-cap // want))
+    chunk = -(-chunk // _SPLIT_KEYS) * _SPLIT_KEYS
+    return max(1, -(-cap // chunk)), chunk
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _decode_launch(fn, fn_name: str, q, cap: int, kvh: int, ptrs: tuple,
+                   ints: tuple) -> None:
+    """Plans the splits, allocates the combine's scratch (fp32 acc, m and
+    l of each split, head and row) and launches: the C entry takes
+    ``ptrs`` (ending with out), the scratch, ``ints`` (ending with the
+    dtype code), n_split, chunk and the scale."""
+    b, h, hd = q.shape
+    n_split, chunk = split_plan(cap, b * kvh, _sm_count(q.device.index or 0))
+    part = None
+    if n_split > 1:
+        part = torch.empty(b * h * n_split * (hd + 2), dtype=torch.float32,
+                           device=q.device)
+    _launch(fn.__name__, fn_name, *ptrs, _ptr(part), *ints, n_split, chunk,
+            1.0 / math.sqrt(hd))
+    fn.launches += 1
+    if n_split > 1:
+        fn.launches_split += 1
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -118,15 +172,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Prefill attention.  q (B,S,H,hd); k/v (B,S,KV,hd) with KV | H;
     starts (B,) int left-pad counts (keys before starts[b] are masked) or
     None.  Returns (B,S,H,hd) in q's dtype."""
-    if _plain("flash_attention", q):
-        return ref.flash_attention_ref(q, k, v, starts, causal)
+    plain = _plain("flash_attention", q)
     b, s, h, hd = q.shape
     if k.dim() != 4 or k.shape[:2] != (b, s) or k.shape[3] != hd:
         raise ValueError(f"flash_attention: k {tuple(k.shape)} does not fit "
                          f"q {tuple(q.shape)}")
     kvh = k.shape[2]
-    _check_qkv("flash_attention", q, k, v, h, kvh, hd)
-    starts = _index("flash_attention", starts, b, q.device)
+    _fit("flash_attention", q, k, v, kvh)
+    _check_index("flash_attention", starts, b)
+    if plain:
+        return ref.flash_attention_ref(q, k, v, starts, causal)
+    _check_kernel("flash_attention", q, k, v, hd)
+    starts = _index(starts, q.device)
     out = torch.empty_like(q)
     _check("flash_attention", {"q": q, "k": k, "v": v, "out": out},
            q.device)
@@ -148,25 +205,27 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """One query per row over a contiguous cache.  q (B,H,hd); k/v
     (B,S,KV,hd); keys at positions [starts[b], lengths[b]) attend (lengths
     above S are clipped to S on CUDA).  Returns (B,H,hd)."""
-    if _plain("flash_decode", q):
-        return ref.flash_decode_ref(q, k, v, lengths, starts)
+    plain = _plain("flash_decode", q)
     b, h, hd = q.shape
     if k.dim() != 4 or k.shape[0] != b or k.shape[3] != hd:
         raise ValueError(f"flash_decode: cache {tuple(k.shape)} does not "
                          f"fit q {tuple(q.shape)}")
     s, kvh = k.shape[1], k.shape[2]
-    _check_qkv("flash_decode", q, k, v, h, kvh, hd)
-    lengths = _index("flash_decode", lengths, b, q.device)
-    starts = _index("flash_decode", starts, b, q.device)
+    _fit("flash_decode", q, k, v, kvh)
+    _check_index("flash_decode", lengths, b)
+    _check_index("flash_decode", starts, b)
+    if plain:
+        return ref.flash_decode_ref(q, k, v, lengths, starts)
+    _check_kernel("flash_decode", q, k, v, hd)
+    lengths, starts = _index(lengths, q.device), _index(starts, q.device)
     out = torch.empty_like(q)
     _check("flash_decode", {"q": q, "k": k, "v": v, "out": out}, q.device)
     if q.numel() == 0:
         return out
-    _launch("flash_decode", "flash_decode_fwd",
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(starts),
-            lengths.data_ptr(), out.data_ptr(), b, s, h, kvh, hd,
-            _DTYPES[q.dtype], 1.0 / math.sqrt(hd))
-    flash_decode.launches += 1
+    _decode_launch(flash_decode, "flash_decode_fwd", q, s, kvh,
+                   (q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(starts),
+                    lengths.data_ptr(), out.data_ptr()),
+                   (b, s, h, kvh, hd, _DTYPES[q.dtype]))
     return out
 
 
@@ -179,9 +238,7 @@ def paged_flash_decode(q: torch.Tensor, k_pool: torch.Tensor,
     logical -> physical page map (unused entries must still name a real
     page); keys at logical positions [starts[b], lengths[b]) attend.
     Returns (B,H,hd)."""
-    if _plain("paged_flash_decode", q):
-        return ref.paged_flash_decode_ref(q, k_pool, v_pool, block_tables,
-                                          lengths, starts)
+    plain = _plain("paged_flash_decode", q)
     b, h, hd = q.shape
     if k_pool.dim() != 4 or k_pool.shape[3] != hd:
         raise ValueError(f"paged_flash_decode: pool {tuple(k_pool.shape)} "
@@ -190,31 +247,36 @@ def paged_flash_decode(q: torch.Tensor, k_pool: torch.Tensor,
         raise ValueError("paged_flash_decode: block_tables must be "
                          f"({b}, max_blocks), got {tuple(block_tables.shape)}")
     _, bs, kvh, _ = k_pool.shape
-    _check_qkv("paged_flash_decode", q, k_pool, v_pool, h, kvh, hd)
-    if block_tables.shape[1] > _MAX_TABLE:
-        raise ValueError(f"paged_flash_decode: {block_tables.shape[1]} pages "
-                         f"per row exceed the kernel's {_MAX_TABLE}")
-    tables = block_tables.to(device=q.device, dtype=torch.int32).contiguous()
-    lengths = _index("paged_flash_decode", lengths, b, q.device)
-    starts = _index("paged_flash_decode", starts, b, q.device)
+    _fit("paged_flash_decode", q, k_pool, v_pool, kvh)
+    _check_index("paged_flash_decode", lengths, b)
+    _check_index("paged_flash_decode", starts, b)
+    if plain:
+        return ref.paged_flash_decode_ref(q, k_pool, v_pool, block_tables,
+                                          lengths, starts)
+    _check_kernel("paged_flash_decode", q, k_pool, v_pool, hd)
+    tables = _index(block_tables, q.device)
+    lengths, starts = _index(lengths, q.device), _index(starts, q.device)
     out = torch.empty_like(q)
     _check("paged_flash_decode", {"q": q, "k_pool": k_pool, "v_pool": v_pool,
                                   "out": out}, q.device)
     if q.numel() == 0:
         return out
-    _launch("paged_flash_decode", "paged_flash_decode_fwd",
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            tables.data_ptr(), _ptr(starts), lengths.data_ptr(),
-            out.data_ptr(), b, h, kvh, hd, bs, tables.shape[1],
-            _DTYPES[q.dtype], 1.0 / math.sqrt(hd))
-    paged_flash_decode.launches += 1
+    max_blocks = tables.shape[1]
+    _decode_launch(paged_flash_decode, "paged_flash_decode_fwd", q,
+                   max_blocks * bs, kvh,
+                   (q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                    tables.data_ptr(), _ptr(starts), lengths.data_ptr(),
+                    out.data_ptr()),
+                   (b, h, kvh, hd, bs, max_blocks, _DTYPES[q.dtype]))
     return out
 
 
 flash_attention.launches = 0
 flash_attention.launches_tc = 0
 flash_decode.launches = 0
+flash_decode.launches_split = 0
 paged_flash_decode.launches = 0
+paged_flash_decode.launches_split = 0
 KERNELS = (flash_attention, flash_decode, paged_flash_decode)
 
 
@@ -222,3 +284,4 @@ def reset_launches() -> None:
     for fn in KERNELS:
         fn.launches = 0
     flash_attention.launches_tc = 0
+    flash_decode.launches_split = paged_flash_decode.launches_split = 0

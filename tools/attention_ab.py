@@ -1,0 +1,77 @@
+#!/usr/bin/env python3
+"""Time the attention kernels of two checkouts of this repository on one
+CUDA card, in turns: A, B, B, A.
+
+    python3 tools/attention_ab.py OLD_DIR NEW_DIR > ab.jsonl
+
+Each turn starts a fresh process inside one checkout, which builds that
+checkout's kernels and runs its own ``chip_smoke.phase_kernels``, case by
+case, over NEW_DIR's attention cases (``kernel_cases`` and
+``hybrid_attention_cases``): each kernel against its plain version, with
+its time, the plain version's, the library call's and the bound.  Every
+kernel line is printed tagged with its checkout and turn, after the
+card's name and power limit; a case that a checkout's kernel fails (an
+older kernel's empty window, say) is printed as such and skipped.  Two
+calls may land on two cards, so compare only within one run.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+CASES = """
+import json, sys
+sys.path.insert(0, ".")
+import torch
+import chip_smoke as C
+print(json.dumps(C.kernel_cases(torch) + C.hybrid_attention_cases()))
+"""
+TURN = """
+import json, sys
+sys.path.insert(0, ".")
+import torch
+import chip_smoke as C
+if not torch.cuda.is_available():
+    sys.exit("attention_ab: no CUDA device")
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+for case in json.loads(sys.argv[1]):
+    try:
+        C.phase_kernels(torch, [tuple(case)])
+    except RuntimeError as e:
+        print(json.dumps({"phase": "kernel_failed", "case": case[1],
+                          "error": str(e)[:300]}), flush=True)
+"""
+
+
+def main(argv: list[str]) -> int:
+    if len(argv) != 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    dirs = {"A": Path(argv[0]).resolve(), "B": Path(argv[1]).resolve()}
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip()
+    print(json.dumps({"nvidia_smi": smi.splitlines()[0],
+                      "A": str(dirs["A"]), "B": str(dirs["B"])}), flush=True)
+    cases = subprocess.run([sys.executable, "-c", CASES], cwd=dirs["B"],
+                           capture_output=True, text=True, check=True,
+                           timeout=300).stdout
+    for turn, tag in enumerate("ABBA"):
+        run = subprocess.run([sys.executable, "-c", TURN, cases],
+                             cwd=dirs[tag], capture_output=True, text=True,
+                             timeout=1200)
+        if run.returncode != 0:
+            print(run.stdout[-4000:], run.stderr[-4000:], file=sys.stderr)
+            return run.returncode
+        for line in run.stdout.splitlines():
+            if line.startswith('{"phase": "kernel'):
+                print(json.dumps({"checkout": tag, "turn": turn,
+                                  **json.loads(line)}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
