@@ -9,7 +9,8 @@ Phases, one JSON line each:
 1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
    per source, all at once), with ptxas's registers and spills per kernel
    and the tensor-core instructions (HMMA, HGMMA) in the SASS of the two
-   prefill kernels and the bf16 dequant kernel;
+   prefill kernels, the bf16 dequant kernel and the SSM scan, beside each
+   instantiation's registers and spill bytes;
 2. each attention kernel against its plain PyTorch version at the serving
    shapes (llama2-7b width in bf16 and fp32, batched and ragged; qwen2-0.5b's
    GQA widths; one long chat session, 1 x 4096 keys; windows that are
@@ -63,21 +64,25 @@ Phases, one JSON line each:
    NF4 step;
 13. the SSM scan kernel against its plain version at zamba2-2.7b's widths
    (H 80, P = N = 64): batch 4 x 512 in fp32 and bf16, one 2048-token
-   prompt, a ragged S = 300, the published init's fast decay and a small
-   case; y and the final state within ``TOL``, with time, plain time and
-   bound;
+   prompt in fp32 and bf16, a ragged S = 300, the published init's fast
+   decay and a small case; y and the final state within ``TOL``, with
+   time, plain time and bound (fp32, ``ssm_scan``: three-pass TF32 on the
+   tensor cores, bound by TF32's rate x 3, the CUDA cores' bound beside
+   it; bf16, ``ssm_scan_bf16``);
 14. the attention kernels at zamba2's shared block (H = KV = 32, head dim
    80): the prefill and both decodes in bf16 and fp32;
 15. hybrid serving, card against CPU at fp32: 12 layers (2 super-blocks) of
    zamba2-2.7b at full width with slow-decay SSM scalars, 4 prompts of
-   mixed length, 8 new tokens: the same greedy tokens on both devices;
-16. hybrid serving at full size: zamba2-2.7b (54 layers, bf16, random
-   weights from a seed) through ``ServeEngine``, batch 4, prompts of
-   128-512 tokens, 32 new tokens, after one warm-up run: tokens/s, peak
-   memory, the kernels' launches over that run (54 scans a prefill), then
-   prefill and decode-step times (the step in rounds, as ``generate`` runs
-   it) and a profile of each (the scan's and the attention's share of
-   the prefill).
+   mixed length, 8 new tokens: the same greedy tokens on both devices
+   (the card's run launches the fp32 scan 12 times);
+16. hybrid serving at full size: zamba2-2.7b (54 layers, random weights
+   from a seed) through ``ServeEngine``, batch 4, prompts of 128-512
+   tokens, in bf16 with 32 new tokens and then in fp32 (the launcher's
+   default) with 8, each after one warm-up run: tokens/s, peak memory,
+   the kernels' launches over that run (54 scans a prefill, of the
+   dtype's instantiation), then prefill and decode-step times (the step
+   in rounds, as ``generate`` runs it) and a profile of each (the scan's
+   and the attention's share of the prefill).
 
 Then the ``nvidia-smi`` line, the kernels line and, last, the result line.
 Any failure raises: the script exits non-zero and prints no result.  It
@@ -119,6 +124,7 @@ KERNEL_ROWS = {   # instantiations by name: the bf16 ones run on tensor cores
     "dequant_matmul": "src/repro/kernels/fused_dequant_matmul.py:64",
     "dequant_matmul_bf16": "src/repro/kernels/fused_dequant_matmul.py:64",
     "ssm_scan": "src/repro/kernels/ssm_scan.py:57",
+    "ssm_scan_bf16": "src/repro/kernels/ssm_scan.py:57",
 }
 SOURCES = {
     **dict.fromkeys(("flash_attention", "flash_attention_fp32",
@@ -128,7 +134,8 @@ SOURCES = {
                     "src/repro_torch/kernels/csrc/fused_update.cu"),
     **dict.fromkeys(("dequant_matmul", "dequant_matmul_bf16"),
                     "src/repro_torch/kernels/csrc/dequant_matmul.cu"),
-    "ssm_scan": "src/repro_torch/kernels/csrc/ssm_scan.cu",
+    **dict.fromkeys(("ssm_scan", "ssm_scan_bf16"),
+                    "src/repro_torch/kernels/csrc/ssm_scan.cu"),
 }
 # The reference's analytic P+G+S (repro.core.memory_model.analyze, AdamW,
 # m=1) for llama2-7b at (n_layers, mode, precision), in GiB: a model, not
@@ -359,11 +366,12 @@ def instance(kernel: str, dtype: str) -> str:
     attention in fp32 runs as three-pass TF32 (``flash_attention_fp32``),
     in bf16 through ``wgmma`` (``flash_attention``); the dequant matmul
     with bf16 x runs on the tensor cores (``dequant_matmul_bf16``), with
-    fp32 x on the CUDA cores (``dequant_matmul``)."""
+    fp32 x on the CUDA cores (``dequant_matmul``); the SSM scan in bf16 is
+    ``ssm_scan_bf16``, in fp32 (three-pass TF32) ``ssm_scan``."""
     if kernel == "flash_attention" and dtype == "float32":
         return "flash_attention_fp32"
-    if kernel == "dequant_matmul" and dtype == "bfloat16":
-        return "dequant_matmul_bf16"
+    if kernel in ("dequant_matmul", "ssm_scan") and dtype == "bfloat16":
+        return kernel + "_bf16"
     return kernel
 
 
@@ -1429,6 +1437,7 @@ SSM_CASES = [   # (case, dtype, B, S, H, decay); P = N = 64
     ("zamba2 prefill 4 x 512 fp32", "float32", 4, 512, 80, "slow"),
     ("zamba2 prefill 4 x 512 bf16", "bfloat16", 4, 512, 80, "slow"),
     ("one prompt 1 x 2048 fp32", "float32", 1, 2048, 80, "slow"),
+    ("one prompt 1 x 2048 bf16", "bfloat16", 1, 2048, 80, "slow"),
     ("ragged 4 x 300 fp32", "float32", 4, 300, 80, "slow"),
     ("published decay 4 x 512 fp32", "float32", 4, 512, 80, "published"),
     ("small 1 x 37, 4 heads fp32", "float32", 1, 37, 4, "slow"),
@@ -1493,7 +1502,10 @@ def ssm_work(dtype, b, s, h, p=64, n=64):
 
 def phase_ssm_kernel(torch):
     """The SSM scan kernel against its plain version on the card, timed
-    with its inputs rotated beyond L2, beside its bound.  No single
+    with its inputs rotated beyond L2, beside its bound; returns the first
+    case's row of each instantiation (``ssm_scan`` fp32, ``ssm_scan_bf16``).
+    The fp32 bound takes three TF32 products a product at TF32's rate (the
+    kernel's route), with the CUDA cores' fp32 bound beside it.  No single
     PyTorch call computes a gated linear scan, so ``library_ms`` is null;
     the plain version (the chunked scan in eager ops) is no yardstick of
     speed either."""
@@ -1536,7 +1548,14 @@ def phase_ssm_kernel(torch):
         plain_ms = time_ms(torch, ssm_plain, sets, reps=3, launches=4)
         flops, wbytes = ssm_work(dtype, b, s, h)
         bound_ms, bound_by = bound(flops, wbytes, dtype)
-        row = dict(kernel="ssm_scan", case=case, dtype=dtype,
+        if dtype == "float32":
+            # three TF32 passes; the CUDA cores' fp32 bound beside it
+            row_extra["bound_cuda_cores_ms"] = bound_ms
+            bound_ms, bound_by = bound(3 * flops, wbytes, "tf32")
+            row_extra["products"] = "3xTF32 mma.sync"
+        else:
+            row_extra["products"] = "bf16 mma.sync, fp32 operands as pairs"
+        row = dict(kernel=instance("ssm_scan", dtype), case=case, dtype=dtype,
                    shapes=dict(b=b, s=s, h=h, p=64, n=64), decay=decay,
                    max_abs_err=max(errs.values()), max_abs_err_y=errs["y"],
                    max_abs_err_h=errs["h_final"], tol=tol, ms=ms,
@@ -1545,7 +1564,8 @@ def phase_ssm_kernel(torch):
                    kernel_flops=b * h * ssm_chunked_flops(s, 64, 64, 64),
                    share_of_bound=bound_ms / ms, **row_extra)
         emit("kernel", **row)
-        results.setdefault("ssm_scan", row)   # the first case is the main one
+        # each instantiation's first case is its main one
+        results.setdefault(row["kernel"], row)
         del sets, args
         gc.collect()
         torch.cuda.empty_cache()
@@ -1594,6 +1614,7 @@ def phase_hybrid_card_vs_cpu(torch):
     prefill and one decode step on both devices."""
     from repro_torch.common.pytree import tree_map
     from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ssm_scan as S
     from repro_torch.models import zamba2 as Z
     from repro_torch.serve.engine import ServeEngine
     cfg = dataclasses.replace(get_config("zamba2-2.7b"), n_layers=12)
@@ -1607,10 +1628,12 @@ def phase_hybrid_card_vs_cpu(torch):
     for dev in ("cpu", "cuda"):
         eng = ServeEngine(cfg, params, max_len=72, batch=4,
                           compute_dtype=torch.float32, device=dev)
+        S.reset_launches()                  # count the card's run only
         t0 = time.perf_counter()
         out[dev] = eng.generate(prompts, max_new_tokens=8)
         secs[dev] = time.perf_counter() - t0
         del eng
+    fp32_launches = S.ssm_scan.launches - S.ssm_scan.launches_bf16
     toks = torch.from_numpy(np.stack([np.pad(p, (64 - len(p), 0))
                                       for p in prompts])).long()
     logits = {}
@@ -1631,20 +1654,26 @@ def phase_hybrid_card_vs_cpu(torch):
          max_logit_gap_prefill=gaps[0], max_logit_gap_decode=gaps[1],
          max_ssm_state_gap=gaps[2],
          ssm_state_scale=float(logits["cpu"][2].abs().max()),
-         seconds=secs, cpu_tokens=out["cpu"], cuda_tokens=out["cuda"])
+         seconds=secs, cpu_tokens=out["cpu"], cuda_tokens=out["cuda"],
+         ssm_scan_launches=fp32_launches)
     if not same:
         raise RuntimeError(f"card and CPU hybrid greedy tokens differ: {out}")
+    if fp32_launches != cfg.n_layers:           # one prefill of 12 layers
+        raise RuntimeError(f"the fp32 hybrid serving run launched the scan "
+                           f"{fp32_launches} times, expected {cfg.n_layers}")
     del params, logits
     gc.collect()
     torch.cuda.empty_cache()
 
 
-def phase_hybrid_full(torch):
-    """zamba2-2.7b at full width and depth, bf16, random weights from seed
-    0, through ``ServeEngine``: batch 4, prompts of 128-512 tokens, 32 new
-    tokens, max_len 544.  After one warm-up run of the same requests, the
-    kernels' launches are counted over a second run, which is timed; then
-    prefill and decode-step times and profiles (``phase_hybrid_timing``)."""
+def phase_hybrid_full(torch, dtype: str = "bfloat16", max_new: int = 32):
+    """zamba2-2.7b at full width and depth in ``dtype``, random weights
+    from seed 0, through ``ServeEngine``: batch 4, prompts of 128-512
+    tokens, ``max_new`` new tokens, max_len 544.  After one warm-up run of
+    the same requests, the kernels' launches are counted over a second
+    run, which is timed, and returned by instantiation (``instance``);
+    then prefill and decode-step times and profiles
+    (``phase_hybrid_timing``)."""
     from repro_torch.common.pytree import tree_bytes
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import flash_attention as K
@@ -1652,20 +1681,21 @@ def phase_hybrid_full(torch):
     from repro_torch.models import zamba2 as Z
     from repro_torch.serve.engine import ServeEngine
     cfg = get_config("zamba2-2.7b")
-    bf16 = torch.bfloat16
+    dt = getattr(torch, dtype)
+    bf16 = dtype == "bfloat16"
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     params = Z.init(cfg, torch.Generator(device="cuda").manual_seed(0),
-                    device="cuda", dtype=bf16)
+                    device="cuda", dtype=dt)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     rng = np.random.default_rng(0)
     plens = [int(n) for n in rng.integers(128, 513, 4)]
     prompts = [rng.integers(0, cfg.vocab, n) for n in plens]
-    max_new, max_len = 32, 544
+    max_len = 544
     eng = ServeEngine(cfg, params, max_len=max_len, batch=4,
-                      compute_dtype=bf16, device="cuda")
+                      compute_dtype=dt, device="cuda")
     t0 = time.perf_counter()
     eng.generate(prompts, max_new_tokens=max_new)       # warm up
     torch.cuda.synchronize()
@@ -1677,21 +1707,28 @@ def phase_hybrid_full(torch):
     outs = eng.generate(prompts, max_new_tokens=max_new)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"ssm_scan": S.ssm_scan.launches,
-                "flash_attention": K.flash_attention.launches_tc,
+    scan, prefill = instance("ssm_scan", dtype), instance("flash_attention",
+                                                          dtype)
+    tc, bf = K.flash_attention.launches_tc, S.ssm_scan.launches_bf16
+    launches = {scan: bf if bf16 else S.ssm_scan.launches - bf,
+                prefill: tc if bf16 else K.flash_attention.launches - tc,
                 "flash_decode": K.flash_decode.launches}
-    if K.flash_attention.launches != K.flash_attention.launches_tc:
-        raise RuntimeError("bf16 hybrid serving ran the fp32 prefill kernel")
+    if launches[scan] != S.ssm_scan.launches:
+        raise RuntimeError(f"{dtype} hybrid serving ran the other scan")
+    if launches[prefill] != K.flash_attention.launches:
+        raise RuntimeError(f"{dtype} hybrid serving ran the other prefill "
+                           "kernel")
     peak = torch.cuda.max_memory_allocated()
     for toks in outs:
         if len(toks) != max_new or not all(0 <= t < cfg.vocab_padded
                                            for t in toks):
             raise RuntimeError(f"bad generation {toks}")
     n_sb = cfg.n_layers // cfg.attn_every
-    expect = {"ssm_scan": cfg.n_layers, "flash_attention": n_sb,
+    expect = {scan: cfg.n_layers, prefill: n_sb,
               "flash_decode": n_sb * (max_new - 1)}
-    emit("hybrid_full_size", arch=cfg.name, n_layers=cfg.n_layers,
-         dtype="bfloat16", init_s=init_s, params_bytes=tree_bytes(params),
+    emit("hybrid_full_size" if bf16 else "hybrid_full_size_fp32",
+         arch=cfg.name, n_layers=cfg.n_layers, dtype=dtype, init_s=init_s,
+         params_bytes=tree_bytes(params),
          prompt_lens=plens, new_tokens=max_new, max_len=max_len,
          cold_wall_s=cold_wall, wall_s=wall,
          tokens_per_s=len(prompts) * max_new / wall,
@@ -1700,14 +1737,14 @@ def phase_hybrid_full(torch):
     if launches != expect:
         raise RuntimeError(f"hybrid serving launched {launches}, expected "
                            f"{expect}")
-    phase_hybrid_timing(torch, cfg, eng.params, prompts)
+    phase_hybrid_timing(torch, cfg, eng.params, prompts, dt)
     del eng, params
     gc.collect()
     torch.cuda.empty_cache()
     return launches
 
 
-def phase_hybrid_timing(torch, cfg, params, prompts, rounds: int = 5,
+def phase_hybrid_timing(torch, cfg, params, prompts, dt, rounds: int = 5,
                         steps: int = 8):
     """Prefill and decode-step times on the host clock, then
     ``torch.profiler`` over one prefill and over 8 decode steps.  The
@@ -1719,20 +1756,19 @@ def phase_hybrid_timing(torch, cfg, params, prompts, rounds: int = 5,
     whether the process waited for a core."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import zamba2 as Z
-    bf16 = torch.bfloat16
     plen = max(len(p) for p in prompts)
     toks = torch.tensor(np.stack([np.pad(p, (plen - len(p), 0))
                                   for p in prompts]), device="cuda")
     max_len = plen + 4 + (rounds + 1) * steps
 
     def prefill():
-        cache = Z.init_cache(cfg, len(prompts), max_len, dtype=bf16,
+        cache = Z.init_cache(cfg, len(prompts), max_len, dtype=dt,
                              device="cuda")
-        return Z.prefill(cfg, params, {"tokens": toks}, cache, bf16)
+        return Z.prefill(cfg, params, {"tokens": toks}, cache, dt)
 
     def decode(n, cache, tok):
         for _ in range(n):
-            logits, cache = Z.decode_step(cfg, params, cache, tok, bf16)
+            logits, cache = Z.decode_step(cfg, params, cache, tok, dt)
             tok = logits[:, -1].argmax(-1, keepdim=True)
         return cache, tok
 
@@ -1769,7 +1805,8 @@ def phase_hybrid_timing(torch, cfg, params, prompts, rounds: int = 5,
         host_ms = 1e3 * (time.perf_counter() - t0) / steps
     decode_prof = profile_summary(prof, host_ms, steps,
                                   attention_ms="flash_decode")
-    emit("hybrid_timing", arch=cfg.name, batch=len(prompts), prompt=plen,
+    emit("hybrid_timing", arch=cfg.name, dtype=str(dt).split(".")[-1],
+         batch=len(prompts), prompt=plen,
          prefill_ms=prefill_ms[1:], prefill_ms_median=statistics.median(
              prefill_ms[1:]), decode_step_ms_rounds=step_ms,
          decode_step_ms_median=statistics.median(step_ms),
@@ -1782,14 +1819,33 @@ def phase_hybrid_timing(torch, cfg, params, prompts, rounds: int = 5,
 # ------------------------------------------------------------ main
 
 TC_KERNELS = ("flash_attention_tc_kernel", "flash_attention_3xtf32_kernel",
-              "dequant_matmul_wgmma_kernel")
+              "dequant_matmul_wgmma_kernel", "ssm_scan_tc_kernel")
 
 
-def sass_mma(libs) -> dict:
+def ptxas_usage(log: str) -> dict:
+    """Registers and spill bytes per kernel from ``nvcc -Xptxas -v``'s
+    report, by mangled name."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+            out[fn] = {}
+        elif fn and "spill stores" in line:
+            words = line.replace(",", "").split()
+            out[fn].update(spill_stores=int(words[words.index("spill") - 2]),
+                           spill_loads=int(words[-4]))
+        elif fn and "registers" in line and "Used" in line:
+            words = line.split()
+            out[fn]["registers"] = int(words[words.index("Used") + 1])
+    return out
+
+
+def sass_mma(libs, usage: dict) -> dict:
     """Tensor-core instructions in the built kernels' SASS (``cuobjdump
     -sass`` beside nvcc): for each kernel of ``TC_KERNELS``, its
-    instantiations and the number of HMMA (``mma.sync``) and HGMMA
-    (``wgmma``) instructions in each."""
+    instantiations, the number of HMMA (``mma.sync``) and HGMMA
+    (``wgmma``) instructions in each, and ptxas's registers and spill
+    bytes from ``usage`` (``ptxas_usage`` of the build's logs)."""
     from repro_torch.kernels import build
     tool = Path(build.find_nvcc()).parent / "cuobjdump"
     out = {}
@@ -1804,7 +1860,8 @@ def sass_mma(libs) -> dict:
                 fn = next((k for k in TC_KERNELS if k in name), None)
                 if fn:
                     key = f"{fn}#{sum(k.startswith(fn) for k in out)}"
-                    out[key] = dict(symbol=name[:120], hmma=0, hgmma=0)
+                    out[key] = dict(symbol=name[:120], hmma=0, hgmma=0,
+                                    **usage.get(name, {}))
             elif fn and "HGMMA" in line:
                 out[key]["hgmma"] += 1
             elif fn and "HMMA" in line:
@@ -1831,14 +1888,13 @@ def main() -> int:
 
     t0 = time.perf_counter()
     libs = build.build_all()
-    ptxas = [ln.strip() for log in build.last_build.get("logs", {}).values()
-             for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln
-             or "entry function" in ln]
+    usage = {}
+    for log in build.last_build.get("logs", {}).values():
+        usage.update(ptxas_usage(log))
     emit("build", seconds=time.perf_counter() - t0,
          libraries=[str(p.relative_to(ROOT)) for p in libs.values()],
-         ptxas=ptxas)
-    mma = sass_mma(libs)
+         ptxas=usage)
+    mma = sass_mma(libs, usage)
     emit("sass", tensor_core_kernels=mma)
     for name in TC_KERNELS:
         inst = [v for k, v in mma.items() if k.startswith(name)]
@@ -1866,11 +1922,11 @@ def main() -> int:
     rows.update(phase_ssm_kernel(torch))
     phase_kernels(torch, hybrid_attention_cases())
     phase_hybrid_card_vs_cpu(torch)
-    hybrid = phase_hybrid_full(torch)
-    launches["ssm_scan"] = hybrid["ssm_scan"]
-    # the attention's main paths: llama2-7b and zamba2 serving
-    launches["flash_attention"] += hybrid["flash_attention"]
-    launches["flash_decode"] += hybrid["flash_decode"]
+    # the scan's main paths: zamba2-2.7b served at full size in bf16 and
+    # in fp32, the launcher's default; they run the attention kernels too
+    for dtype, max_new in (("bfloat16", 32), ("float32", 8)):
+        for name, n in phase_hybrid_full(torch, dtype, max_new).items():
+            launches[name] = launches.get(name, 0) + n
 
     kernels = []
     for name, row in rows.items():

@@ -26,7 +26,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIBS: dict[str, ctypes.CDLL] = {}
-last_build: dict = {}        # seconds and ptxas report of the last build
+last_build: dict = {}        # seconds of the last build, ptxas reports
 
 
 def find_nvcc() -> str:
@@ -56,7 +56,10 @@ def build_all() -> dict[str, Path]:
     sources = sorted(CSRC.glob("*.cu"))
     libs = {p.stem: out_dir / f"lib{p.stem}.so" for p in sources}
     todo = [p for p in sources if not libs[p.stem].exists()]
-    if not todo:
+    if not todo:                 # built already: the logs beside the libs
+        logs = {p.stem: (out_dir / f"{p.stem}.log").read_text()
+                for p in sources if (out_dir / f"{p.stem}.log").exists()}
+        last_build.update(seconds=0.0, logs=logs)
         return libs
     nvcc = find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)

@@ -11,13 +11,18 @@ gated_chunked_scan`` (the Mamba2 SSD core).  :func:`ssm_scan`:
 - on CUDA tensors, checks device, dtypes, shapes, alignment and
   contiguity, allocates the outputs with ``torch.empty`` and launches the
   kernel on ``torch.cuda.current_stream()``, or raises.  It never falls
-  back to the plain version.  The kernel computes in fp32 (the chunk's
-  cumulative decay in fp64) and rounds y to x's dtype once; it tiles the
-  sequence in its own 64-row chunks (the result does not depend on the
-  chunk length beyond rounding), so ``chunk`` only sets the plain
-  version's chunking.  An entering state
-  ``h0`` has no kernel (no serving path passes one) and raises;
-- counts its kernel launches in ``ssm_scan.launches`` (and nowhere else).
+  back to the plain version.  The kernel runs its products on the tensor
+  cores: fp32 as three TF32 products each (fp32 accuracy), bf16 as bf16
+  products with fp32 sums, its fp32 operands (the decayed scores, the
+  state, ``x exp(total - cum)``) each entering as a bf16 pair hi + lo; the
+  chunk's cumulative decay is summed in fp64, the state is fp32, and y is
+  rounded to x's dtype once.  It splits P across blocks and walks the
+  sequence in 64-row chunks (the result does not depend on the chunk
+  length beyond rounding), so ``chunk`` only sets the plain version's
+  chunking.  An entering state ``h0`` has no kernel (no serving path
+  passes one) and raises;
+- counts its kernel launches in ``ssm_scan.launches`` (and nowhere else),
+  the bf16 ones in ``ssm_scan.launches_bf16`` as well.
 """
 from __future__ import annotations
 
@@ -73,7 +78,7 @@ def ssm_scan(x: torch.Tensor, a_log: torch.Tensor, b: torch.Tensor,
     """x (B,S,H,P) pre-scaled inputs; a_log (B,S,H) log decays (<= 0);
     b/c (B,S,N).  Returns (y (B,S,H,P) in x's dtype, h_final (B,H,P,N)
     fp32).  ``chunk`` sets only the CPU plain version's chunking; the
-    kernel tiles in its own 64-row chunks."""
+    kernel walks its own 64-row chunks."""
     if x.device.type == "cpu":
         y, h = ref.gated_chunked_scan_ref(x, a_log, b, c, chunk=chunk, h0=h0)
         return y, h.float()
@@ -107,11 +112,15 @@ def ssm_scan(x: torch.Tensor, a_log: torch.Tensor, b: torch.Tensor,
         raise RuntimeError(f"ssm_scan: CUDA kernel launch failed with "
                            f"cudaError {err}")
     ssm_scan.launches += 1
+    if x.dtype == torch.bfloat16:
+        ssm_scan.launches_bf16 += 1
     return y, hf
 
 
 ssm_scan.launches = 0
+ssm_scan.launches_bf16 = 0
 
 
 def reset_launches() -> None:
     ssm_scan.launches = 0
+    ssm_scan.launches_bf16 = 0

@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
-"""Time the attention kernels of two checkouts of this repository on one
-CUDA card, in turns: A, B, B, A.
+"""Time the attention and SSM scan kernels of two checkouts of this
+repository on one CUDA card, in turns: A, B, B, A.
 
     python3 tools/attention_ab.py OLD_DIR NEW_DIR > ab.jsonl
 
 Each turn starts a fresh process inside one checkout, which builds that
 checkout's kernels and runs its own ``chip_smoke.phase_kernels``, case by
 case, over NEW_DIR's attention cases (``kernel_cases`` and
-``hybrid_attention_cases``): each kernel against its plain version, with
-its time, the plain version's, the library call's and the bound.  Every
-kernel line is printed tagged with its checkout and turn, after the
-card's name and power limit; a case that a checkout's kernel fails (an
+``hybrid_attention_cases``), then its own ``chip_smoke.phase_ssm_kernel``
+over NEW_DIR's ``SSM_CASES`` and this tool's ``SSM_EXTRA``, case by case
+(the checkout's ``SSM_CASES`` set to each case in turn): each kernel
+against its plain version, with its time, the plain version's, the
+library call's and the bound.  Every kernel line is printed tagged with
+its checkout and turn, after the card's name and power limit; a case that a checkout's kernel fails (an
 older kernel's empty window, say) is printed as such and skipped.  Two
 calls may land on two cards, so compare only within one run.
 """
@@ -26,8 +28,12 @@ import json, sys
 sys.path.insert(0, ".")
 import torch
 import chip_smoke as C
-print(json.dumps(C.kernel_cases(torch) + C.hybrid_attention_cases()))
+print(json.dumps({"attention": C.kernel_cases(torch)
+                  + C.hybrid_attention_cases(), "ssm": C.SSM_CASES}))
 """
+# scan cases timed here beside chip_smoke.py's: two prompts in bf16, a
+# batch between the one prompt and the four of SSM_CASES
+SSM_EXTRA = [("two prompts 2 x 512 bf16", "bfloat16", 2, 512, 80, "slow")]
 TURN = """
 import json, sys
 sys.path.insert(0, ".")
@@ -37,11 +43,19 @@ if not torch.cuda.is_available():
     sys.exit("attention_ab: no CUDA device")
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
-for case in json.loads(sys.argv[1]):
+cases = json.loads(sys.argv[1])
+for case in cases["attention"]:
     try:
         C.phase_kernels(torch, [tuple(case)])
     except RuntimeError as e:
         print(json.dumps({"phase": "kernel_failed", "case": case[1],
+                          "error": str(e)[:300]}), flush=True)
+for case in cases["ssm"]:
+    C.SSM_CASES = [tuple(case)]
+    try:
+        C.phase_ssm_kernel(torch)
+    except RuntimeError as e:
+        print(json.dumps({"phase": "kernel_failed", "case": case[0],
                           "error": str(e)[:300]}), flush=True)
 """
 
@@ -56,9 +70,11 @@ def main(argv: list[str]) -> int:
                          text=True, check=True, timeout=60).stdout.strip()
     print(json.dumps({"nvidia_smi": smi.splitlines()[0],
                       "A": str(dirs["A"]), "B": str(dirs["B"])}), flush=True)
-    cases = subprocess.run([sys.executable, "-c", CASES], cwd=dirs["B"],
-                           capture_output=True, text=True, check=True,
-                           timeout=300).stdout
+    cases = json.loads(subprocess.run(
+        [sys.executable, "-c", CASES], cwd=dirs["B"], capture_output=True,
+        text=True, check=True, timeout=300).stdout)
+    cases["ssm"] += SSM_EXTRA
+    cases = json.dumps(cases)
     for turn, tag in enumerate("ABBA"):
         run = subprocess.run([sys.executable, "-c", TURN, cases],
                              cwd=dirs[tag], capture_output=True, text=True,
