@@ -42,7 +42,25 @@ Phases, one JSON line each:
    over that run, and a profile of a layer-group step; then two full-size
    steps under Mixed^Hi (bf16 params, fp32 master of the active group);
 8. FPFT against HiFT at 4 layers of llama2-7b width (fp32, AdamW, fused).
-   Peak memory of 7 and 8 stands beside the reference's analytic P+G+S;
+   Peak memory of 7 and 8 stands beside the analytic P+G+S of the port's
+   Appendix-B model (``core.memory_model``), as in every training phase;
+   then the paper's experiment matrix, each phase counting the fused
+   updates' launches over its run:
+   a. card against CPU at 2 layers of gpt-neo-2.7b's width, then
+      roberta-large, gpt2-large and gpt-neo-2.7b at full size (fp32, HiFT
+      m=1, AdamW, batch 4 x 512): the embed step, the head and the top
+      layer of each, with host time, peak memory and update time per step;
+   b. the five optimizers (AdamW, SGD-momentum, SGD, AdaGrad, Adafactor)
+      on gpt2-large at full size, two steps each, peak beside the model's
+      P+G+S and #Sta;
+   c. FPFT against HiFT on gpt-neo-2.7b at full depth (one step each):
+      both peaks, both analytic figures and the saving;
+   d. ``get_config(optimized=True)`` (the balanced causal schedule)
+      against the default on gpt2-large at 1 x 2048: losses equal, both
+      step times;
+   e. checkpoint and resume of roberta-large at full size through the
+      training loop's async save: the resumed run equal to a straight one,
+      with the checkpoint's bytes and save and restore seconds;
 9. the dequant-matmul kernel against its plain version at llama2-7b's
    shapes (M = 4 x 512; the three projection shapes of a stacked layer,
    scale tile rows 8; the head, tile rows 1; one ragged case), int8 and
@@ -137,25 +155,20 @@ SOURCES = {
     **dict.fromkeys(("ssm_scan", "ssm_scan_bf16"),
                     "src/repro_torch/kernels/csrc/ssm_scan.cu"),
 }
-# The reference's analytic P+G+S (repro.core.memory_model.analyze, AdamW,
-# m=1) for llama2-7b at (n_layers, mode, precision), in GiB: a model, not
-# a measurement.  This script imports no JAX, so the figures are
-# constants; tests/test_torch_training.py recomputes them from the JAX
-# package.
-ANALYTIC_PGS_GIB = {
-    (32, "hift", "fp32"): 27.364364624023438,
-    (32, "hift", "mixed_hi"): 15.567024230957031,
-    (4, "hift", "fp32"): 6.2541351318359375,
-    (4, "fpft", "fp32"): 15.96929931640625,
-}
-# The same model for quantized residency, at (n_layers, mode, precision,
-# frozen codec, moment dtype), AdamW, m=1; tests/test_torch_quant_training.py
-# recomputes these from the JAX package.
-ANALYTIC_PGS_GIB_QUANT = {
-    (32, "hift", "fp32", "nf4", "bf16"): 5.430839538574219,
-    (32, "hift", "fp32", "int8", "bf16"): 8.568656921386719,
-    (32, "hift", "mixed_hi", "nf4", "bf16"): 5.4308319091796875,
-}
+
+
+def analytic(cfg, mode: str = "hift", precision: str = "fp32",
+             optimizer: str = "adamw", frozen=None, moments: str = "fp32"):
+    """The port's Appendix-B model of ``cfg`` (``core.memory_model.analyze``
+    on its meta-device shapes, m=1): a ``MemoryReport`` whose ``pgs_gb``
+    is the analytic P+G+S in GiB, a model, not a measurement."""
+    from repro_torch.core.memory_model import analyze, param_shapes
+    from repro_torch.models import get_family
+    return analyze(param_shapes(cfg), get_family(cfg).unit_spec(cfg),
+                   optimizer=optimizer, precision=precision, mode=mode, m=1,
+                   frozen_quant=frozen, moment_dtype=moments)
+
+
 # The dequant-matmul kernel against its plain version (decode, then one
 # cuBLAS product): fp32 sums of up to 11008 products taken in another
 # order (atol = rtol 1e-4; a sum's rounding walk is ~1e-5 of outputs of
@@ -857,9 +870,81 @@ def train_batches(cfg, seq, batch, n, device):
     return [data.batch_at(s) for s in range(n)]
 
 
-def phase_train_card_vs_cpu(torch):
+class UpdateTimer:
+    """While in use: CUDA events around each launch of the fused update
+    kernels (``fused_update._launch``), and their launch counts from 0."""
+
+    def __init__(self, torch):
+        from repro_torch.kernels import fused_update
+        self.torch, self.fu, self.events = torch, fused_update, []
+
+    def __enter__(self):
+        launch, cuda = self.fu._launch, self.torch.cuda
+        self._launch = launch
+
+        def timed_launch(*args):
+            e0 = cuda.Event(enable_timing=True)
+            e1 = cuda.Event(enable_timing=True)
+            e0.record()
+            n = launch(*args)
+            e1.record()
+            self.events.append((e0, e1))
+            return n
+
+        self.fu._launch = timed_launch
+        self.fu.reset_launches()
+        return self
+
+    def __exit__(self, *exc):
+        self.fu._launch = self._launch
+
+    def take(self) -> tuple[float, int]:
+        """(device ms, launches) of the updates since the last take."""
+        ms = sum(a.elapsed_time(b) for a, b in self.events)
+        n = len(self.events)
+        self.events.clear()
+        return ms, n
+
+    def launches(self) -> dict:
+        return {fn.__name__.replace("_update", ""): fn.launches
+                for fn in self.fu.KERNELS}
+
+
+def measured_step(torch, runner, batch, timer: UpdateTimer) -> dict:
+    """One training step: host clock to a synchronise, peak memory (reset
+    before the step) and the fused updates' device time and launches."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timer.take()
+    t0 = time.perf_counter()
+    loss = float(runner.train_step(batch))
+    torch.cuda.synchronize()
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    update_ms, launches = timer.take()
+    label = runner.last_metrics.get("group", "all")     # FPFT: every param
+    if not math.isfinite(loss):
+        raise RuntimeError(f"non-finite loss at {label}: {loss}")
+    peak = torch.cuda.max_memory_allocated()
+    kind = "all" if label == "all" else _group_kind(label)
+    return dict(group=label, kind=kind, loss=loss,
+                host_ms=host_ms, peak_memory_bytes=peak,
+                peak_memory_gib=peak / 2**30, update_kernel_ms=update_ms,
+                update_launches=launches)
+
+
+def fresh_params(torch, cfg, seed: int = 0, dtype=None):
+    """The port's random init of ``cfg`` on the card from ``seed``, after
+    freeing what earlier phases left."""
+    from repro_torch.models import transformer as T
+    gc.collect()
+    torch.cuda.empty_cache()
+    return T.init(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                  device="cuda", dtype=dtype or torch.float32)
+
+
+def phase_train_card_vs_cpu(torch, arch: str = "llama2-7b"):
     """4 HiFT steps with AdamW (embed, layer 0, layer 1, head) of a 2-layer
-    model at llama2-7b width, fp32, batch 1 x 64, from the same params on
+    model at ``arch``'s width, fp32, batch 1 x 64, from the same params on
     the CPU (plain versions) and the card (fused kernel).  Losses within
     rtol 1e-4: the same fp32 arithmetic summed in other orders by cuBLAS
     and the CPU's BLAS, where AdamW's first step moves every element by
@@ -870,7 +955,7 @@ def phase_train_card_vs_cpu(torch):
     from repro_torch.core import LRSchedule, make_runner
     from repro_torch.kernels import fused_update as FU
     from repro_torch.models import transformer as T
-    cfg = dataclasses.replace(get_config("llama2-7b"), n_layers=2)
+    cfg = dataclasses.replace(get_config(arch), n_layers=2)
     params = T.init(cfg, torch.Generator().manual_seed(0), device="cpu",
                     dtype=torch.float32)
     batches = train_batches(cfg, 64, 1, 4, "cpu")
@@ -888,12 +973,14 @@ def phase_train_card_vs_cpu(torch):
                                "AdamW kernel once each")
         final[dev] = {k: t.detach().cpu() for k, t in
                       flatten_with_paths(runner.params).items()}
-        emit("train_card_vs_cpu_run", device=dev, seconds=secs)
+        emit("train_card_vs_cpu_run", arch=cfg.name, device=dev,
+             seconds=secs)
         del runner
     gap = max(float((final["cpu"][k] - final["cuda"][k]).abs().max())
               for k in final["cpu"])
     rel = max(abs(a - b) / abs(a) for a, b in zip(out["cpu"], out["cuda"]))
-    emit("train_card_vs_cpu", n_layers=cfg.n_layers, d_model=cfg.d_model,
+    emit("train_card_vs_cpu", arch=cfg.name, n_layers=cfg.n_layers,
+         d_model=cfg.d_model,
          batch=1, seq=64, groups=groups, cpu_losses=out["cpu"],
          cuda_losses=out["cuda"], max_rel_loss_gap=rel, rtol=1e-4,
          max_param_gap=gap)
@@ -920,7 +1007,6 @@ def phase_train_full(torch):
     from repro_torch.common.pytree import tree_bytes
     from repro_torch.configs.registry import get_config
     from repro_torch.core import HiFTConfig, LRSchedule, make_runner
-    from repro_torch.kernels import fused_update as FU
     from repro_torch.models import transformer as T
     cfg = get_config("llama2-7b")
     t0 = time.perf_counter()
@@ -929,54 +1015,21 @@ def phase_train_full(torch):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     batches = train_batches(cfg, 512, 4, 10, "cuda")
-    events = []
-    launch = FU._launch
-
-    def timed_launch(*args):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        n = launch(*args)
-        e1.record()
-        events.append((e0, e1))
-        return n
-
-    FU._launch = timed_launch
     plan = [("adamw", "bottom2up", 3), ("adamw", "top2down", 2),
             ("sgdm", "top2down", 2), ("adagrad", "top2down", 2)]
     steps = []
-    FU.reset_launches()                 # count the main path's run only
-    try:
+    with UpdateTimer(torch) as timer:   # counts the main path's run only
         for opt, order, n in plan:
             runner = make_runner(cfg, "hift", params=params, optimizer=opt,
                                  hift=HiFTConfig(m=1, strategy=order),
                                  schedule=LRSchedule(base_lr=1e-5),
                                  device="cuda")
             for _ in range(n):
-                batch = batches[len(steps)]
-                torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats()
-                events.clear()
-                t0 = time.perf_counter()
-                loss = float(runner.train_step(batch))
-                torch.cuda.synchronize()
-                host_ms = 1e3 * (time.perf_counter() - t0)
-                label = runner.last_metrics["group"]
-                steps.append(dict(
-                    optimizer=opt, order=order, group=label,
-                    kind=_group_kind(label), loss=loss, host_ms=host_ms,
-                    peak_memory_bytes=torch.cuda.max_memory_allocated(),
-                    update_kernel_ms=sum(a.elapsed_time(b)
-                                         for a, b in events),
-                    update_launches=len(events)))
+                steps.append(dict(optimizer=opt, order=order, **measured_step(
+                    torch, runner, batches[len(steps)], timer)))
                 emit("train_step", arch=cfg.name, **steps[-1])
-                if not math.isfinite(loss):
-                    raise RuntimeError(f"non-finite loss at {label}")
             del runner
-        launches = {fn.__name__.replace("_update", ""): fn.launches
-                    for fn in FU.KERNELS}
-    finally:
-        FU._launch = launch
+        launches = timer.launches()
     emit("train_full_size", arch=cfg.name, n_layers=cfg.n_layers,
          dtype="float32", batch=4, seq=512, remat=cfg.remat, init_s=init_s,
          launches=launches, params_bytes=tree_bytes(params))
@@ -988,7 +1041,7 @@ def phase_train_full(torch):
     full = steps[:3]
     emit("train_full_size_vs_model", policy="fp32",
          peak_memory_gib=max(s["peak_memory_bytes"] for s in full) / 2**30,
-         analytic_pgs_gib=ANALYTIC_PGS_GIB[(32, "hift", "fp32")])
+         analytic_pgs_gib=analytic(cfg).pgs_gb)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -1029,7 +1082,7 @@ def phase_train_mixed_hi(torch):
     emit("train_mixed_hi", arch=cfg.name, policy="mixed_hi", batch=4,
          seq=512, steps=rows,
          peak_memory_gib=max(r["peak_memory_bytes"] for r in rows) / 2**30,
-         analytic_pgs_gib=ANALYTIC_PGS_GIB[(32, "hift", "mixed_hi")])
+         analytic_pgs_gib=analytic(cfg, precision="mixed_hi").pgs_gb)
     del runner, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -1107,12 +1160,321 @@ def phase_train_4_layers(torch):
         emit("train_4_layers", mode=mode, steps=n, losses=losses,
              host_s=time.perf_counter() - t0, peak_memory_bytes=peak,
              peak_memory_gib=peak / 2**30,
-             analytic_pgs_gib=ANALYTIC_PGS_GIB[(4, mode, "fp32")])
+             analytic_pgs_gib=analytic(cfg, mode).pgs_gb)
         if not all(math.isfinite(x) for x in losses):
             raise RuntimeError(f"{mode}: non-finite loss {losses}")
         del runner, params
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------ phases 8a-8e
+
+PAPER_NEW = ("roberta-large", "gpt2-large", "gpt-neo-2.7b")
+OPTIMIZERS = ("adamw", "sgdm", "sgd", "adagrad", "adafactor")
+# The balanced schedule runs the default's per-block loop in the port, so
+# its losses are expected bit-equal; held to 1e-6 relative (8 fp32 ulps).
+BALANCED_RTOL = 1e-6
+# A resumed run repeats the straight run's arithmetic on the same state, so
+# its params are expected bit-equal.  Should a kernel of the step not be
+# run-to-run deterministic, AdamW at lr 1e-5 moves an element by at most
+# ~lr a step whatever its gradient: the bound is 2 lr for each of the 3
+# steps after the restore.
+CKPT_BOUND = 3 * 2 * 1e-5
+
+
+def _hift_runner(cfg, params, optimizer="adamw", order="bottom2up"):
+    from repro_torch.core import HiFTConfig, LRSchedule, make_runner
+    return make_runner(cfg, "hift", params=params, optimizer=optimizer,
+                       hift=HiFTConfig(m=1, strategy=order),
+                       schedule=LRSchedule(base_lr=1e-5), device="cuda")
+
+
+def _model_row(report) -> dict:
+    return dict(analytic_pgs_gib=report.pgs_gb,
+                analytic_para_mb=report.para_mb,
+                analytic_grad_mb=report.grad_mb,
+                analytic_state_mb=report.state_mb)
+
+
+def phase_train_paper_configs(torch):
+    """The paper's other models at published widths and full depth:
+    roberta-large, gpt2-large and gpt-neo-2.7b, fp32, HiFT m=1, AdamW
+    (fused), batch 4 x 512, random params from seed 0.  Each takes the
+    embed step (a backward through every layer and the tied head) from a
+    bottom2up runner, then the head and the top layer from a top2down one.
+    Per step: host clock, peak memory beside the port's analytic P+G+S,
+    the fused update's device time and launches (counted over this run).
+    First, card against CPU: 4 steps of 2 layers at gpt-neo-2.7b's width
+    (``phase_train_card_vs_cpu``)."""
+    from repro_torch.common.pytree import tree_bytes, tree_size
+    from repro_torch.configs.registry import get_config
+    phase_train_card_vs_cpu(torch, "gpt-neo-2.7b")
+    with UpdateTimer(torch) as timer:
+        for arch in PAPER_NEW:
+            cfg = get_config(arch)
+            params = fresh_params(torch, cfg)
+            batches = train_batches(cfg, 512, 4, 3, "cuda")
+            model = analytic(cfg)
+            steps = []
+            for order, n in (("bottom2up", 1), ("top2down", 2)):
+                runner = _hift_runner(cfg, params, order=order)
+                for _ in range(n):
+                    steps.append(dict(order=order, **measured_step(
+                        torch, runner, batches[len(steps)], timer)))
+                    emit("train_paper_step", arch=cfg.name,
+                         analytic_pgs_gib=model.pgs_gb, **steps[-1])
+                k = runner.k
+                del runner
+            emit("train_paper_config", arch=cfg.name, n_layers=cfg.n_layers,
+                 d_model=cfg.d_model, head_dim=cfg.head_dim, groups=k,
+                 params=tree_size(params), params_bytes=tree_bytes(params),
+                 dtype="float32", batch=4, seq=512, optimizer="adamw",
+                 peak_memory_gib=max(x["peak_memory_gib"] for x in steps),
+                 **_model_row(model))
+            del params
+        launches = timer.launches()
+    if launches["fused_adamw"] == 0:
+        raise RuntimeError(f"the paper configs' steps ran no fused AdamW: "
+                           f"{launches}")
+    return launches
+
+
+def phase_train_optimizer_matrix(torch):
+    """The paper's five optimizers (its claim that HiFT's saving holds for
+    each) on gpt2-large at full size, fp32, HiFT m=1, batch 4 x 512: two
+    steps each (embed, layer 0) from a fresh runner over the same resident
+    params (trained in place), AdamW, SGD-momentum and AdaGrad through
+    their fused kernels, SGD and Adafactor in plain torch (no kernel in the
+    reference either).  Per step: host clock, peak memory beside the
+    analytic P+G+S, the model's #Sta and the bytes of the group's bundle
+    as it lies in pinned host memory."""
+    from repro_torch.common.pytree import flatten_with_paths
+    from repro_torch.configs.registry import get_config
+    cfg = get_config("gpt2-large")
+    params = fresh_params(torch, cfg)
+    batches = train_batches(cfg, 512, 4, 2, "cuda")
+    rows = []
+    with UpdateTimer(torch) as timer:
+        for opt in OPTIMIZERS:
+            model = analytic(cfg, optimizer=opt)
+            runner = _hift_runner(cfg, params, optimizer=opt)
+            steps = []
+            for batch in batches:
+                gi = runner.group_for_step().index
+                steps.append(measured_step(torch, runner, batch, timer))
+                bundle = flatten_with_paths(runner.opt_state[str(gi)]["opt"])
+                steps[-1]["bundle_state_bytes"] = sum(
+                    t.numel() * t.element_size() for t in bundle.values()
+                    if t.is_floating_point())
+                emit("train_optimizer_step", arch=cfg.name, optimizer=opt,
+                     **steps[-1])
+            rows.append(dict(
+                optimizer=opt, host_ms=[x["host_ms"] for x in steps],
+                peak_memory_gib=max(x["peak_memory_gib"] for x in steps),
+                update_kernel_ms=[x["update_kernel_ms"] for x in steps],
+                bundle_state_mb=max(x["bundle_state_bytes"]
+                                    for x in steps) / 2**20,
+                **_model_row(model)))
+            del runner
+        launches = timer.launches()
+    emit("train_optimizer_matrix", arch=cfg.name, dtype="float32", batch=4,
+         seq=512, rows=rows, launches=launches)
+    if 0 in launches.values():
+        raise RuntimeError(f"a fused update never launched: {launches}")
+    del params
+    return launches
+
+
+def phase_train_fpft_vs_hift_full(torch):
+    """The paper's headline comparison on a whole paper model: gpt-neo-2.7b
+    at full depth, fp32, AdamW (fused), batch 4 x 512 — one FPFT step,
+    then one HiFT m=1 embed step (the deepest backward) from fresh params.
+    Peak memory above what was allocated before the params, beside the
+    analytic P+G+S of each, and the saving both ways."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import LRSchedule, make_runner
+    cfg = get_config("gpt-neo-2.7b")
+    batch = train_batches(cfg, 512, 4, 1, "cuda")[0]
+    out = {}
+    with UpdateTimer(torch) as timer:
+        for mode in ("fpft", "hift"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            params = fresh_params(torch, cfg)
+            runner = make_runner(cfg, mode, params=params, optimizer="adamw",
+                                 fused_update=True,
+                                 schedule=LRSchedule(base_lr=1e-5),
+                                 device="cuda")
+            del params
+            row = measured_step(torch, runner, batch, timer)
+            row["peak_memory_gib"] = (row["peak_memory_bytes"] - base) / 2**30
+            out[mode] = dict(row, **_model_row(analytic(cfg, mode)))
+            emit("train_fpft_vs_hift_step", arch=cfg.name, mode=mode,
+                 **out[mode])
+            del runner
+        launches = timer.launches()
+    f, h = out["fpft"], out["hift"]
+    emit("train_fpft_vs_hift_full", arch=cfg.name, n_layers=cfg.n_layers,
+         dtype="float32", batch=4, seq=512,
+         fpft_peak_gib=f["peak_memory_gib"],
+         hift_peak_gib=h["peak_memory_gib"],
+         fpft_analytic_gib=f["analytic_pgs_gib"],
+         hift_analytic_gib=h["analytic_pgs_gib"],
+         saving_pct=100 * (1 - h["peak_memory_gib"] / f["peak_memory_gib"]),
+         analytic_saving_pct=100 * (1 - h["analytic_pgs_gib"]
+                                    / f["analytic_pgs_gib"]),
+         fpft_ms=f["host_ms"], hift_ms=h["host_ms"], launches=launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_balanced(torch):
+    """``get_config(optimized=True)`` (the balanced causal schedule)
+    against the default on gpt2-large at full size, fp32, HiFT m=1 AdamW,
+    one 2048-token sequence (4 q blocks of 512): in turns default,
+    balanced, balanced, default, two steps each (embed, layer 0) from the
+    same params; every turn's losses within ``BALANCED_RTOL`` of the
+    first's, and each turn's step times.  No speed-up is expected: the
+    port runs one loop for both schedules."""
+    from repro_torch.configs.registry import get_config
+    cfgs = {"default": get_config("gpt2-large"),
+            "balanced": get_config("gpt2-large", optimized=True)}
+    if not cfgs["balanced"].attention_balanced:
+        raise RuntimeError("optimized=True did not select the balanced "
+                           "schedule")
+    batches = train_batches(cfgs["default"], 2048, 1, 2, "cuda")
+    turns = []
+    with UpdateTimer(torch) as timer:
+        for name in ("default", "balanced", "balanced", "default"):
+            cfg = cfgs[name]
+            runner = _hift_runner(cfg, fresh_params(torch, cfg))
+            steps = [measured_step(torch, runner, b, timer) for b in batches]
+            turns.append(dict(schedule=name,
+                              losses=[x["loss"] for x in steps],
+                              host_ms=[x["host_ms"] for x in steps],
+                              peak_memory_gib=max(x["peak_memory_gib"]
+                                                  for x in steps)))
+            del runner
+        launches = timer.launches()
+    first = turns[0]["losses"]
+    gap = max(abs(a - b) / abs(a) for t in turns
+              for a, b in zip(first, t["losses"]))
+    emit("train_balanced", arch="gpt2-large", batch=1, seq=2048, blocks=4,
+         turns=turns, max_rel_loss_gap=gap, rtol=BALANCED_RTOL,
+         launches=launches)
+    if gap > BALANCED_RTOL:
+        raise RuntimeError(f"balanced and default losses differ: {turns}")
+    return launches
+
+
+def _states_equal(torch, a: dict, b: dict) -> list:
+    """Paths at which two flat states differ in dtype, shape or any bit
+    (tensors on the same device, numpy leaves)."""
+    out = []
+    for path in a.keys() | b.keys():
+        x, y = a.get(path), b.get(path)
+        if isinstance(x, torch.Tensor) and isinstance(y, torch.Tensor):
+            same = x.dtype == y.dtype and torch.equal(x, y)
+        else:
+            same = x is not None and y is not None and np.array_equal(
+                np.asarray(x), np.asarray(y))
+        if not same:
+            out.append(path)
+    return sorted(out)
+
+
+def phase_train_checkpoint(torch):
+    """Checkpoint and resume at full size: roberta-large, fp32, HiFT m=1
+    AdamW (fused), batch 4 x 512.  6 steps straight through; then 3 steps
+    through ``train.loop.train`` with an async checkpoint at step 3 (into
+    a ``tempfile`` directory, removed afterwards), restored into a runner
+    built from another seed, and 3 more steps.  The restored state must
+    equal the saved one bit for bit (params on the card, bundles in pinned
+    memory, counts, order, step) and the next group the straight run's;
+    the final params are expected bit-equal to the straight run's and
+    held to ``CKPT_BOUND``.  Prints the checkpoint's bytes, the save
+    seconds (the host snapshot, and until the writer thread is joined) and
+    the restore seconds (decode, then placement)."""
+    import shutil
+    import tempfile
+    from repro_torch.common.pytree import flatten_with_paths
+    from repro_torch.configs.registry import get_config
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.loop import LoopConfig, train
+    cfg = get_config("roberta-large")
+    batches = train_batches(cfg, 512, 4, 6, "cuda")
+    with UpdateTimer(torch) as timer:
+        straight = _hift_runner(cfg, fresh_params(torch, cfg))
+        for b in batches:
+            straight.train_step(b)
+        want_group = straight.group_for_step(3).label()
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+        save, calls = ckpt.save, []
+
+        def timed_save(*args, **kw):
+            t0 = time.perf_counter()
+            writer = save(*args, **kw)
+            calls.append((t0, time.perf_counter(), writer is not None))
+            return writer
+
+        try:
+            first = _hift_runner(cfg, fresh_params(torch, cfg))
+            ckpt.save = timed_save
+            try:
+                train(first, iter(batches[:3]), LoopConfig(
+                    total_steps=3, ckpt_every=3, ckpt_dir=tmp, log_every=0,
+                    async_ckpt=True))
+            finally:
+                ckpt.save = save
+            joined = time.perf_counter()
+            (t_call, t_snap, is_async), = calls
+            blob = Path(tmp) / "step_3" / "state.msgpack.zst"
+            nbytes = blob.stat().st_size
+            resumed = _hift_runner(cfg, fresh_params(torch, cfg, seed=1))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tree = ckpt.restore(tmp, 3)
+            decoded = time.perf_counter()
+            resumed.load_state_dict(tree)
+            torch.cuda.synchronize()
+            placed = time.perf_counter()
+            del tree
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        restored = _states_equal(torch, flatten_with_paths(first.state_dict()),
+                                 flatten_with_paths(resumed.state_dict()))
+        n_leaves = len(flatten_with_paths(first.state_dict()))
+        del first
+        got_group = resumed.group_for_step().label()
+        for b in batches[3:]:
+            resumed.train_step(b)
+        torch.cuda.synchronize()
+        launches = timer.launches()
+    a = flatten_with_paths(straight.params)
+    b = flatten_with_paths(resumed.params)
+    unequal = [p for p in a if not torch.equal(a[p], b[p])]
+    gap = max(float((a[p] - b[p]).abs().max()) for p in a)
+    emit("train_checkpoint", arch=cfg.name, dtype="float32", batch=4,
+         seq=512, steps=6, saved_at=3, async_write=is_async,
+         checkpoint_bytes=nbytes, state_leaves=n_leaves,
+         save_snapshot_s=t_snap - t_call, save_s=joined - t_call,
+         restore_decode_s=decoded - t0, restore_s=placed - t0,
+         restored_leaves_unequal=restored, next_group=got_group,
+         want_group=want_group, unequal_param_leaves=len(unequal),
+         max_param_gap=gap, bound=CKPT_BOUND, launches=launches)
+    if restored or got_group != want_group or not is_async:
+        raise RuntimeError(f"the checkpoint did not restore the state: "
+                           f"leaves {restored[:5]}, next group {got_group} "
+                           f"(want {want_group})")
+    if gap > CKPT_BOUND:
+        raise RuntimeError(f"the resumed run left the straight one by {gap}")
+    del straight, resumed
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 # ------------------------------------------------------------ phases 9-12
@@ -1355,6 +1717,8 @@ def phase_train_quant_full(torch):
             gc.collect()
             torch.cuda.empty_cache()
             resident = quant_bytes(runner.params)
+            model_gib = analytic(cfg, "hift", policy, frozen=fmt,
+                                 moments="bf16").pgs_gb
             for i in range(n):
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
@@ -1372,7 +1736,7 @@ def phase_train_quant_full(torch):
                     group=label, kind=_group_kind(label), loss=loss,
                     host_ms=host_ms, peak_memory_bytes=peak,
                     peak_memory_gib=peak / 2**30,
-                    analytic_pgs_gib=ANALYTIC_PGS_GIB_QUANT[key],
+                    analytic_pgs_gib=model_gib,
                     resident_bytes=resident, encode_s=encode_s,
                     dequant_kernel_ms=sum(a.elapsed_time(b)
                                           for a, b in events),
@@ -1397,7 +1761,9 @@ def phase_train_quant_full(torch):
          batch=4, seq=512, remat=cfg.remat, launches=launches,
          peaks_vs_model=[dict(policy=k[2], quant=f"{k[3]}/{k[4]}",
                               peak_memory_gib=v / 2**30,
-                              analytic_pgs_gib=ANALYTIC_PGS_GIB_QUANT[k])
+                              analytic_pgs_gib=analytic(
+                                  cfg, "hift", k[2], frozen=k[3],
+                                  moments=k[4]).pgs_gb)
                          for k, v in peaks.items()])
     if 0 in (launches["dequant_matmul"], launches["dequant_matmul_bf16"],
              launches["fused_adamw"]):
@@ -1874,6 +2240,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    start = time.perf_counter()
     from repro_torch.kernels import build
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1913,6 +2280,14 @@ def main() -> int:
     launches.update(phase_train_full(torch))
     phase_train_mixed_hi(torch)
     phase_train_4_layers(torch)
+    # the paper's experiment matrix: its other models, optimizers, the
+    # balanced schedule, FPFT against HiFT at full depth, checkpoint/resume;
+    # each runs the fused updates
+    for phase in (phase_train_paper_configs, phase_train_optimizer_matrix,
+                  phase_train_fpft_vs_hift_full, phase_train_balanced,
+                  phase_train_checkpoint):
+        for name, n in phase(torch).items():
+            launches[name] += n
     rows.update(phase_dequant_kernel(torch))
     phase_quant_codes(torch)
     phase_train_quant_card_vs_cpu(torch)
@@ -1927,6 +2302,7 @@ def main() -> int:
     for dtype, max_new in (("bfloat16", 32), ("float32", 8)):
         for name, n in phase_hybrid_full(torch, dtype, max_new).items():
             launches[name] = launches.get(name, 0) + n
+    emit("done", seconds=time.perf_counter() - start)
 
     kernels = []
     for name, row in rows.items():

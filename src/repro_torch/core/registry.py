@@ -109,7 +109,9 @@ def make_runner(cfg, strategy: str = "hift", *, params: Any = None,
             if optimizer not in FUSED_OPTIMIZERS:
                 raise ValueError(
                     "quant.moments applies to the moment-carrying "
-                    f"optimizers {FUSED_OPTIMIZERS}, not {optimizer!r}")
+                    f"optimizers {FUSED_OPTIMIZERS}, not {optimizer!r} "
+                    "(sgd keeps no moments; adafactor's factored stats "
+                    "are already sub-fp32-sized)")
             okw["moment_dtype"] = quant.moment_dtype
         optimizer = make_optimizer(optimizer, **okw)
     elif fused_update:

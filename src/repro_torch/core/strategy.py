@@ -249,6 +249,7 @@ class Strategy:
 
     name = "base"
     k = 1   # steps per LR cycle (HiFT: number of groups; others: 1)
+    offload_optimizer = False   # optimizer state on the host between steps
     # what QuantConfig may ask of a strategy: a frozen resident tree to
     # encode (grouped strategies), a moment tree to narrow
     supports_quant_frozen = False
@@ -296,6 +297,29 @@ class Strategy:
 
     def _place(self, params: PyTree) -> PyTree:
         return tree_map(lambda t: t.to(self.device), params)
+
+    def place_state(self, state: TrainState) -> TrainState:
+        """A restored state (``train.checkpoint.restore``, or another
+        runner's ``to_tree``) with each leaf where this strategy keeps it:
+        params on the device in their stored dtype (codec records as
+        records); floating optimizer leaves on the device, or in pinned
+        host memory where bundles are offloaded on the card; step counts
+        as CPU int64; HiFT's ``extra["order"]`` as an int64 numpy
+        array."""
+        pinned = self.offload_optimizer and self.device.type == "cuda"
+
+        def opt_leaf(t):
+            if not t.is_floating_point():
+                return t.to(torch.int64)
+            return t.pin_memory() if pinned else t.to(self.device)
+
+        extra = dict(state.extra or {})
+        if "order" in extra:
+            extra["order"] = np.asarray(extra["order"], np.int64)
+        return TrainState(
+            params=tree_map(lambda t: t.to(self.device), state.params),
+            opt_state=tree_map(opt_leaf, state.opt_state),
+            step=int(state.step), extra=extra)
 
     def peak_trainable_params(self, params: PyTree) -> int:
         """Max #params trainable in any single step (paper Fig. 6e)."""
@@ -540,7 +564,10 @@ class Runner:
         return self.state.to_tree()
 
     def load_state_dict(self, state: dict) -> None:
-        self.state = TrainState.from_tree(state)
+        """Resume from a ``state_dict`` (a runner's, or a checkpoint's of
+        either package), placed as the strategy keeps its state
+        (:meth:`Strategy.place_state`)."""
+        self.state = self.strategy.place_state(TrainState.from_tree(state))
 
     def __getattr__(self, name: str):
         # delegate static attributes (groups, order, units, cfg, hift, ...)

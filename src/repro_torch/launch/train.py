@@ -3,13 +3,15 @@
 
     python -m repro_torch.launch.train --arch llama2-7b --smoke --steps 8
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama2-7b \\
-        --smoke --steps 8 --device cpu
+        --smoke --steps 8 --device cpu [--ckpt-dir DIR --resume auto]
 
 The reference's flags for the ported surface, plus ``--device`` (default
 ``cuda``; without a card it raises unless ``--device cpu``).  Weights are
 random from ``--seed``; batches come from the synthetic Markov LM with the
 same seed; the LR follows the reference's cosine schedule.  Prints the
 reference's ``step``/``loss``/``lr`` lines and ``done: final loss``.
+With ``--ckpt-dir`` it checkpoints every ``steps // 2`` steps and at the
+end; ``--resume auto`` restores the newest complete checkpoint there.
 """
 from __future__ import annotations
 
@@ -51,6 +53,8 @@ def main(argv=None):
     ap.add_argument("--policy", default="fp32",
                     choices=["fp32", "mixed", "mixed_hi", "bf16"])
     ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--resume", default="none", choices=["none", "auto"])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (hand-written kernels) or cpu (plain versions)")
@@ -80,7 +84,9 @@ def main(argv=None):
         vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch,
         seed=args.seed), device=device))
     out = train(runner, data, LoopConfig(
-        total_steps=args.steps, log_every=max(args.steps // 10, 1)))
+        total_steps=args.steps, ckpt_every=max(args.steps // 2, 1),
+        ckpt_dir=args.ckpt_dir, log_every=max(args.steps // 10, 1),
+        resume=args.resume))
     print(f"done: final loss {out['losses'][-1]:.4f}")
     return out
 

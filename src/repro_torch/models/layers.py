@@ -213,18 +213,29 @@ def _q_block_attention(q_block, k, v, qi: int, block_q: int, block_k: int,
 def chunked_causal_attention(q, k, v, block_q: int = 512, block_k: int = 512,
                              balanced: bool = False):
     """Flash-style online-softmax causal attention in plain torch (the
-    reference's default training attention, its ``balanced=False``
-    schedule).  q/k/v: (B, S, H, hd), kv heads already repeated.
+    reference's default training attention).  q/k/v: (B, S, H, hd), kv
+    heads already repeated.
 
     Each query block runs under ``torch.utils.checkpoint``, so its block
     score matrices are recomputed in the backward instead of saved — the
-    reference's ``jax.checkpoint`` around ``per_q``."""
-    if balanced:
-        raise NotImplementedError(
-            "chunked_causal_attention(balanced=True) is not ported yet")
+    reference's ``jax.checkpoint`` around ``per_q``.
+
+    ``balanced=True`` is the reference's causal load-balancing schedule,
+    which needs as many q blocks as kv blocks.  The reference pairs q
+    blocks ``(i, n-1-i)`` so that a fixed-length ``lax.scan`` of ``n+1``
+    steps does no fully masked block product; each block of a pair still
+    sums kv blocks ``0..i`` in order.  This loop already stops at the
+    diagonal for every q block, in that order, so eager torch needs no
+    pairing: both schedules run the same per-block loop here.  (At an odd
+    block count the reference's stitching hands each block above the
+    middle the output of the block below it; this computes the
+    attention.)"""
     b, s, h, hd = q.shape
     nq = max(1, s // block_q)
     nk = max(1, s // block_k)
+    if balanced and nq != nk:
+        raise ValueError("the balanced schedule expects equal q/kv block "
+                         f"counts, got {nq} and {nk}")
     block_q = s // nq
     block_k = s // nk
     scale = 1.0 / math.sqrt(hd)

@@ -1,5 +1,6 @@
-"""Optimizer registry (port of ``repro.optim``): AdamW, SGD, SGD-momentum
-and AdaGrad; Adafactor is not ported yet."""
+"""Optimizer registry (port of ``repro.optim``; paper §C: AdamW, SGDM,
+SGD, Adafactor, Adagrad)."""
+from repro_torch.optim.adafactor import adafactor
 from repro_torch.optim.adagrad import adagrad
 from repro_torch.optim.adamw import adamw
 from repro_torch.optim.base import (Optimizer, OptimizerConfig,
@@ -12,12 +13,11 @@ _FACTORIES = {
     "sgd": sgd,
     "sgdm": sgdm,
     "adagrad": adagrad,
+    "adafactor": adafactor,
 }
 
 
 def make_optimizer(name: str, **kwargs) -> Optimizer:
-    if name == "adafactor":
-        raise NotImplementedError("optimizer 'adafactor' is not ported yet")
     if name not in _FACTORIES:
         raise ValueError(f"unknown optimizer {name!r}; have "
                          f"{sorted(_FACTORIES)}")
@@ -25,6 +25,7 @@ def make_optimizer(name: str, **kwargs) -> Optimizer:
 
 
 __all__ = [
-    "adamw", "sgd", "sgdm", "adagrad", "make_optimizer", "Optimizer",
-    "OptimizerConfig", "clip_by_global_norm", "Policy", "get_policy",
+    "adamw", "sgd", "sgdm", "adagrad", "adafactor", "make_optimizer",
+    "Optimizer", "OptimizerConfig", "clip_by_global_norm", "Policy",
+    "get_policy",
 ]

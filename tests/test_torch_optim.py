@@ -245,7 +245,8 @@ def test_bias_correction_and_clip_match_jax():
 
 
 def test_unported_optimizer_raises():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        make_optimizer("adafactor")
+    # every optimizer of the paper is ported (Adafactor last); an unknown
+    # name still raises
+    assert make_optimizer("adafactor").name == "adafactor"
     with pytest.raises(ValueError, match="unknown optimizer"):
         make_optimizer("lion")

@@ -32,12 +32,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro.configs.registry import get_config as jax_get_config  # noqa: E402
 from repro.core import LRSchedule as JLRSchedule  # noqa: E402
 from repro.core import QuantConfig as JQuantConfig  # noqa: E402
 from repro.core import make_runner as jax_make_runner  # noqa: E402
-from repro.core.memory_model import analyze  # noqa: E402
-from repro.models import get_family as jax_get_family  # noqa: E402
 from repro.optim.mixed_precision import get_policy as jax_policy  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.core import (LRSchedule, QuantConfig,  # noqa: E402
@@ -226,24 +223,22 @@ def test_peak_trainable_params_counts_logical_elements():
 
 
 def test_chip_smoke_quantized_analytic_figures_are_the_memory_models():
-    """``chip_smoke.py`` prints the reference's analytic P+G+S beside the
-    quantized peaks; its constants, held to
+    """``chip_smoke.py`` prints the port's analytic P+G+S beside the
+    quantized peaks; at each (policy, codec) its quantized phase runs
+    (AdamW, bf16 moments, m=1), the figure equals the reference's
     ``repro.core.memory_model.analyze``."""
-    import importlib.util
-    from pathlib import Path
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
-    chip_smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(chip_smoke)
-    assert len(chip_smoke.ANALYTIC_PGS_GIB_QUANT) == 3
-    for (layers, mode, precision, frozen, moments), gib in \
-            chip_smoke.ANALYTIC_PGS_GIB_QUANT.items():
-        cfg = dataclasses.replace(jax_get_config("llama2-7b"),
-                                  n_layers=layers)
-        fam = jax_get_family(cfg)
-        shapes = jax.eval_shape(functools.partial(fam.init, cfg),
-                                jax.random.PRNGKey(0))
-        r = analyze(shapes, fam.unit_spec(cfg), optimizer="adamw",
-                    precision=precision, mode=mode, m=1,
-                    frozen_quant=frozen, moment_dtype=moments)
-        assert r.pgs_gb == pytest.approx(gib, rel=1e-12)
+    from repro_torch.configs.registry import get_config
+    from test_torch_training import _chip_smoke, _reference_analyze
+    chip_smoke = _chip_smoke()
+    cfg = get_config("llama2-7b")
+    points = [("fp32", "nf4", 5.430839538574219),
+              ("fp32", "int8", 8.568656921386719),
+              ("mixed_hi", "nf4", 5.4308319091796875)]
+    for precision, frozen, quoted in points:
+        got = chip_smoke.analytic(cfg, "hift", precision, frozen=frozen,
+                                  moments="bf16")
+        want = _reference_analyze("llama2-7b", mode="hift",
+                                  precision=precision, optimizer="adamw",
+                                  frozen_quant=frozen, moment_dtype="bf16")
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+        assert got.pgs_gb == quoted       # the figure PERF.md quotes

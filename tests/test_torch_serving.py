@@ -371,7 +371,8 @@ def test_launcher_serves_on_cpu(capsys):
 
 def test_port_imports_neither_jax_nor_repro():
     """Every module of the port, and chip_smoke.py, in a fresh
-    interpreter: no ``jax`` and no ``repro``/``repro.*`` module loads."""
+    interpreter: no ``jax``, no ``repro``/``repro.*`` and no
+    ``msgpack``/``zstandard`` module loads."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -379,7 +380,15 @@ def test_port_imports_neither_jax_nor_repro():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "new = ['repro_torch.models.zamba2', 'repro_torch.models.mamba2', "
-        "'repro_torch.kernels.ssm_scan', 'repro_torch.configs.zamba2_2_7b']\n"
+        "'repro_torch.kernels.ssm_scan', 'repro_torch.configs.zamba2_2_7b', "
+        "'repro_torch.configs.roberta_large', "
+        "'repro_torch.configs.gpt2_large', "
+        "'repro_torch.configs.gpt_neo_2_7b', "
+        "'repro_torch.optim.adafactor', 'repro_torch.core.memory_model', "
+        "'repro_torch.train.checkpoint']\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('msgpack', 'zstandard'))\n"
+        "assert not bad, bad\n"
         "assert all(m in sys.modules for m in new), new\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"

@@ -170,8 +170,9 @@ def test_loss_and_grads_match_jax(name, cut):
 
 
 def test_training_attention_matches_jax():
-    """Several query and kv blocks (the block-skipping schedule), the full
-    attention, and the options the port refuses."""
+    """Several query and kv blocks (the block-skipping schedule), the
+    balanced schedule (4 blocks), the full attention, and the option the
+    port refuses."""
     rng = np.random.default_rng(5)
     q, k, v = (rng.standard_normal((2, 64, 4, 16)).astype(np.float32)
                for _ in range(3))
@@ -184,8 +185,11 @@ def test_training_attention_matches_jax():
         TL.full_causal_attention(tq, tk, tv).numpy(),
         np.asarray(JL.full_causal_attention(*map(jnp.asarray, (q, k, v)))),
         **TOL)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    np.testing.assert_allclose(
         TL.chunked_causal_attention(tq, tk, tv, 16, 16, balanced=True)
+        .numpy(), np.asarray(JL.chunked_causal_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), 16, 16,
+            balanced=True)), **TOL)
     _, cfg = _cfgs("llama2-7b")
     cfg = dataclasses.replace(cfg, attention_impl="pallas")
     params = bridge.to_torch(_np_params("llama2-7b"))
@@ -263,22 +267,59 @@ def test_train_then_serve():
     assert a == b and all(len(t) == 5 for t in a)
 
 
-def test_chip_smoke_analytic_figures_are_the_memory_models():
-    """``chip_smoke.py`` prints the reference's analytic P+G+S beside the
-    measured peaks; it imports no JAX, so its figures are constants, held
-    here to ``repro.core.memory_model.analyze``."""
+def _chip_smoke():
     import importlib.util
     from pathlib import Path
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
     chip_smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(chip_smoke)
-    for (layers, mode, precision), gib in chip_smoke.ANALYTIC_PGS_GIB.items():
-        cfg = dataclasses.replace(jax_get_config("llama2-7b"),
-                                  n_layers=layers)
-        fam = jax_get_family(cfg)
-        shapes = jax.eval_shape(functools.partial(fam.init, cfg),
-                                jax.random.PRNGKey(0))
-        r = analyze(shapes, fam.unit_spec(cfg), optimizer="adamw",
-                    precision=precision, mode=mode, m=1)
-        assert r.pgs_gb == pytest.approx(gib, rel=1e-12)
+    return chip_smoke
+
+
+def _reference_analyze(arch, n_layers=None, **kw):
+    """``repro.core.memory_model.analyze`` of the reference's config (m=1)."""
+    cfg = jax_get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    fam = jax_get_family(cfg)
+    shapes = jax.eval_shape(functools.partial(fam.init, cfg),
+                            jax.random.PRNGKey(0))
+    return analyze(shapes, fam.unit_spec(cfg), m=1, **kw)
+
+
+# (arch, n_layers, mode, precision, optimizer) that chip_smoke.py's
+# unquantized training phases price
+CHIP_SMOKE_POINTS = (
+    [("llama2-7b", None, "hift", "fp32", "adamw"),
+     ("llama2-7b", None, "hift", "mixed_hi", "adamw"),
+     ("llama2-7b", 4, "hift", "fp32", "adamw"),
+     ("llama2-7b", 4, "fpft", "fp32", "adamw"),
+     ("gpt-neo-2.7b", None, "fpft", "fp32", "adamw")]
+    + [(a, None, "hift", "fp32", "adamw")
+       for a in ("roberta-large", "gpt2-large", "gpt-neo-2.7b")]
+    + [("gpt2-large", None, "hift", "fp32", o)
+       for o in ("sgdm", "sgd", "adagrad", "adafactor")])
+
+
+def test_chip_smoke_analytic_figures_are_the_memory_models():
+    """``chip_smoke.py`` prints the port's analytic P+G+S
+    (``repro_torch.core.memory_model``) beside the measured peaks; at every
+    point its training phases price, the figures equal the reference's
+    ``repro.core.memory_model.analyze``."""
+    chip_smoke = _chip_smoke()
+    assert not [k for k in vars(chip_smoke) if k.startswith("ANALYTIC")]
+    for arch, layers, mode, precision, opt in CHIP_SMOKE_POINTS:
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        got = chip_smoke.analytic(cfg, mode, precision, optimizer=opt)
+        want = _reference_analyze(arch, layers, mode=mode,
+                                  precision=precision, optimizer=opt)
+        assert dataclasses.asdict(got) == dataclasses.asdict(want), \
+            (arch, layers, mode, precision, opt)
+    # the figures PERF.md quotes
+    llama = get_config("llama2-7b")
+    assert chip_smoke.analytic(llama).pgs_gb == 27.364364624023438
+    assert chip_smoke.analytic(
+        llama, precision="mixed_hi").pgs_gb == 15.567024230957031
