@@ -61,6 +61,17 @@ Phases, one JSON line each:
    e. checkpoint and resume of roberta-large at full size through the
       training loop's async save: the resumed run equal to a straight one,
       with the checkpoint's bytes and save and restore seconds;
+   f. the bundle pipeline on side streams (``train_pipelined``): 4
+      layers of llama2-7b at full width, fp32, AdamW (fused), 4 x 512 —
+      serial ``hift`` against ``hift_pipelined`` at depths 2 and 3, and
+      ``lisa`` against pipelined ``lisa``, bit-equal at every step of two
+      sweeps and one; each mode's second-sweep step times, peak beside the
+      analytic figure at its depth, and for serial and depth 2 a profile
+      of the copies' device time and its overlap with kernels;
+   g. ``fpft_streamed`` (``train_streamed``): gpt-neo-2.7b at full depth,
+      one ``fpft`` and one ``fpft_streamed`` step (64 MiB chunks, depth
+      3), bit-equal, peaks, pinned bytes, chunks, the update's share;
+      then two streamed steps of llama2-7b at full depth;
 9. the dequant-matmul kernel against its plain version at llama2-7b's
    shapes (M = 4 x 512; the three projection shapes of a stacked layer,
    scale tile rows 8; the head, tile rows 1; one ragged case), int8 and
@@ -158,15 +169,21 @@ SOURCES = {
 
 
 def analytic(cfg, mode: str = "hift", precision: str = "fp32",
-             optimizer: str = "adamw", frozen=None, moments: str = "fp32"):
+             optimizer: str = "adamw", frozen=None, moments: str = "fp32",
+             stream_depth: int = 2, stream_chunk_bytes: int = 1 << 20):
     """The port's Appendix-B model of ``cfg`` (``core.memory_model.analyze``
     on its meta-device shapes, m=1): a ``MemoryReport`` whose ``pgs_gb``
-    is the analytic P+G+S in GiB, a model, not a measurement."""
+    is the analytic P+G+S in GiB, a model, not a measurement.
+    ``stream_depth``: the bundles of ``hift_pipelined`` or the chunks of
+    ``fpft_streamed`` on the device; ``stream_chunk_bytes``: the latter's
+    chunk size."""
     from repro_torch.core.memory_model import analyze, param_shapes
     from repro_torch.models import get_family
     return analyze(param_shapes(cfg), get_family(cfg).unit_spec(cfg),
                    optimizer=optimizer, precision=precision, mode=mode, m=1,
-                   frozen_quant=frozen, moment_dtype=moments)
+                   frozen_quant=frozen, moment_dtype=moments,
+                   stream_depth=stream_depth,
+                   stream_chunk_bytes=stream_chunk_bytes)
 
 
 # The dequant-matmul kernel against its plain version (decode, then one
@@ -1477,6 +1494,399 @@ def phase_train_checkpoint(torch):
     return launches
 
 
+# ------------------------------------------------------------ phases 8f-8g
+
+# fpft_streamed's window on the card: 64 MiB chunks, 3 on the device (the
+# reference's default 1 MiB would be ~10,000 chunks a gpt-neo-2.7b step,
+# each ~10 eager launches)
+STREAM_WINDOW, STREAM_DEPTH = 64 << 20, 3
+
+
+def _host_trees_unequal(torch, a, b) -> list:
+    """Paths at which two trees (host or device leaves) differ in dtype,
+    shape or any bit, each pair of leaves compared on the card."""
+    from repro_torch.common.pytree import flatten_with_paths
+    fa, fb = flatten_with_paths(a), flatten_with_paths(b)
+    bad = []
+    for path in sorted(fa.keys() | fb.keys()):
+        x, y = fa.get(path), fb.get(path)
+        if (x is None or y is None or x.dtype != y.dtype
+                or x.shape != y.shape
+                or not torch.equal(x.to("cuda"), y.to("cuda"))):
+            bad.append(path)
+    return bad
+
+
+def _pipeline_runner(torch, cfg, strategy, **kw):
+    from repro_torch.core import LRSchedule, make_runner
+    return make_runner(cfg, strategy, params=fresh_params(torch, cfg),
+                       optimizer="adamw", fused_update=True,
+                       schedule=LRSchedule(base_lr=1e-5), device="cuda",
+                       **kw)
+
+
+def _lockstep(torch, cfg, batches, modes: dict) -> dict:
+    """One runner per mode (``make_runner`` keywords; the first is the
+    serial reference), each from the same seeded params, stepped in turn
+    through ``batches``.  After every step: the loss, every param (on the
+    card) and the stepped group's bundle (host, compared on the card) equal
+    the reference's to the bit; after the last, every leaf of the state.
+    A step changes no other leaf, so every leaf is held at every step.
+    Returns each pipelined mode's counters."""
+    from repro_torch.common.pytree import flatten_with_paths
+    runners = {name: _pipeline_runner(torch, cfg, **kw)
+               for name, kw in modes.items()}
+    (ref_name, ref), *others = runners.items()
+    for s, batch in enumerate(batches):
+        gi = str(ref.group_for_step().index)
+        losses = {name: float(r.train_step(batch))
+                  for name, r in runners.items()}
+        torch.cuda.synchronize()
+        for name, r in others:
+            bad = [p for p, x in flatten_with_paths(ref.params).items()
+                   if not torch.equal(x, flatten_with_paths(r.params)[p])]
+            bad += _host_trees_unequal(torch, ref.opt_state[gi],
+                                       r.opt_state[gi])
+            if losses[name] != losses[ref_name] or bad:
+                raise RuntimeError(f"{name} left {ref_name} at step {s}: "
+                                   f"losses {losses}, leaves {bad[:5]}")
+    stats = {}
+    for name, r in others:
+        bad = _host_trees_unequal(torch, ref.state_dict()["opt_state"],
+                                  r.state_dict()["opt_state"])
+        if bad or r.state.step != ref.state.step:
+            raise RuntimeError(f"{name}: final state differs at {bad[:5]}")
+        stats[name] = dict(r.strategy.pipeline_stats.__dict__,
+                           depth=r.strategy._pipeline.depth)
+    del runners, ref, others
+    return stats
+
+
+def transfer_profile(torch, runner, batches) -> dict:
+    """``torch.profiler`` over ``len(batches)`` steps (each ending in the
+    loss read, a synchronise at the end): per step, the device time of the
+    host-to-device and device-to-host copies (the trace's ``gpu_memcpy``
+    events), the part of it during which some kernel ran (overlap with the
+    union of ``kernel`` events), the kernels' busy time and the host
+    clock."""
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches:
+            float(runner.train_step(b))
+        torch.cuda.synchronize()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.remove(path)
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") == "kernel")
+    union = []
+    for a, b in spans:
+        if union and a <= union[-1][1]:
+            union[-1][1] = max(union[-1][1], b)
+        else:
+            union.append([a, b])
+    n = len(batches)
+    out = dict(steps=n, host_ms=host_ms / n,
+               kernel_busy_ms=sum(b - a for a, b in union) / 1e3 / n)
+    for kind in ("HtoD", "DtoH"):
+        copies = [e for e in events if e.get("cat") == "gpu_memcpy"
+                  and kind in e.get("name", "")]
+        dur = sum(e["dur"] for e in copies)
+        over = sum(max(0.0, min(e["ts"] + e["dur"], b) - max(e["ts"], a))
+                   for e in copies for a, b in union
+                   if a < e["ts"] + e["dur"] and b > e["ts"])
+        out[kind] = dict(copies=len(copies) / n,
+                         bytes=sum(e.get("args", {}).get("bytes", 0)
+                                   for e in copies) / n,
+                         ms=dur / 1e3 / n, overlapped_ms=over / 1e3 / n,
+                         exposed_ms=(dur - over) / 1e3 / n)
+    return out
+
+
+def _sweep_timing(torch, cfg, batches, strategy, timer, profile=False,
+                  **kw) -> dict:
+    """A fresh runner: sweep 1 (k steps), then sweep 2 timed — each step's
+    host clock to its loss read, as the training loop reads it, and the
+    sweep's to one synchronise after its last step — with the peak
+    memory over it above what was allocated (and what the caching
+    allocator held) before the params, then one
+    more step; then, with ``profile``, two more steps under the profiler
+    (``transfer_profile``)."""
+    from repro_torch.common.pytree import flatten_with_paths
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    base_reserved = torch.cuda.memory_reserved()
+    runner = _pipeline_runner(torch, cfg, strategy, **kw)
+    k = runner.k
+    for b in batches[:k]:
+        float(runner.train_step(b))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timer.take()
+    step_ms = []
+    t0 = time.perf_counter()
+    for b in batches[k:2 * k]:
+        t1 = time.perf_counter()
+        float(runner.train_step(b))
+        step_ms.append(1e3 * (time.perf_counter() - t1))
+    torch.cuda.synchronize()
+    sweep_ms = 1e3 * (time.perf_counter() - t0)
+    update_ms, launches = timer.take()
+    peak = torch.cuda.max_memory_allocated() - base
+    reserved = torch.cuda.max_memory_reserved() - base_reserved
+    float(runner.train_step(batches[2 * k]))
+    bundle = flatten_with_paths(runner.opt_state["1"])   # layer 0's
+    row = dict(strategy=strategy, k=k, second_sweep_step_ms=step_ms,
+               second_sweep_ms=sweep_ms, step_ms_mean=sweep_ms / k,
+               update_kernel_ms=update_ms, update_launches=launches,
+               peak_memory_bytes=peak, peak_memory_gib=peak / 2**30,
+               peak_reserved_gib=reserved / 2**30,
+               layer_bundle_bytes=sum(t.numel() * t.element_size()
+                                      for t in bundle.values()
+                                      if t.is_floating_point()),
+               pipeline_depth=kw.get("pipeline_depth"))
+    if "lisa" in kw:
+        row["switch_every"] = kw["lisa"].switch_every
+    stats = runner.strategy.pipeline_stats
+    if stats is not None:
+        row["pipeline_stats"] = dict(stats.__dict__)
+        if stats.max_resident > runner.strategy._pipeline.depth:
+            raise RuntimeError(f"{strategy}: {stats.max_resident} bundles "
+                               "resident over the budget")
+    if profile:
+        row["profile"] = transfer_profile(torch, runner,
+                                          batches[2 * k + 1:2 * k + 3])
+    del runner
+    return row
+
+
+def phase_train_pipelined(torch):
+    """The bundle pipeline on the card: llama2-7b at full width and 4
+    layers (k = 6), fp32, HiFT m=1 with AdamW (fused), batch 4 x 512.
+
+    Lockstep (``_lockstep``), two sweeps and one step: serial ``hift``
+    against ``hift_pipelined`` at depth 2 and ``hift`` at depth 3; then
+    ``lisa`` serial against ``lisa`` pipelined (depth 2), re-sampled every
+    step — states bit-equal to the serial run's at every step, no prefetch
+    miss for HiFT, at most ``depth`` bundles resident.
+
+    Timing (``_sweep_timing``), each mode from fresh params: the second
+    sweep's per-step host ms, the peak beside
+    ``analytic(cfg, "hift_pipelined")`` at its depth (``hift`` beside
+    ``hift``), the bundle bytes, and for serial and depth 2 a profile of
+    two steps after the sweeps: the copies' device time and how much of it
+    ran beside kernels.  The fused updates' launches are counted over the
+    phase."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import LiSAConfig
+    cfg = dataclasses.replace(get_config("llama2-7b"), n_layers=4)
+    k = cfg.n_layers + 2
+    batches = train_batches(cfg, 512, 4, 2 * k + 3, "cuda")
+    lisa = LiSAConfig(m=1, switch_every=1, seed=0)
+    with UpdateTimer(torch) as timer:
+        t0 = time.perf_counter()
+        stats = _lockstep(torch, cfg, batches[:2 * k + 1], {
+            "hift": dict(strategy="hift"),
+            "hift_pipelined": dict(strategy="hift_pipelined"),
+            "hift_depth3": dict(strategy="hift", pipeline_depth=3)})
+        stats.update(_lockstep(torch, cfg, batches[:2 * k + 1], {
+            "lisa": dict(strategy="lisa", lisa=lisa),
+            "lisa_pipelined": dict(strategy="lisa", lisa=lisa,
+                                   pipeline_depth=2)}))
+        lockstep_s = time.perf_counter() - t0
+        for name, st in stats.items():
+            if st["max_resident"] > st["depth"] or (
+                    name.startswith("hift") and st["prefetch_misses"]):
+                raise RuntimeError(f"{name}: pipeline counters {st}")
+        rows = []
+        for strategy, kw, prof in (
+                ("hift", {}, True),
+                ("hift_pipelined", {}, True),
+                ("hift", dict(pipeline_depth=3), False),
+                ("lisa", dict(lisa=lisa), False),
+                ("lisa", dict(lisa=lisa, pipeline_depth=2), False)):
+            row = _sweep_timing(torch, cfg, batches, strategy, timer,
+                                profile=prof, **kw)
+            depth = kw.get("pipeline_depth",
+                           2 if strategy == "hift_pipelined" else 1)
+            model = analytic(cfg, "hift" if depth == 1 else "hift_pipelined",
+                             stream_depth=max(depth, 2))
+            row.update(_model_row(model), depth=depth)
+            emit("train_pipelined_timing", arch=cfg.name,
+                 n_layers=cfg.n_layers, **row)
+            rows.append(row)
+        launches = timer.launches()
+    serial, piped = rows[0], rows[1]
+    emit("train_pipelined", arch=cfg.name, n_layers=cfg.n_layers,
+         dtype="float32", batch=4, seq=512, optimizer="adamw", k=k,
+         lockstep_steps=2 * k + 1, bit_equal=True, lockstep_s=lockstep_s,
+         pipeline_stats=stats,
+         serial_step_ms=serial["step_ms_mean"],
+         pipelined_step_ms=piped["step_ms_mean"],
+         serial_copies=serial["profile"], pipelined_copies=piped["profile"],
+         layer_bundle_bytes=serial["layer_bundle_bytes"], launches=launches)
+    if launches["fused_adamw"] == 0:
+        raise RuntimeError("the pipelined steps ran no fused AdamW")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _timed_update(torch, strategy, attr: str, times: list) -> None:
+    """Wrap ``strategy``'s update call ``attr`` (``_streamed_update``, or
+    the optimizer's ``update``) in two synchronises and a host clock,
+    appending its ms to ``times``."""
+    if attr == "update":
+        opt = strategy.optimizer
+        inner = opt.update
+    else:
+        inner = getattr(strategy, attr)
+
+    def timed(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(*args)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    if attr == "update":
+        strategy.optimizer = opt._replace(update=timed)
+    else:
+        setattr(strategy, attr, timed)
+
+
+def _streamed_row(torch, runner) -> dict:
+    from repro_torch.common.pytree import flatten_with_paths
+    from repro_torch.core.pipeline import ChunkLayout
+    s = runner.strategy
+    streamed, _ = s._split_state(runner.opt_state, runner.params)
+    pinned = [t for tree in streamed.values()
+              for t in flatten_with_paths(tree).values()]
+    if not all(t.is_pinned() for t in pinned):
+        raise RuntimeError("fpft_streamed moments are not in pinned memory")
+    return dict(stream_window=s.stream.chunk_bytes, depth=s.stream.depth,
+                chunks=ChunkLayout.build(runner.params,
+                                         s.stream.chunk_bytes).num_chunks,
+                pinned_host_bytes=sum(t.numel() * t.element_size()
+                                      for t in pinned),
+                stream_stats=dict(s.stream_stats.__dict__))
+
+
+def phase_train_streamed(torch):
+    """``fpft_streamed`` on the card.  gpt-neo-2.7b at full depth, fp32,
+    AdamW, batch 4 x 512: one ``fpft`` step (the fused kernel: the plain
+    update on whole leaves needs ~25 GiB of temporaries and does not fit
+    beside P+G+S) and one ``fpft_streamed`` step (64 MiB chunks, depth 3;
+    the plain elementwise update, as the reference's) from the same
+    params.  The kernel rounds as the plain version does (0 ulps, the
+    update-kernel phase), so loss, every param and every moment are
+    expected bit-equal and held so — with each peak above
+    what was allocated before its params, beside the analytic figures, the
+    pinned host bytes, the chunks, the stream's counters and the update's
+    share of the step (the update between two synchronises).  Then
+    llama2-7b at full depth, whose resident FPFT needs 100.4 GiB: two
+    ``fpft_streamed`` steps, the moments (50.2 GiB) in one pinned
+    buffer."""
+    from repro_torch.common.pytree import flatten_with_paths
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import LRSchedule, make_runner
+
+    def runner_of(cfg, strategy, **kw):
+        return make_runner(cfg, strategy, params=fresh_params(torch, cfg),
+                           optimizer="adamw",
+                           fused_update=strategy == "fpft",
+                           schedule=LRSchedule(base_lr=1e-5), device="cuda",
+                           **kw)
+
+    window = dict(stream_window=STREAM_WINDOW, pipeline_depth=STREAM_DEPTH)
+    cfg = get_config("gpt-neo-2.7b")
+    batch = train_batches(cfg, 512, 4, 1, "cuda")[0]
+    out = {}
+    with UpdateTimer(torch) as timer:
+        for mode in ("fpft", "fpft_streamed"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            runner = runner_of(cfg, mode,
+                               **(window if mode == "fpft_streamed" else {}))
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            upd = []
+            _timed_update(torch, runner.strategy, "update" if mode == "fpft"
+                          else "_streamed_update", upd)
+            row = measured_step(torch, runner, batch, timer)
+            row.update(peak_memory_gib=(row["peak_memory_bytes"] - base)
+                       / 2**30, init_s=init_s, update_ms=upd[0],
+                       update_share=upd[0] / row["host_ms"],
+                       **_model_row(analytic(
+                           cfg, mode, stream_depth=STREAM_DEPTH,
+                           stream_chunk_bytes=STREAM_WINDOW)))
+            if mode == "fpft_streamed":
+                row.update(_streamed_row(torch, runner))
+            emit("train_streamed_step", arch=cfg.name, mode=mode, **row)
+            out[mode] = (row, runner)
+            del runner
+        (f, fr), (s, sr) = out["fpft"], out["fpft_streamed"]
+        bad = [p for p, x in flatten_with_paths(fr.params).items()
+               if not torch.equal(x, flatten_with_paths(sr.params)[p])]
+        bad += _host_trees_unequal(torch, fr.opt_state, sr.opt_state)
+        if f["loss"] != s["loss"] or bad:
+            raise RuntimeError(f"fpft_streamed left fpft: losses "
+                               f"{f['loss']} {s['loss']}, leaves {bad[:5]}")
+        emit("train_streamed", arch=cfg.name, n_layers=cfg.n_layers,
+             dtype="float32", batch=4, seq=512, optimizer="adamw",
+             bit_equal=True, fpft_peak_gib=f["peak_memory_gib"],
+             streamed_peak_gib=s["peak_memory_gib"],
+             fpft_analytic_gib=f["analytic_pgs_gib"],
+             streamed_analytic_gib=s["analytic_pgs_gib"],
+             fpft_ms=f["host_ms"], streamed_ms=s["host_ms"],
+             fpft_update_ms=f["update_ms"], streamed_update_ms=s["update_ms"],
+             pinned_host_bytes=s["pinned_host_bytes"], chunks=s["chunks"],
+             stream_stats=s["stream_stats"])
+        del out, fr, sr
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch._C._host_emptyCache()      # the cached pinned blocks go back
+        cfg = get_config("llama2-7b")
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        runner = runner_of(cfg, "fpft_streamed", **window)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        upd, steps = [], []
+        _timed_update(torch, runner.strategy, "_streamed_update", upd)
+        for b in train_batches(cfg, 512, 4, 2, "cuda"):
+            steps.append(measured_step(torch, runner, b, timer))
+            steps[-1].update(update_ms=upd[-1],
+                             peak_memory_gib=(steps[-1]["peak_memory_bytes"]
+                                              - base) / 2**30)
+        emit("train_streamed_llama", arch=cfg.name, n_layers=cfg.n_layers,
+             dtype="float32", batch=4, seq=512, init_s=init_s, steps=steps,
+             fpft_analytic_gib=analytic(cfg, "fpft").pgs_gb,
+             **_model_row(analytic(cfg, "fpft_streamed",
+                                   stream_depth=STREAM_DEPTH,
+                                   stream_chunk_bytes=STREAM_WINDOW)),
+             **_streamed_row(torch, runner))
+        del runner
+        launches = timer.launches()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch._C._host_emptyCache()
+    return launches
+
+
 # ------------------------------------------------------------ phases 9-12
 
 def dequant_cases(cfg):
@@ -2283,9 +2693,12 @@ def main() -> int:
     # the paper's experiment matrix: its other models, optimizers, the
     # balanced schedule, FPFT against HiFT at full depth, checkpoint/resume;
     # each runs the fused updates
+    # then the pipelined and streamed strategies (side streams; the
+    # pipelined HiFT and LiSA steps run the fused AdamW)
     for phase in (phase_train_paper_configs, phase_train_optimizer_matrix,
                   phase_train_fpft_vs_hift_full, phase_train_balanced,
-                  phase_train_checkpoint):
+                  phase_train_checkpoint, phase_train_pipelined,
+                  phase_train_streamed):
         for name, n in phase(torch).items():
             launches[name] += n
     rows.update(phase_dequant_kernel(torch))

@@ -1,6 +1,7 @@
-"""HiFT core (port of ``repro.core``): grouping, the delayed LR schedule
-and the Strategy API for the ``hift`` and ``fpft`` strategies, with
-quantized resident state (``QuantConfig``)."""
+"""HiFT core (port of ``repro.core``): grouping, the delayed LR schedule,
+the bundle pipeline and chunk stream (``core.pipeline``), and the
+Strategy API for ``hift``, ``hift_pipelined``, ``lisa``, ``fpft`` and
+``fpft_streamed``, with quantized resident state (``QuantConfig``)."""
 from repro_torch.core.grouping import (Group, group_cut, make_groups,
                                        merge_params, order_groups,
                                        split_params)
@@ -9,5 +10,6 @@ from repro_torch.core.registry import (FUSED_OPTIMIZERS, make_runner,
                                        strategy_ids)
 from repro_torch.core.scheduler import LRSchedule
 from repro_torch.core.strategy import (FPFTStrategy, HiFTConfig,
-                                       HiFTStrategy, QuantConfig, Runner,
-                                       Strategy, TrainState, write_back)
+                                       HiFTStrategy, LiSAConfig, QuantConfig,
+                                       Runner, StreamConfig, Strategy,
+                                       TrainState, write_back)

@@ -7,8 +7,10 @@
     loss = runner.train_step(batch)
 
 It runs on the card (``device="cuda"``, raising when there is none)
-unless the caller passes ``device="cpu"``.  ``hift`` and ``fpft`` are the
-ported strategies; the others of the reference are not ported yet.
+unless the caller passes ``device="cpu"``.  ``hift``, ``hift_pipelined``,
+``lisa``, ``fpft`` and ``fpft_streamed`` are the ported strategies; the
+others of the reference (``mezo``, ``lomo``, ``adalomo``) are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -77,14 +79,21 @@ def make_runner(cfg, strategy: str = "hift", *, params: Any = None,
     with ``moment_dtype=bfloat16``, so it needs the optimizer given by name
     and one of the moment-carrying ``FUSED_OPTIMIZERS``.
 
-    ``pipeline_depth >= 2``, ``stream_window``, ``mesh``, ``cross_pod``
-    and the families other than dense (hybrid training among them) are
-    not ported yet and raise.  Remaining kwargs go to the strategy
-    (``schedule``, ``policy``, ``loss_fn``, ``hift=``)."""
+    ``pipeline_depth``: the bundle pipeline's depth for ``hift``,
+    ``hift_pipelined`` and ``lisa`` (>= 2 moves bundle transfers to side
+    streams), the chunk window's depth for ``fpft_streamed``.
+    ``stream_window``: ``fpft_streamed``'s chunk size in bytes
+    (``StreamConfig.chunk_bytes``).
+
+    ``mesh``, ``cross_pod`` and the families other than dense (hybrid
+    training among them) are not ported yet and raise.  Remaining kwargs
+    go to the strategy (``schedule``, ``policy``, ``loss_fn``, ``hift=``,
+    ``lisa=``, ``stream=``)."""
     import torch
 
     from repro_torch.common.device import resolve_device
-    from repro_torch.core.strategy import HiFTConfig, Runner
+    from repro_torch.core.strategy import (HiFTConfig, LiSAConfig, Runner,
+                                           StreamConfig)
     from repro_torch.models import get_family
     from repro_torch.optim import make_optimizer
 
@@ -92,9 +101,14 @@ def make_runner(cfg, strategy: str = "hift", *, params: Any = None,
         raise NotImplementedError(f"training of the {cfg.family!r} family is "
                                   "not ported yet (dense only)")
     device = resolve_device(device)
-    if kwargs.pop("stream_window", None) is not None:
-        raise NotImplementedError("stream_window (fpft_streamed) is not "
-                                  "ported yet")
+    stream_window = kwargs.pop("stream_window", None)
+    if stream_window is not None:
+        if strategy != "fpft_streamed":
+            raise ValueError("stream_window sizes fpft_streamed's chunk "
+                             f"window; it does not apply to {strategy!r}")
+        kwargs["stream"] = dataclasses.replace(
+            kwargs.get("stream") or StreamConfig(),
+            chunk_bytes=int(stream_window))
     quant = kwargs.pop("quant", None)
     grouped = strategy in ("hift", "hift_pipelined", "lisa")
     if isinstance(optimizer, str):
@@ -124,14 +138,27 @@ def make_runner(cfg, strategy: str = "hift", *, params: Any = None,
     if quant is not None:
         kwargs["quant"] = quant
     if pipeline_depth is not None:
-        if pipeline_depth >= 2:
-            raise NotImplementedError("the bundle pipeline (pipeline_depth "
-                                      ">= 2) is not ported yet")
-        if strategy != "hift":
+        if strategy == "hift_pipelined" and pipeline_depth < 2:
+            raise ValueError(
+                "hift_pipelined IS the pipelined schedule; an explicit "
+                f"pipeline_depth={pipeline_depth} would silently re-enable "
+                "it — use strategy 'hift' for the serial path")
+        if strategy in ("hift", "hift_pipelined"):
+            kwargs["hift"] = dataclasses.replace(
+                kwargs.get("hift") or HiFTConfig(),
+                pipeline_depth=pipeline_depth)
+        elif strategy == "lisa":
+            kwargs["lisa"] = dataclasses.replace(
+                kwargs.get("lisa") or LiSAConfig(),
+                pipeline_depth=pipeline_depth)
+        elif strategy == "fpft_streamed":
+            kwargs["stream"] = dataclasses.replace(
+                kwargs.get("stream") or StreamConfig(),
+                depth=pipeline_depth)
+        else:
             raise ValueError("pipeline_depth applies to the pipelined "
-                             f"strategies, not {strategy!r}")
-        kwargs["hift"] = dataclasses.replace(
-            kwargs.get("hift") or HiFTConfig(), pipeline_depth=pipeline_depth)
+                             "strategies (hift/lisa/fpft_streamed), not "
+                             f"{strategy!r}")
     if params is None:
         gen = torch.Generator(device=device).manual_seed(seed)
         params = get_family(cfg).init(cfg, gen, device=device)

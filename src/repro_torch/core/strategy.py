@@ -15,7 +15,20 @@ Ported strategies (registered in ``repro_torch.core.registry``):
 - ``hift``: the paper's Algorithm 1 — one group of m units per step in a
   fixed visit order, per-group optimizer bundles offloaded to pinned host
   memory between visits, Mixed^Hi fp32 masters for the active group only;
-- ``fpft``: the full-parameter baseline (all params every step).
+- ``hift_pipelined``: ``hift`` with the bundle pipeline on
+  (``core.pipeline``): the next group's bundle uploads on a side CUDA
+  stream while the current step computes, and the offload drains beside
+  the next step; bit-identical to ``hift``, at most ``pipeline_depth``
+  bundles on the device;
+- ``lisa``: LiSA-style layer sampling — the grouped machinery, with the
+  active group re-sampled every ``switch_every`` steps (numpy's
+  ``RandomState``, so it samples the reference's groups); pipelined too
+  under ``pipeline_depth >= 2``;
+- ``fpft``: the full-parameter baseline (all params every step);
+- ``fpft_streamed``: ``fpft`` with the optimizer moments in pinned host
+  memory, streamed chunk by chunk through a bounded device window during
+  the update (``core.pipeline.ChunkStream``); bit-identical to ``fpft``
+  with the same stream-safe optimizer.
 
 How a grouped step avoids the reference's full-tree copies on the card:
 the forward takes each layer from whichever tree holds it
@@ -35,9 +48,8 @@ after its update.  ``moments="bf16"`` (HiFT and FPFT) stores the optimizer
 moments in bf16.
 
 Not ported yet (they raise): ``mesh=``, ``cross_pod=``,
-``param_sharding_fn=``, the bundle pipeline (``pipeline_depth >= 2``) and
-the other strategies (``hift_pipelined``, ``lisa``, ``fpft_streamed``,
-``mezo``, ``lomo``, ``adalomo``).
+``param_sharding_fn=`` and the strategies ``mezo``, ``lomo`` and
+``adalomo``.
 """
 from __future__ import annotations
 
@@ -54,6 +66,10 @@ from repro_torch.common.pytree import (flatten_with_paths, tree_cast,
 from repro_torch.core.grouping import (Group, group_cut, make_groups,
                                        merge_params, order_groups,
                                        split_params)
+from repro_torch.core.pipeline import (BundlePipeline, ChunkLayout,
+                                       ChunkStream, PipelineStats,
+                                       SideStreams, device_put, host_put,
+                                       pinned_trees)
 from repro_torch.core.registry import register_strategy
 from repro_torch.core.scheduler import LRSchedule
 from repro_torch.dist.quant import (QUANT_FORMATS, dequantize_tree,
@@ -68,38 +84,10 @@ Metrics = dict
 
 
 # --------------------------------------------------------------- placement
-
-def host_put(tree: PyTree, into: Optional[PyTree] = None) -> PyTree:
-    """Move a bundle to host memory (the paper's MoveOptimizerState2CPU).
-
-    Each CUDA leaf is copied into a pinned CPU tensor with
-    ``non_blocking=True`` on the current stream — into ``into``'s pinned
-    leaf at the same path when it has the same shape and dtype (a revisited
-    group's host buffers are reused), else into a new one.  Any host read
-    of the result must synchronise first.  CPU leaves (the step count, and
-    everything when training on the CPU) pass through."""
-    old = flatten_with_paths(into) if into is not None else {}
-    out = {}
-    for path, t in flatten_with_paths(tree).items():
-        if t.device.type != "cuda":
-            out[path] = t
-            continue
-        dst = old.get(path)
-        if (dst is None or dst.device.type != "cpu" or not dst.is_pinned()
-                or dst.shape != t.shape or dst.dtype != t.dtype):
-            dst = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        dst.copy_(t, non_blocking=True)
-        out[path] = dst
-    return unflatten_from_paths(out)
-
-
-def device_put(tree: PyTree, device: torch.device) -> PyTree:
-    """Floating leaves to ``device`` (asynchronous from pinned memory);
-    integer leaves — optimizer step counts — stay on the host."""
-    if device.type == "cpu":
-        return tree
-    return tree_map(lambda t: t.to(device, non_blocking=True)
-                    if t.is_floating_point() else t, tree)
+#
+# host_put / device_put live in repro_torch.core.pipeline (with the
+# BundlePipeline that schedules them off the compute stream); re-exported
+# here, their earlier home.
 
 
 def write_back(params: PyTree, new_active: PyTree, group: Group) -> PyTree:
@@ -162,7 +150,44 @@ class HiFTConfig:
     seed: int = 0
     use_cut: bool = True              # detach below the active group
     offload_optimizer: bool = True    # keep inactive opt state on host
-    pipeline_depth: int = 1           # >= 2 (the bundle pipeline): not ported
+    pipeline_depth: int = 1           # max device-resident bundles; >= 2
+                                      # moves bundle transfers to side
+                                      # streams (core.pipeline) — bit-
+                                      # identical to the serial schedule
+
+
+@dataclasses.dataclass
+class LiSAConfig:
+    m: int = 1                        # units per sampled group
+    switch_every: int = 5             # steps between re-sampling the group
+    seed: int = 0
+    use_cut: bool = True
+    offload_optimizer: bool = True
+    pipeline_depth: int = 1           # as HiFTConfig: the sample is a pure
+                                      # function of (seed, step), so step+1's
+                                      # group can be prefetched too
+
+
+@dataclasses.dataclass
+class StreamConfig:
+    """Chunk-granular state streaming (``core.pipeline.ChunkStream``).
+
+    ``chunk_bytes`` is the byte budget of one stream chunk, measured in the
+    layout's base tree (the params; congruent trees of wider dtypes move
+    proportionally more bytes a chunk).  ``depth`` is the most chunks of
+    each streamed tree on the device: depth-1 chunks of lookahead upload
+    while the active chunk's update runs.  Consumed by ``fpft_streamed``."""
+    chunk_bytes: int = 1 << 20
+    depth: int = 2
+
+    def __post_init__(self):
+        if self.chunk_bytes <= 0:
+            raise ValueError(
+                f"stream chunk_bytes must be > 0, got {self.chunk_bytes}")
+        if self.depth < 2:
+            raise ValueError(
+                f"stream depth must be >= 2, got {self.depth}; the serial "
+                "(resident) path is plain 'fpft'")
 
 
 @dataclasses.dataclass
@@ -250,6 +275,13 @@ class Strategy:
     name = "base"
     k = 1   # steps per LR cycle (HiFT: number of groups; others: 1)
     offload_optimizer = False   # optimizer state on the host between steps
+    # how core.memory_model prices this strategy: analyze(mode=memory_mode,
+    # m=memory_m, stream_depth=memory_stream_depth,
+    # stream_chunk_bytes=memory_stream_chunk_bytes)
+    memory_mode = "fpft"
+    memory_m = 1
+    memory_stream_depth = 2
+    memory_stream_chunk_bytes = 1 << 20
     # what QuantConfig may ask of a strategy: a frozen resident tree to
     # encode (grouped strategies), a moment tree to narrow
     supports_quant_frozen = False
@@ -289,7 +321,8 @@ class Strategy:
     def step(self, state: TrainState, batch) -> tuple[TrainState, Metrics]:
         """Advance one training step: the next state and a metrics dict
         with at least ``{"loss", "lr", "strategy"}`` (``loss`` a 0-d
-        tensor on the device)."""
+        tensor on the device; a pipelined grouped step on the card
+        returns it already read to the host)."""
         raise NotImplementedError
 
     def lr_at(self, step: int) -> float:
@@ -305,8 +338,11 @@ class Strategy:
         records); floating optimizer leaves on the device, or in pinned
         host memory where bundles are offloaded on the card; step counts
         as CPU int64; HiFT's ``extra["order"]`` as an int64 numpy
-        array."""
+        array.  Synchronises the card first, so host buffers that another
+        runner's side streams still write are complete."""
         pinned = self.offload_optimizer and self.device.type == "cuda"
+        if torch.cuda.is_available() and torch.cuda.is_initialized():
+            torch.cuda.synchronize()
 
         def opt_leaf(t):
             if not t.is_floating_point():
@@ -334,6 +370,7 @@ class _GroupedStrategy(Strategy):
 
     use_cut = True
     offload_optimizer = True
+    memory_mode = "hift"
     supports_quant_frozen = True
     supports_quant_moments = True
 
@@ -345,6 +382,24 @@ class _GroupedStrategy(Strategy):
         self.units = self.model.unit_spec(self.cfg)
         self.groups = make_groups(self.units, m)
         self.k = len(self.groups)
+        self.memory_m = m
+        self._pipeline: Optional[BundlePipeline] = None
+
+    def _setup_pipeline(self, depth: int) -> None:
+        """Turn the bundle pipeline (``core.pipeline``) on when ``depth``
+        >= 2 and there is something to overlap (offloading on, more than
+        one group).  The memory accounting becomes mode ``hift_pipelined``
+        with a ``depth``-bundle device window."""
+        if depth <= 1 or not self.offload_optimizer or self.k <= 1:
+            return
+        self._pipeline = BundlePipeline(depth, device=self.device)
+        self.memory_mode = "hift_pipelined"
+        self.memory_stream_depth = depth
+
+    @property
+    def pipeline_stats(self) -> Optional[PipelineStats]:
+        """The bundle pipeline's counters, or None when serial."""
+        return self._pipeline.stats if self._pipeline is not None else None
 
     def _resident_params(self, params: PyTree) -> PyTree:
         """The policy-cast resident tree on the device: bf16 under Mixed^Hi
@@ -408,21 +463,48 @@ class _GroupedStrategy(Strategy):
         new_active, new_st = opt.update(grads, bundle["opt"], active, lr)
         return new_active, {"opt": new_st}, loss
 
-    def _group_step(self, state: TrainState, batch, gi: int, lr: float):
+    def _group_step(self, state: TrainState, batch, gi: int, lr: float,
+                    next_gis: Optional[list] = None):
         group = self.groups[gi]
         active, frozen = split_params(state.params, group)
         key = str(gi)
         stored = state.opt_state.get(key)
+        pipe = self._pipeline
         if stored is None:
             bundle = self._init_bundle(active)
-        elif self.offload_optimizer:
-            bundle = device_put(stored, self.device)
-        else:
+        elif not self.offload_optimizer:
             bundle = stored
+        elif pipe is not None:
+            # usually a hit on the copy prefetched during the previous step
+            bundle = pipe.fetch(key, stored)
+        else:
+            bundle = device_put(stored, self.device)
         new_active, new_bundle, loss = self._train_group(
             gi, active, frozen, bundle, _batch_to(batch, self.device), lr)
+        if pipe is not None and next_gis:
+            # the step above is enqueued, not done: start the coming
+            # groups' uploads now so they run beside its compute (depth-1
+            # visits ahead; the budget blocks or evicts past that).
+            # First visits have no bundle yet; a revisit of gi inside the
+            # window is skipped (its bundle is the one this step updates).
+            seen = {gi}
+            for ngi in next_gis:
+                if ngi in seen:
+                    continue
+                seen.add(ngi)
+                nbundle = state.opt_state.get(str(ngi))
+                if nbundle is not None and not pipe.holds(str(ngi), nbundle):
+                    pipe.prefetch(str(ngi), nbundle)
+        if pipe is not None and pipe.on_card:
+            # read the loss before the offload is enqueued: a read after it
+            # waits behind the bundle's device-to-host copies in the copy
+            # engine, holding the host — and the next step — until they
+            # drain (measured on the card: chip_smoke.py train_pipelined)
+            loss = loss.cpu()
         if self.offload_optimizer:
-            new_bundle = host_put(new_bundle, into=stored)
+            new_bundle = (pipe.offload(key, new_bundle, into=stored)
+                          if pipe is not None
+                          else host_put(new_bundle, into=stored))
         opt_state = dict(state.opt_state)
         opt_state[key] = new_bundle
         return write_back(state.params, new_active, group), opt_state, loss
@@ -451,12 +533,10 @@ class HiFTStrategy(_GroupedStrategy):
                  **kw):
         super().__init__(cfg, optimizer, **kw)
         self.hift = hift if hift is not None else HiFTConfig()
-        if self.hift.pipeline_depth >= 2:
-            raise NotImplementedError("the bundle pipeline (pipeline_depth "
-                                      ">= 2) is not ported yet")
         self.use_cut = self.hift.use_cut
         self.offload_optimizer = self.hift.offload_optimizer
         self._setup_groups(self.hift.m)
+        self._setup_pipeline(self.hift.pipeline_depth)
         self.order = order_groups(self.groups, self.hift.strategy,
                                   self.hift.seed)
 
@@ -478,9 +558,91 @@ class HiFTStrategy(_GroupedStrategy):
 
     def step(self, state: TrainState, batch) -> tuple[TrainState, Metrics]:
         step = int(state.step)
-        gi = self._order_at(state)[step % self.k]
+        order = self._order_at(state)
+        gi = order[step % self.k]
+        # the sweep order makes the next depth-1 groups knowable now: the
+        # pipeline prefetches them while this step computes
+        next_gis = ([order[(step + d) % self.k]
+                     for d in range(1, self._pipeline.depth)]
+                    if self._pipeline else None)
         lr = self.schedule.delayed(step, self.k)
-        params, opt_state, loss = self._group_step(state, batch, gi, lr)
+        params, opt_state, loss = self._group_step(state, batch, gi, lr,
+                                                   next_gis=next_gis)
+        new_state = TrainState(params, opt_state, step + 1, state.extra)
+        return new_state, {"loss": loss, "lr": lr, "strategy": self.name,
+                           "group": self.groups[gi].label()}
+
+
+@register_strategy("hift_pipelined")
+class PipelinedHiFTStrategy(HiFTStrategy):
+    """HiFT with the bundle pipeline on by default (``core.pipeline``):
+    group g+1's bundle uploads on a side stream while group g's step
+    computes, and g's offload drains beside g+1 — bit-identical states,
+    the transfers off the compute stream.  At most ``pipeline_depth``
+    (default 2) bundles are on the device (``memory_model`` mode
+    ``hift_pipelined``).  Checkpoints are interchangeable with plain
+    ``hift``: the pipeline is a transfer cache, not state."""
+
+    name = "hift_pipelined"
+
+    def __init__(self, cfg, optimizer, *, hift: Optional[HiFTConfig] = None,
+                 **kw):
+        hift = hift if hift is not None else HiFTConfig()
+        if hift.pipeline_depth < 2:
+            hift = dataclasses.replace(hift, pipeline_depth=2)
+        super().__init__(cfg, optimizer, hift=hift, **kw)
+
+
+# ------------------------------------------------------------------- LiSA
+
+@register_strategy("lisa")
+class LiSAStrategy(_GroupedStrategy):
+    """Random layer-subset fine-tuning, LiSA-style: every ``switch_every``
+    steps the active group is re-sampled uniformly (with replacement)
+    instead of swept in HiFT's fixed order.  The sample is a pure function
+    of ``(seed, step)`` — numpy's ``RandomState``, seeded as the reference
+    seeds it, so both packages sample the same groups — and checkpoint
+    resume replays the schedule exactly; the per-group bundles persist
+    across activations.  The state carries no visit order."""
+
+    name = "lisa"
+
+    def __init__(self, cfg, optimizer, *, lisa: Optional[LiSAConfig] = None,
+                 **kw):
+        super().__init__(cfg, optimizer, **kw)
+        self.lisa = lisa if lisa is not None else LiSAConfig()
+        self.use_cut = self.lisa.use_cut
+        self.offload_optimizer = self.lisa.offload_optimizer
+        self._setup_groups(self.lisa.m)
+        self._setup_pipeline(self.lisa.pipeline_depth)
+
+    def lr_at(self, step: int) -> float:
+        # LiSA trains on a plain per-step schedule (no sweep structure)
+        return self.schedule.at_cycle(step)
+
+    def group_index_at(self, step: int) -> int:
+        period = step // max(self.lisa.switch_every, 1)
+        mix = (self.lisa.seed * 1_000_003 + period) % (2**31 - 1)
+        return int(np.random.RandomState(mix).randint(self.k))
+
+    def group_at(self, state: TrainState, step: Optional[int] = None) -> Group:
+        step = int(state.step) if step is None else step
+        return self.groups[self.group_index_at(step)]
+
+    def init(self, params: PyTree) -> TrainState:
+        return TrainState(self._resident_params(params), {}, 0, {})
+
+    def step(self, state: TrainState, batch) -> tuple[TrainState, Metrics]:
+        step = int(state.step)
+        gi = self.group_index_at(step)
+        # the next depth-1 samples are knowable now; the pipeline skips the
+        # prefetch when the sampler lands back on gi inside the window
+        next_gis = ([self.group_index_at(step + d)
+                     for d in range(1, self._pipeline.depth)]
+                    if self._pipeline else None)
+        lr = self.lr_at(step)
+        params, opt_state, loss = self._group_step(state, batch, gi, lr,
+                                                   next_gis=next_gis)
         new_state = TrainState(params, opt_state, step + 1, state.extra)
         return new_state, {"loss": loss, "lr": lr, "strategy": self.name,
                            "group": self.groups[gi].label()}
@@ -513,6 +675,165 @@ class FPFTStrategy(Strategy):
             state.params)
         params, opt_state = self.optimizer.update(grads, state.opt_state,
                                                   state.params, lr)
+        return (TrainState(params, opt_state, step + 1, state.extra),
+                {"loss": loss, "lr": lr, "strategy": self.name})
+
+
+# --------------------------------------------------------- FPFT (streamed)
+
+@register_strategy("fpft_streamed")
+class StreamedFPFTStrategy(FPFTStrategy):
+    """ChunkFT-style full-parameter fine-tuning: FPFT's update with the
+    optimizer moments in host memory (pinned, on the card), streamed
+    through a bounded device window during the update.
+
+    A step is a backward over the whole tree, then a loop over the
+    :class:`ChunkLayout` of the params: for chunk i the stream uploads the
+    congruent moment slices (``m``/``v`` for AdamW) while chunks
+    ``i+1..i+depth-1`` upload behind them on the side stream, one
+    elementwise ``optimizer.update`` advances the chunk, and the updated
+    moments drain back to the host.  Optimizer state on the device is
+    bounded by ``depth * chunk_bytes`` per streamed tree (``memory_model``
+    mode ``fpft_streamed``) instead of the whole moment trees.
+
+    Requires a stream-safe optimizer (``Optimizer.stream_safe``): an
+    elementwise update with no cross-leaf coupling, so the per-chunk update
+    is the resident one's arithmetic — bit-identical to ``fpft``, and
+    checkpoints are interchangeable with it.  A global grad clip and the
+    fused kernels (which bucket whole trees) are rejected at construction.
+
+    On the card the step writes in place: each updated param chunk is
+    copied into its param views and each moment chunk into its host views,
+    so no second copy of the params or of the moments exists; a packed
+    chunk (small leaves) moves piece by piece.  On the CPU the step is
+    pure, as the reference's.  Scalar state (AdamW's ``count``) rides
+    every chunk call and keeps the last one's value — each chunk sees the
+    same pre-step count, as the resident update does."""
+
+    name = "fpft_streamed"
+    memory_mode = "fpft_streamed"
+
+    def __init__(self, cfg, optimizer, *, stream: Optional[StreamConfig] = None,
+                 **kw):
+        super().__init__(cfg, optimizer, **kw)
+        self.stream = stream if stream is not None else StreamConfig()
+        if not getattr(optimizer, "stream_safe", False):
+            raise ValueError(
+                "fpft_streamed needs a stream-safe optimizer (elementwise "
+                "update with no cross-leaf coupling; Optimizer.stream_safe) "
+                f"— got {getattr(optimizer, 'name', optimizer)!r} with "
+                "stream_safe=False.  Turn off grad_clip / the fused-kernel "
+                "path, or use the resident 'fpft' strategy")
+        self.memory_stream_depth = self.stream.depth
+        self.memory_stream_chunk_bytes = self.stream.chunk_bytes
+        self._streams = (SideStreams(self.device)
+                         if self.device.type == "cuda" else None)
+        # the last step's ChunkStream counters (observability only)
+        self.stream_stats: Optional[PipelineStats] = None
+
+    @staticmethod
+    def _split_state(opt_state: PyTree, params: PyTree) -> tuple[dict, dict]:
+        """Partition ``opt_state`` into params-congruent subtrees (the same
+        paths and leaf shapes — AdamW's ``m``/``v``; these stream) and the
+        rest (scalars like ``count``; these ride every chunk call)."""
+        pshapes = {p: tuple(t.shape)
+                   for p, t in flatten_with_paths(params).items()}
+        streamed, resident = {}, {}
+        for key, sub in opt_state.items():
+            shapes = ({p: tuple(t.shape)
+                       for p, t in flatten_with_paths(sub).items()}
+                      if isinstance(sub, dict) else None)
+            (streamed if shapes == pshapes else resident)[key] = sub
+        return streamed, resident
+
+    def _pinned(self, streamed: dict) -> dict:
+        """Empty pinned host trees like ``streamed``'s, in one buffer
+        (``core.pipeline.pinned_trees``)."""
+        keys = sorted(streamed)
+        return dict(zip(keys, pinned_trees([streamed[k] for k in keys])))
+
+    def init(self, params: PyTree) -> TrainState:
+        if self.device.type == "cpu":
+            return super().init(params)    # host_put is the identity here
+        params = self._place(params)
+        if self.policy.name == "bf16":
+            params = tree_cast(params, self.policy.param_dtype)
+        # the card: the moment trees' layout from an init on meta tensors,
+        # then each leaf's state made on the device and copied into its
+        # pinned view, so no device copy of a whole moment tree exists
+        meta = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                              device="meta"), params)
+        streamed, resident = self._split_state(self.optimizer.init(meta),
+                                               meta)
+        host = self._pinned(streamed)
+        views = {k: flatten_with_paths(t) for k, t in host.items()}
+        for path, leaf in flatten_with_paths(params).items():
+            one = {"x": leaf}
+            state, _ = self._split_state(self.optimizer.init(one), one)
+            for key, view in views.items():
+                view[path].copy_(state[key]["x"], non_blocking=True)
+        return TrainState(params, {**resident, **host}, 0, {})
+
+    def place_state(self, state: TrainState) -> TrainState:
+        """As :meth:`Strategy.place_state`, with the streamed moment trees
+        in one pinned buffer on the card."""
+        streamed, resident = self._split_state(state.opt_state, state.params)
+        placed = super().place_state(dataclasses.replace(
+            state, opt_state=resident if self.device.type == "cuda"
+            else state.opt_state))
+        if self.device.type == "cpu":
+            return placed
+        host = self._pinned(streamed)
+        for key, tree in host.items():
+            src = flatten_with_paths(streamed[key])
+            for path, view in flatten_with_paths(tree).items():
+                view.copy_(src[path])
+        return dataclasses.replace(placed,
+                                   opt_state={**placed.opt_state, **host})
+
+    def _streamed_update(self, params: PyTree, grads: PyTree,
+                         opt_state: PyTree, lr: float):
+        """The chunked update sweep; returns ``(new_params,
+        new_opt_state)``, bit-identical to ``optimizer.update(grads,
+        opt_state, params, lr)``."""
+        layout = ChunkLayout.build(params, self.stream.chunk_bytes)
+        streamed, resident = self._split_state(opt_state, params)
+        skeys = sorted(streamed)
+        stream = ChunkStream(layout, depth=self.stream.depth,
+                             device=self.device, streams=self._streams)
+        stream.begin(*(streamed[key] for key in skeys))
+        card = self.device.type == "cuda"
+        flat_p, flat_g = layout.flat(params), layout.flat(grads)
+        p_chunks, new_resident = [], dict(resident)
+        for i in range(layout.num_chunks):
+            schunks = stream.fetch(i)
+            st = {key: {"_c": c} for key, c in zip(skeys, schunks)}
+            st.update(resident)
+            new_p, new_st = self.optimizer.update(
+                {"_c": layout.extract(flat_g, i)}, st,
+                {"_c": layout.extract(flat_p, i)}, lr)
+            if card:
+                layout.write(flat_p, i, new_p["_c"])
+            else:
+                p_chunks.append(new_p["_c"])
+            for key in resident:
+                new_resident[key] = new_st[key]
+            stream.offload(i, tuple(new_st[key]["_c"] for key in skeys))
+        self.stream_stats = stream.stats
+        new_opt = dict(new_resident)
+        new_opt.update(zip(skeys, stream.end()))
+        return (params if card else layout.combine(p_chunks)), new_opt
+
+    def step(self, state: TrainState, batch) -> tuple[TrainState, Metrics]:
+        step = int(state.step)
+        lr = self.schedule.at_cycle(step)
+        batch = _batch_to(batch, self.device)
+        cfg, dtype = self.cfg, self.policy.compute_dtype
+        loss, grads = _value_and_grad(
+            lambda p: self.loss_fn(cfg, p, batch, compute_dtype=dtype),
+            state.params)
+        params, opt_state = self._streamed_update(state.params, grads,
+                                                  state.opt_state, lr)
         return (TrainState(params, opt_state, step + 1, state.extra),
                 {"loss": loss, "lr": lr, "strategy": self.name})
 

@@ -1,9 +1,13 @@
 """Training launcher for a ported ``--arch`` (port of
-``repro.launch.train`` for the hift and fpft strategies).
+``repro.launch.train`` for the ported strategies: hift, hift_pipelined,
+lisa, fpft, fpft_streamed).
 
     python -m repro_torch.launch.train --arch llama2-7b --smoke --steps 8
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama2-7b \\
         --smoke --steps 8 --device cpu [--ckpt-dir DIR --resume auto]
+    ... --strategy hift_pipelined [--pipeline-depth 3]
+    ... --strategy lisa --switch-every 2
+    ... --strategy fpft_streamed --stream-window 65536 --pipeline-depth 3
 
 The reference's flags for the ported surface, plus ``--device`` (default
 ``cuda``; without a card it raises unless ``--device cpu``).  Weights are
@@ -22,7 +26,8 @@ import torch
 from repro_torch.common.device import resolve_device
 from repro_torch.common.pytree import tree_size
 from repro_torch.configs.registry import get_config
-from repro_torch.core import HiFTConfig, LRSchedule, make_runner
+from repro_torch.core import (HiFTConfig, LiSAConfig, LRSchedule,
+                              make_runner, registry)
 from repro_torch.data.synthetic import DataConfig, PrefetchIterator, SyntheticLM
 from repro_torch.models import get_family
 from repro_torch.optim.mixed_precision import get_policy
@@ -37,18 +42,33 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=64)
-    ap.add_argument("--strategy", default="hift", choices=["hift", "fpft"])
-    ap.add_argument("--m", type=int, default=1, help="units per group (hift)")
+    ap.add_argument("--strategy", default="hift",
+                    choices=registry.strategy_ids(),
+                    help="fine-tuning strategy (registry-resolved)")
+    ap.add_argument("--m", type=int, default=1,
+                    help="units per group (hift/lisa)")
     ap.add_argument("--order", default="bottom2up",
                     choices=["bottom2up", "top2down", "random"],
                     help="HiFT group visit order")
+    ap.add_argument("--switch-every", type=int, default=5,
+                    help="LiSA re-sampling period")
     ap.add_argument("--fused-update", dest="fused_update",
                     action="store_true", default=None,
                     help="force the fused update kernels (adamw/sgdm/"
-                         "adagrad); default auto: fused for hift on the card")
+                         "adagrad); default auto: fused for hift/lisa on "
+                         "the card")
     ap.add_argument("--no-fused-update", dest="fused_update",
                     action="store_false",
                     help="force the unfused elementwise update")
+    ap.add_argument("--pipeline-depth", type=int, default=None,
+                    help=">=2 moves hift/lisa optimizer-bundle host<->device "
+                         "transfers to side streams with depth-1 lookahead "
+                         "(core.pipeline); hift_pipelined defaults to 2; "
+                         "for fpft_streamed it sets the chunk window depth")
+    ap.add_argument("--stream-window", type=int, default=None,
+                    help="fpft_streamed chunk size in bytes "
+                         "(StreamConfig.chunk_bytes); the device-resident "
+                         "optimizer window is pipeline-depth chunks")
     ap.add_argument("--optimizer", default="adamw")
     ap.add_argument("--policy", default="fp32",
                     choices=["fp32", "mixed", "mixed_hi", "bf16"])
@@ -70,15 +90,21 @@ def main(argv=None):
     sched = LRSchedule(base_lr=args.lr, kind="cosine",
                        total_cycles=max(args.steps, 1))
     kw = {"schedule": sched, "policy": get_policy(args.policy),
-          "fused_update": args.fused_update, "device": device}
-    if args.strategy == "hift":
+          "fused_update": args.fused_update, "device": device,
+          "pipeline_depth": args.pipeline_depth}
+    if args.stream_window is not None:
+        kw["stream_window"] = args.stream_window
+    if args.strategy in ("hift", "hift_pipelined"):
         kw["hift"] = HiFTConfig(m=args.m, strategy=args.order, seed=args.seed)
+    elif args.strategy == "lisa":
+        kw["lisa"] = LiSAConfig(m=args.m, switch_every=args.switch_every,
+                                seed=args.seed)
     runner = make_runner(cfg, args.strategy, params=params,
                          optimizer=args.optimizer, seed=args.seed, **kw)
-    if args.strategy == "hift":
+    if args.strategy in ("hift", "hift_pipelined", "lisa"):
         peak = runner.peak_trainable_params()
-        print(f"hift k={runner.k}, peak trainable {peak/1e6:.2f}M "
-              f"({100*peak/n:.2f}%)")
+        print(f"{args.strategy} k={runner.k}, peak trainable "
+              f"{peak/1e6:.2f}M ({100*peak/n:.2f}%)")
 
     data = PrefetchIterator(SyntheticLM(DataConfig(
         vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch,

@@ -27,8 +27,8 @@ from repro.train import checkpoint as jckpt  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.common.pytree import (flatten_with_paths,  # noqa: E402
                                        is_record)
-from repro_torch.core import (HiFTConfig, LRSchedule,  # noqa: E402
-                              QuantConfig, make_runner)
+from repro_torch.core import (HiFTConfig, LiSAConfig,  # noqa: E402
+                              LRSchedule, QuantConfig, make_runner)
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.optim.mixed_precision import get_policy  # noqa: E402
 from repro_torch.train import checkpoint as ckpt  # noqa: E402
@@ -45,6 +45,9 @@ STATES = {   # make_runner keywords of each state kind
     "int8": dict(quant=QuantConfig("int8")),
     "adafactor": dict(optimizer="adafactor"),
     "fpft": dict(strategy="fpft"),
+    "hift_pipelined": dict(strategy="hift_pipelined"),
+    "lisa": dict(strategy="lisa"),
+    "fpft_streamed": dict(strategy="fpft_streamed", stream_window=1 << 14),
 }
 
 
@@ -54,8 +57,10 @@ def _runner(kind="fp32", params_seed=None, m=2):
     kw = dict(STATES[kind])
     _, cfg = _cfgs("llama2-7b")
     strategy = kw.pop("strategy", "hift")
-    if strategy == "hift":
+    if strategy in ("hift", "hift_pipelined"):
         kw["hift"] = HiFTConfig(m=m)
+    elif strategy == "lisa":
+        kw["lisa"] = LiSAConfig(m=m, switch_every=1, seed=1)
     if "policy" in kw:
         kw["policy"] = get_policy(kw["policy"])
     params = None if params_seed is not None else bridge.to_torch(
@@ -109,7 +114,9 @@ def test_checkpoint_roundtrip(tmp_path, kind):
             torch.bfloat16
     counts = [t for p, t in _flat(r2).items() if p.endswith("count")]
     assert counts and all(t.dtype == torch.int64 for t in counts)
-    if kind != "fpft":
+    if kind in ("fpft", "fpft_streamed", "lisa"):
+        assert "order" not in r2.state.extra
+    else:
         assert r2.state.extra["order"].dtype == np.int64
     assert float(r.train_step(batches[3])) == float(r2.train_step(batches[3]))
     _assert_states_equal(r, r2)
@@ -275,6 +282,36 @@ def test_jax_checkpoint_continues_in_the_port(tmp_path, monkeypatch, codec):
     _, cfg = _cfgs("llama2-7b")
     losses = [float(r.train_step(b)) for b in _batches(cfg, 6)[3:]]
     np.testing.assert_allclose(losses, jlosses[3:], rtol=3e-5)
+
+
+@pytest.mark.parametrize("kind", ["hift_pipelined", "fpft_streamed"])
+def test_jax_pipelined_checkpoint_continues_in_the_port(tmp_path, kind):
+    """3 steps of the reference's ``hift_pipelined`` (m=2) or
+    ``fpft_streamed`` (16 KiB chunks), saved by
+    ``repro.train.checkpoint``, continue 3 steps in the port's plain
+    ``hift`` or ``fpft``, and that port state continues in the port's
+    pipelined or streamed runner: the losses of 6 JAX steps (the pipeline
+    and the stream are transfer schedules, not state)."""
+    jcfg, cfg = _cfgs("llama2-7b")
+    jkw = ({"hift": JHiFTConfig(m=2)} if kind == "hift_pipelined"
+           else {"stream_window": 1 << 14})
+    jr = jax_make_runner(jcfg, kind, params=_jtree(_np_params("llama2-7b")),
+                         optimizer="adamw", schedule=JLRSchedule(base_lr=LR),
+                         **jkw)
+    batches = _batches(cfg, 6)
+    jl = [float(jr.train_step(_jbatch(b))) for b in batches[:3]]
+    jckpt.save(tmp_path / "jax", 3, jax.tree.map(np.asarray,
+                                                 jr.state_dict()))
+    jl += [float(jr.train_step(_jbatch(b))) for b in batches[3:]]
+    plain = _runner("fp32" if kind == "hift_pipelined" else "fpft",
+                    params_seed=7)
+    plain.load_state_dict(ckpt.restore(tmp_path / "jax", 3))
+    tl = [float(plain.train_step(b)) for b in batches[3:5]]
+    ckpt.save(tmp_path / "port", 5, plain.state_dict())
+    again = _runner(kind, params_seed=9)
+    again.load_state_dict(ckpt.restore(tmp_path / "port", 5))
+    tl.append(float(again.train_step(batches[5])))
+    np.testing.assert_allclose(tl, jl[3:], rtol=3e-5)
 
 
 def test_port_checkpoint_is_read_by_the_reference(tmp_path):

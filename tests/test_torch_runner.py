@@ -5,7 +5,10 @@ llama2-smoke params and the same batches (helpers and tolerances of
 ``test_torch_training``): per-step losses and final params for 2 HiFT
 sweeps (m=1, bottom2up) with each of adamw, sgdm and adagrad — the port
 through its fused-update wrappers, whose CPU path is the plain version —
-one sweep each top2down, random and m=2, Mixed^Hi, and 3 FPFT steps.
+one sweep each top2down, random and m=2, Mixed^Hi, and 3 FPFT steps;
+then the pipelined and streamed strategies: ``hift_pipelined`` (2 sweeps,
+AdamW), ``lisa`` (6 steps re-sampled every step, SGD-momentum) and
+``fpft_streamed`` (3 steps, AdamW through 16 KiB chunks).
 
 Tolerances.  Losses to rtol 3e-5: the same fp32 arithmetic summed in
 other orders (XLA, and PyTorch's CPU kernels), where AdamW and AdaGrad
@@ -32,11 +35,15 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro.core import HiFTConfig as JHiFTConfig  # noqa: E402
+from repro.core import LiSAConfig as JLiSAConfig  # noqa: E402
 from repro.core import LRSchedule as JLRSchedule  # noqa: E402
 from repro.core import make_runner as jax_make_runner  # noqa: E402
 from repro.optim.mixed_precision import get_policy as jax_policy  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.common.pytree import flatten_with_paths  # noqa: E402
+from repro_torch.core import (HiFTConfig, LiSAConfig, LRSchedule,  # noqa: E402
+                              make_runner)
+from repro_torch.optim.mixed_precision import get_policy  # noqa: E402
 from test_torch_training import (LR, _batches, _cfgs, _jbatch,  # noqa: E402
                                  _jtree, _np_params, _runner)
 
@@ -49,6 +56,10 @@ CASES = {
     "m2": dict(opt="adamw", m=2),
     "mixed_hi": dict(opt="adamw", policy="mixed_hi"),
     "fpft": dict(opt="adamw", strategy="fpft", steps=3, fused=True),
+    "hift_pipelined": dict(opt="adamw", strategy="hift_pipelined", steps=8,
+                           fused=True),
+    "lisa": dict(opt="sgdm", strategy="lisa", seed=3, steps=6),
+    "fpft_streamed": dict(opt="adamw", strategy="fpft_streamed", steps=3),
 }
 
 
@@ -59,16 +70,26 @@ def _case(key):
     return c
 
 
+def _strategy_kw(c, hift_cls, lisa_cls) -> dict:
+    """make_runner keywords of a case's strategy (``*_cls``: either
+    package's config classes)."""
+    if c["strategy"] in ("hift", "hift_pipelined"):
+        return {"hift": hift_cls(m=c["m"], strategy=c["order"],
+                                 seed=c["seed"])}
+    if c["strategy"] == "lisa":
+        return {"lisa": lisa_cls(m=c["m"], switch_every=1, seed=c["seed"])}
+    if c["strategy"] == "fpft_streamed":
+        return {"stream_window": 1 << 14}
+    return {}
+
+
 @functools.lru_cache(maxsize=None)
 def _jax_run(key):
     """Per-step losses, final params and the state after step 3 (numpy)
     of the reference runner, and the runner."""
     c = _case(key)
     jcfg, cfg = _cfgs("llama2-7b")
-    kw = {}
-    if c["strategy"] == "hift":
-        kw["hift"] = JHiFTConfig(m=c["m"], strategy=c["order"],
-                                 seed=c["seed"])
+    kw = _strategy_kw(c, JHiFTConfig, JLiSAConfig)
     runner = jax_make_runner(jcfg, c["strategy"],
                              params=_jtree(_np_params("llama2-7b")),
                              optimizer=c["opt"],
@@ -84,8 +105,16 @@ def _jax_run(key):
 
 def _torch_runner(key):
     c = _case(key)
-    return _runner(c["opt"], c["strategy"], c["m"], c["order"], c["seed"],
-                   c["policy"], c["fused"])
+    if c["strategy"] in ("hift", "fpft"):
+        return _runner(c["opt"], c["strategy"], c["m"], c["order"],
+                       c["seed"], c["policy"], c["fused"])
+    _, cfg = _cfgs("llama2-7b")
+    return make_runner(cfg, c["strategy"],
+                       params=bridge.to_torch(_np_params("llama2-7b")),
+                       optimizer=c["opt"], schedule=LRSchedule(base_lr=LR),
+                       policy=get_policy(c["policy"]),
+                       fused_update=c["fused"], device="cpu",
+                       **_strategy_kw(c, HiFTConfig, LiSAConfig))
 
 
 @pytest.mark.parametrize("key", list(CASES))
@@ -132,12 +161,13 @@ def _snapshot(state):
         {"params": state.params, "opt_state": state.opt_state}).items()}
 
 
-@pytest.mark.parametrize("strategy", ["hift", "fpft"])
+@pytest.mark.parametrize("strategy", ["hift", "fpft", "hift_pipelined",
+                                      "lisa", "fpft_streamed"])
 def test_step_is_pure_on_cpu_and_metrics_match_jax(strategy):
     """Re-stepping an old state gives the same loss and params and leaves
     it untouched; the resident tree holds no graph and no ``.grad``; the
     metrics carry the reference's keys."""
-    key = "adamw" if strategy == "hift" else "fpft"
+    key = "adamw" if strategy == "hift" else strategy
     runner = _torch_runner(key)
     _, cfg = _cfgs("llama2-7b")
     batches = _batches(cfg, 3)
@@ -156,9 +186,10 @@ def test_step_is_pure_on_cpu_and_metrics_match_jax(strategy):
         assert not t.requires_grad and t.grad is None
     jax_runner = _jax_run(key)[3]
     assert set(ma) == set(jax_runner.last_metrics)
-    if strategy == "hift":
+    if "group" in ma:
         assert [g.label() for g in runner.groups] == \
             [g.label() for g in jax_runner.groups]
-        assert ma["group"] == runner.groups[1].label()
+        assert ma["group"] == runner.group_for_step(1).label() == \
+            jax_runner.group_for_step(1).label()
 
 

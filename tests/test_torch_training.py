@@ -222,13 +222,17 @@ def test_to_tree_from_tree_round_trip():
 def test_unported_options_raise():
     _, cfg = _cfgs("llama2-7b")
     params = bridge.to_torch(_np_params("llama2-7b"))
-    for kw in ({"mesh": object()},
-               {"cross_pod": object()}, {"pipeline_depth": 2},
-               {"stream_window": 1 << 20}):
+    for kw in ({"mesh": object()}, {"cross_pod": object()}):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             make_runner(cfg, "hift", params=params, device="cpu", **kw)
-    with pytest.raises(ValueError, match="not yet ported"):
-        make_runner(cfg, "lisa", params=params, device="cpu")
+    # the pipeline and the stream are ported; a stream window still
+    # applies to fpft_streamed only
+    with pytest.raises(ValueError, match="does not apply to 'hift'"):
+        make_runner(cfg, "hift", params=params, device="cpu",
+                    stream_window=1 << 20)
+    for name in ("mezo", "lomo", "adalomo"):
+        with pytest.raises(ValueError, match="not yet ported"):
+            make_runner(cfg, name, params=params, device="cpu")
     with pytest.raises(ValueError, match="no fused update kernel"):
         make_runner(cfg, "hift", params=params, optimizer="sgd",
                     fused_update=True, device="cpu")
