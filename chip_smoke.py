@@ -72,6 +72,20 @@ Phases, one JSON line each:
       one ``fpft`` and one ``fpft_streamed`` step (64 MiB chunks, depth
       3), bit-equal, peaks, pinned bytes, chunks, the update's share;
       then two streamed steps of llama2-7b at full depth;
+   h. ``lomo``, ``adalomo`` and ``mezo``, card against CPU
+      (``train_fused_card_vs_cpu``): 2 layers at llama2-7b's width (untied
+      head) and at gpt-neo-2.7b's (tied), fp32, 3 steps each of ``lomo``
+      (clip 1.0), ``adalomo`` (clip 0; 1.0 at the tied width) and
+      ``mezo`` (the same z on both devices), losses and grad norms within
+      1e-4, params within a tolerance per strategy; then ``lomo`` with
+      ``stream=`` bit-equal to unstreamed on the card;
+   i. the same strategies at full size (``train_fused_full``): llama2-7b,
+      fp32, 4 x 512, ``lomo`` (2 steps, clip 1.0: a forward and two
+      reverse sweeps), ``adalomo`` (2) and ``mezo`` (3), then gpt-neo-2.7b
+      ``lomo`` (2): step time, loss, grad norm, peak allocated and
+      reserved memory beside the analytic P+G+S (a peak more than 6 GiB
+      over it fails the run: no whole gradient tree may exist), and a
+      profiled ``lomo`` step (GEMM and update shares);
 9. the dequant-matmul kernel against its plain version at llama2-7b's
    shapes (M = 4 x 512; the three projection shapes of a stacked layer,
    scale tile rows 8; the head, tile rows 1; one ragged case), int8 and
@@ -1887,6 +1901,270 @@ def phase_train_streamed(torch):
     return launches
 
 
+# ---------------------------------------------- fused backward and MeZO
+
+FUSED_LR = 1e-4            # card against CPU
+FUSED_STEPS = 3
+FUSED_SEQ = 32             # batch 2 x FUSED_SEQ
+FUSED_RTOL = 1e-4          # card against CPU: losses and grad norms
+# Params' largest gap, card against CPU, after FUSED_STEPS steps at
+# FUSED_LR.  LOMO moves an element by lr * g, so the gradients' rounding
+# (fp32 sums in other orders) leaves far less than 1e-5.  AdaLomo's
+# update is about lr * sign(g) while its moments are young: a near-zero
+# gradient whose sign rounds the other way moves an element by up to
+# 2 lr a step.  MeZO moves every element by lr * ghat * z, and ghat =
+# (L+ - L-) / 2 eps carries the losses' gap over 2 eps: at FUSED_RTOL of
+# a loss near 11, up to ~1 of ghat, so up to lr * max|z| (< 6) a step.
+FUSED_PARAM_TOL = {"lomo": 1e-5, "adalomo": 2 * FUSED_LR * FUSED_STEPS,
+                   "mezo": 6 * FUSED_LR * FUSED_STEPS}
+# What a full-size fused step may hold above the analytic P+G+S (params,
+# one layer's gradients, AdaLomo's factored moments): the saved layer
+# inputs (llama2-7b at 4 x 512: 32 x 32 MiB), one layer's recomputed
+# graph, the head's CE blocks and gradients, the embedding's gradient and
+# the updates' temporaries.  A whole gradient tree is 25.1 GiB.
+FUSED_ALLOWANCE_GIB = 6.0
+
+
+def card_noise(torch, shapes: dict):
+    """MeZO's seam for the card-against-CPU runs: each slice's z drawn on
+    the card from the port's own seed of (key, step, path, index), the
+    same tensor handed to both devices (the CPU run copies it over)."""
+    from repro_torch.optim.mezo import noise_seed
+
+    def at(rng, step):
+        key = (*(int(w) for w in rng), step)
+
+        def z(path, index):
+            shape = shapes[path][1:] if index is not None else shapes[path]
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(noise_seed(key, path, index))
+            return torch.randn(shape, generator=gen, device="cuda")
+        return z
+    return at
+
+
+def phase_train_fused_card_vs_cpu(torch):
+    """``lomo`` (clip 1.0, weight decay 0.01), ``adalomo`` (defaults, then
+    clip 1.0) and ``mezo`` (the same z on both devices, ``card_noise``),
+    3 steps each, from the same params on the CPU and the card: 2 layers
+    at llama2-7b's width (untied head) and at gpt-neo-2.7b's (tied), fp32,
+    batch 2 x 32 (the CPU's side sets the phase's time; at 2 x 128 its
+    steps take minutes), the clipped ``adalomo`` at the tied width only.
+    Losses and grad norms within ``FUSED_RTOL``, params
+    within ``FUSED_PARAM_TOL``.  Then ``lomo`` with ``stream=`` on the
+    card (params offloaded to pinned host memory between steps) against
+    the unstreamed card run: losses and params bit-equal."""
+    from repro_torch.common.pytree import flatten_with_paths
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import (AdaLomoConfig, LOMOConfig, LRSchedule,
+                                  StreamConfig, make_runner)
+    from repro_torch.models import transformer as T
+
+    def run(cfg, params, dev, strategy, batches, **kw):
+        runner = make_runner(cfg, strategy, params=params, device=dev,
+                             schedule=LRSchedule(base_lr=FUSED_LR), **kw)
+        t0 = time.perf_counter()
+        losses, norms = [], []
+        for b in batches:
+            losses.append(float(runner.train_step(b)))
+            g = runner.last_metrics.get("grad_norm")
+            norms.append(None if g is None else float(g))
+        secs = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        final = {k: t.detach().cpu() for k, t in
+                 flatten_with_paths(runner.params).items()}
+        return losses, norms, final, secs
+
+    def rel_gap(a, b):
+        return max(abs(x - y) / abs(x) for x, y in zip(a, b))
+
+    for arch in ("llama2-7b", "gpt-neo-2.7b"):
+        cfg = dataclasses.replace(get_config(arch), n_layers=2)
+        params = T.init(cfg, torch.Generator().manual_seed(0), device="cpu",
+                        dtype=torch.float32)
+        shapes = {p: tuple(t.shape)
+                  for p, t in flatten_with_paths(params).items()}
+        batches = train_batches(cfg, FUSED_SEQ, 2, FUSED_STEPS, "cpu")
+        runs = (("lomo", "lomo", dict(lomo=LOMOConfig(grad_clip=1.0,
+                                                       weight_decay=0.01))),
+                ("adalomo", "adalomo", {}),
+                ("adalomo_clip", "adalomo",
+                 dict(adalomo=AdaLomoConfig(grad_clip=1.0))),
+                ("mezo", "mezo", dict(noise=card_noise(torch, shapes))))
+        for label, strategy, kw in runs:
+            if label == "adalomo_clip" and not cfg.tie_embeddings:
+                # the CPU's side of a run at llama2-7b's width costs tens
+                # of seconds; the clipped sweep's intricate case is the
+                # tied head's (its embedding gradient live beside one
+                # layer's), and lomo covers the untied head's two sweeps
+                continue
+            out = {dev: run(cfg, params, dev, strategy, batches, **kw)
+                   for dev in ("cpu", "cuda")}
+            (cl, cn, cp, cs), (gl, gn, gp, gs) = out["cpu"], out["cuda"]
+            rel = rel_gap(cl, gl)
+            nrel = rel_gap(cn, gn) if cn[0] is not None else 0.0
+            gap = max(float((cp[k] - gp[k]).abs().max()) for k in cp)
+            emit("train_fused_card_vs_cpu", arch=cfg.name, run=label,
+                 n_layers=cfg.n_layers, d_model=cfg.d_model,
+                 tied=cfg.tie_embeddings, batch=2, seq=FUSED_SEQ,
+                 lr=FUSED_LR,
+                 cpu_losses=cl, cuda_losses=gl, cpu_grad_norms=cn,
+                 cuda_grad_norms=gn, max_rel_loss_gap=rel,
+                 max_rel_grad_norm_gap=nrel, rtol=FUSED_RTOL,
+                 max_param_gap=gap, param_tol=FUSED_PARAM_TOL[strategy],
+                 cpu_seconds=cs, cuda_seconds=gs,
+                 cpu_threads=torch.get_num_threads())
+            if (not all(math.isfinite(x) for x in gl) or rel > FUSED_RTOL
+                    or nrel > FUSED_RTOL
+                    or gap > FUSED_PARAM_TOL[strategy]):
+                raise RuntimeError(f"{cfg.name} {label}: card and CPU "
+                                   f"differ: losses {cl} {gl}, norms {cn} "
+                                   f"{gn}, param gap {gap}")
+            if label == "lomo" and arch == "llama2-7b":
+                sl, _, sp, _ = run(cfg, params, "cuda", strategy, batches,
+                                   stream=StreamConfig(depth=2), **kw)
+                bad = [k for k in gp if not torch.equal(gp[k], sp[k])]
+                emit("train_fused_streamed", arch=cfg.name, run=label,
+                     losses=sl, bit_equal=not bad and sl == gl)
+                if bad or sl != gl:
+                    raise RuntimeError(f"lomo with stream= left lomo: "
+                                       f"{sl} {gl}, leaves {bad[:5]}")
+            del out
+        del params
+        gc.collect()
+
+
+class FusedUpdateTimer:
+    """While in use: CUDA events around each in-place update of the fused
+    backward and AdaLomo (``core.strategy._sgd_tree``, ``_ada_tree``)."""
+
+    def __init__(self, torch):
+        from repro_torch.core import strategy
+        self.torch, self.mod, self.events = torch, strategy, []
+
+    def __enter__(self):
+        self._saved = {n: getattr(self.mod, n)
+                       for n in ("_sgd_tree", "_ada_tree")}
+        cuda = self.torch.cuda
+        for name, fn in self._saved.items():
+            def timed(*args, _fn=fn, **kw):
+                e0 = cuda.Event(enable_timing=True)
+                e1 = cuda.Event(enable_timing=True)
+                e0.record()
+                _fn(*args, **kw)
+                e1.record()
+                self.events.append((e0, e1))
+            setattr(self.mod, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._saved.items():
+            setattr(self.mod, name, fn)
+
+    def ms(self) -> float:
+        return sum(a.elapsed_time(b) for a, b in self.events)
+
+
+def fused_step(torch, runner, batch, base: int = 0) -> dict:
+    """One step: host clock to a synchronise, the loss and grad norm, and
+    the peak allocated and reserved memory (reset before the step),
+    ``base`` (bytes allocated before the params) taken off the former."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss = runner.train_step(batch)
+    torch.cuda.synchronize()
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    loss = float(loss)
+    if not math.isfinite(loss):
+        raise RuntimeError(f"{runner.strategy.name}: non-finite loss {loss}")
+    gnorm = runner.last_metrics.get("grad_norm")
+    return dict(loss=loss, grad_norm=None if gnorm is None else float(gnorm),
+                host_ms=host_ms,
+                peak_allocated_gib=(torch.cuda.max_memory_allocated() - base)
+                / 2**30,
+                peak_reserved_gib=torch.cuda.max_memory_reserved() / 2**30)
+
+
+def fused_profile(torch, runner, batch) -> dict:
+    """One step under ``torch.profiler`` with its updates timed by
+    events: device busy ms, idle share, the GEMMs' and the updates'
+    shares of the busy time."""
+    from torch.profiler import ProfilerActivity, profile
+    with FusedUpdateTimer(torch) as timer, profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        float(runner.train_step(batch))
+        torch.cuda.synchronize()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+    out = profile_summary(prof, host_ms, top=10, gemm_ms="gemm")
+    busy = out["device_busy_ms"]
+    out.update(update_ms=timer.ms(), update_calls=len(timer.events),
+               gemm_share=out["gemm_ms"] / busy,
+               update_share=timer.ms() / busy)
+    return out
+
+
+def phase_train_fused_full(torch):
+    """The fused-backward and zeroth-order strategies at full size, fp32,
+    batch 4 x 512, random weights from seed 0 trained in place: llama2-7b
+    (32 layers, untied head) under ``lomo`` (clip 1.0: a forward and two
+    reverse sweeps) for 2 steps, ``adalomo`` (defaults) for 2 and ``mezo``
+    for 3, then gpt-neo-2.7b at full depth (tied head) under ``lomo`` for
+    2.  Per step: host ms, loss, grad norm, peak allocated (above what was
+    allocated before the params) and reserved memory beside the analytic
+    P+G+S of the strategy's mode; then one more ``lomo`` step of
+    llama2-7b under the profiler.  Raises when a loss is not finite or a
+    peak exceeds the analytic figure by more than ``FUSED_ALLOWANCE_GIB``
+    (which proves no whole gradient tree was built)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import LOMOConfig, LRSchedule, make_runner
+    summary = {}
+    for arch, plan in (("llama2-7b", (("lomo", 2), ("adalomo", 2),
+                                      ("mezo", 3))),
+                       ("gpt-neo-2.7b", (("lomo", 2),))):
+        cfg = get_config(arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        params = fresh_params(torch, cfg)
+        batches = train_batches(cfg, 512, 4, 3, "cuda")
+        for strategy, n in plan:
+            kw = ({"lomo": LOMOConfig(grad_clip=1.0)}
+                  if strategy == "lomo" else {})
+            runner = make_runner(cfg, strategy, params=params,
+                                 schedule=LRSchedule(base_lr=1e-5),
+                                 device="cuda", **kw)
+            model = analytic(cfg, strategy)
+            steps = []
+            for i in range(n):
+                steps.append(fused_step(torch, runner, batches[i], base))
+                emit("train_fused_step", arch=cfg.name, strategy=strategy,
+                     step=i, analytic_pgs_gib=model.pgs_gb, **steps[-1])
+            peak = max(s["peak_allocated_gib"] for s in steps)
+            summary[f"{cfg.name}/{strategy}"] = dict(
+                peak_allocated_gib=peak, analytic_pgs_gib=model.pgs_gb,
+                over_analytic_gib=peak - model.pgs_gb,
+                host_ms=[s["host_ms"] for s in steps])
+            if peak - model.pgs_gb > FUSED_ALLOWANCE_GIB:
+                raise RuntimeError(
+                    f"{cfg.name} {strategy}: peak {peak:.2f} GiB exceeds the "
+                    f"analytic {model.pgs_gb:.2f} GiB by more than "
+                    f"{FUSED_ALLOWANCE_GIB} GiB")
+            if strategy == "lomo" and arch == "llama2-7b":
+                emit("train_fused_profile", arch=cfg.name, strategy=strategy,
+                     **fused_profile(torch, runner, batches[2]))
+            del runner
+        del params, batches
+    cfg = get_config("llama2-7b")
+    emit("train_fused_memory", arch=cfg.name, dtype="float32", batch=4,
+         seq=512, allowance_gib=FUSED_ALLOWANCE_GIB, runs=summary,
+         hift_analytic_gib=analytic(cfg, "hift").pgs_gb,
+         fpft_analytic_gib=analytic(cfg, "fpft").pgs_gb)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------ phases 9-12
 
 def dequant_cases(cfg):
@@ -2701,6 +2979,10 @@ def main() -> int:
                   phase_train_streamed):
         for name, n in phase(torch).items():
             launches[name] += n
+    # the fused-backward and zeroth-order strategies: no hand-written
+    # kernel lies on their path (the reference's updates there are plain)
+    phase_train_fused_card_vs_cpu(torch)
+    phase_train_fused_full(torch)
     rows.update(phase_dequant_kernel(torch))
     phase_quant_codes(torch)
     phase_train_quant_card_vs_cpu(torch)

@@ -65,12 +65,14 @@ def state_to_torch(tree: dict, device="cpu"):
     the port's ``TrainState``: params and every floating leaf of the
     optimizer state (FPFT's state tree, or the grouped strategies'
     ``{str(group): bundle}``) on ``device``, step counts as CPU int64
-    tensors, ``step`` an int and ``extra["order"]`` (HiFT's visit order) an
-    int64 numpy array."""
+    tensors, ``step`` an int, ``extra["order"]`` (HiFT's visit order) an
+    int64 numpy array and ``extra["rng"]`` (MeZO's key) a uint32 one."""
     from repro_torch.core.strategy import TrainState
     extra = dict(tree.get("extra") or {})
     if "order" in extra:
         extra["order"] = np.asarray(extra["order"], np.int64)
+    if "rng" in extra:
+        extra["rng"] = np.asarray(extra["rng"], np.uint32)
     return TrainState(
         params=to_torch(tree["params"], device),
         opt_state=tree_map(lambda x: _state_leaf(x, device),

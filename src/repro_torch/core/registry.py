@@ -7,10 +7,9 @@
     loss = runner.train_step(batch)
 
 It runs on the card (``device="cuda"``, raising when there is none)
-unless the caller passes ``device="cpu"``.  ``hift``, ``hift_pipelined``,
-``lisa``, ``fpft`` and ``fpft_streamed`` are the ported strategies; the
-others of the reference (``mezo``, ``lomo``, ``adalomo``) are not ported
-yet.
+unless the caller passes ``device="cpu"``.  Every strategy of the
+reference is ported: ``hift``, ``hift_pipelined``, ``lisa``, ``fpft``,
+``fpft_streamed``, ``mezo``, ``lomo`` and ``adalomo``.
 """
 from __future__ import annotations
 
@@ -57,16 +56,18 @@ def make_strategy(name: str, cfg, optimizer, **kwargs):
 
 
 def make_runner(cfg, strategy: str = "hift", *, params: Any = None,
-                optimizer: Any = "adamw", seed: int = 0,
+                optimizer: Any = "adamw", rng: Any = None, seed: int = 0,
                 fused_update: Any = None, pipeline_depth: Any = None,
                 device="cuda", **kwargs):
     """One factory for the ported fine-tuning strategies.
 
     ``optimizer`` is a name (``repro_torch.optim.make_optimizer``) or an
-    ``Optimizer``; ``params`` a tensor dict, by default the family's
-    ``init`` from ``seed`` on ``device``.  On the card the runner trains
-    the given tensors in place when they already lie there in the resident
-    dtype.
+    ``Optimizer`` (``mezo``, ``lomo`` and ``adalomo`` ignore it); ``params``
+    a tensor dict, by default the family's ``init`` from ``seed`` on
+    ``device``.  ``rng``: the 2-word uint32 key of the stochastic
+    strategies (MeZO), by default the reference's ``PRNGKey(seed)``.  On
+    the card the runner trains the given tensors in place when they
+    already lie there in the resident dtype.
 
     ``fused_update``: route the update through the fused kernels
     (``kernels/csrc/fused_update.cu``).  ``None`` keeps the reference's
@@ -88,7 +89,7 @@ def make_runner(cfg, strategy: str = "hift", *, params: Any = None,
     ``mesh``, ``cross_pod`` and the families other than dense (hybrid
     training among them) are not ported yet and raise.  Remaining kwargs
     go to the strategy (``schedule``, ``policy``, ``loss_fn``, ``hift=``,
-    ``lisa=``, ``stream=``)."""
+    ``lisa=``, ``stream=``, ``mezo=``, ``lomo=``, ``adalomo=``)."""
     import torch
 
     from repro_torch.common.device import resolve_device
@@ -96,6 +97,7 @@ def make_runner(cfg, strategy: str = "hift", *, params: Any = None,
                                            StreamConfig)
     from repro_torch.models import get_family
     from repro_torch.optim import make_optimizer
+    from repro_torch.optim.mezo import prng_key
 
     if cfg.family != "dense":
         raise NotImplementedError(f"training of the {cfg.family!r} family is "
@@ -162,5 +164,7 @@ def make_runner(cfg, strategy: str = "hift", *, params: Any = None,
     if params is None:
         gen = torch.Generator(device=device).manual_seed(seed)
         params = get_family(cfg).init(cfg, gen, device=device)
+    if rng is None:
+        rng = prng_key(seed)
     return Runner(make_strategy(strategy, cfg, optimizer, device=device,
-                                **kwargs), params)
+                                **kwargs), params, rng=rng)

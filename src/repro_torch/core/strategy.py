@@ -28,7 +28,15 @@ Ported strategies (registered in ``repro_torch.core.registry``):
 - ``fpft_streamed``: ``fpft`` with the optimizer moments in pinned host
   memory, streamed chunk by chunk through a bounded device window during
   the update (``core.pipeline.ChunkStream``); bit-identical to ``fpft``
-  with the same stream-safe optimizer.
+  with the same stream-safe optimizer;
+- ``mezo``: zeroth-order SPSA (``optim.mezo``), two forward passes and no
+  gradient, the params perturbed in place; the key rides in
+  ``extra["rng"]``;
+- ``lomo``: LOMO's fused backward, each layer's gradient consumed by an
+  in-place SGD (+ global clip) update as soon as it exists, so no full
+  gradient tree is ever resident;
+- ``adalomo``: the same fused backward with Adafactor's factored update
+  per layer, the factored moments the only optimizer state.
 
 How a grouped step avoids the reference's full-tree copies on the card:
 the forward takes each layer from whichever tree holds it
@@ -47,9 +55,8 @@ active group trains from an fp32 master in its bundle and is re-encoded
 after its update.  ``moments="bf16"`` (HiFT and FPFT) stores the optimizer
 moments in bf16.
 
-Not ported yet (they raise): ``mesh=``, ``cross_pod=``,
-``param_sharding_fn=`` and the strategies ``mezo``, ``lomo`` and
-``adalomo``.
+Not ported yet (they raise): ``mesh=``, ``cross_pod=`` and
+``param_sharding_fn=``.
 """
 from __future__ import annotations
 
@@ -75,8 +82,13 @@ from repro_torch.core.scheduler import LRSchedule
 from repro_torch.dist.quant import (QUANT_FORMATS, dequantize_tree,
                                     quantize_tree, tree_logical_size)
 from repro_torch.models import get_family
-from repro_torch.models.base import unit_first_depth
-from repro_torch.optim.base import Optimizer, leaves, rebuild
+from repro_torch.models.base import (LomoPieces, layer_at, stack_len,
+                                     unit_first_depth)
+from repro_torch.optim.adafactor import (_moment_at, beta2_at, leaf_update,
+                                         moment_init)
+from repro_torch.optim.base import (Optimizer, clip_scale, global_sq_norm,
+                                    leaves, new_count, rebuild)
+from repro_torch.optim.mezo import mezo_step, prng_key
 from repro_torch.optim.mixed_precision import FP32, Policy
 
 PyTree = Any
@@ -169,6 +181,36 @@ class LiSAConfig:
 
 
 @dataclasses.dataclass
+class MeZOConfig:
+    eps: float = 1e-3                 # SPSA perturbation scale
+    seed: int = 0                     # default rng when init() gets none
+
+
+@dataclasses.dataclass
+class LOMOConfig:
+    grad_clip: float = 1.0            # global-norm clip threshold (0 = off);
+                                      # >0 adds the paper's second backward
+                                      # sweep to compute the norm first
+    weight_decay: float = 0.0         # decoupled, as in optim.sgd
+
+
+@dataclasses.dataclass
+class AdaLomoConfig:
+    grad_clip: float = 0.0            # global-norm clip (0 = off, the
+                                      # default: the per-matrix update-RMS
+                                      # clip below already bounds steps);
+                                      # >0 adds LOMO's norm-only sweep
+    weight_decay: float = 0.0         # decoupled, inside the leaf update
+    eps1: float = 1e-30               # Adafactor's gradient-square epsilon
+    clip_threshold: float = 1.0       # per-matrix update-RMS clip d
+    decay_rate: float = 0.8           # beta2 schedule 1 - t^-decay_rate
+    relative_step: bool = False       # alpha = lr * max(eps2, RMS(p)), RMS
+                                      # per trailing matrix (matrix_rms), so
+                                      # fused and fallback paths agree
+    eps2: float = 1e-3                # relative-step LR floor
+
+
+@dataclasses.dataclass
 class StreamConfig:
     """Chunk-granular state streaming (``core.pipeline.ChunkStream``).
 
@@ -176,7 +218,9 @@ class StreamConfig:
     layout's base tree (the params; congruent trees of wider dtypes move
     proportionally more bytes a chunk).  ``depth`` is the most chunks of
     each streamed tree on the device: depth-1 chunks of lookahead upload
-    while the active chunk's update runs.  Consumed by ``fpft_streamed``."""
+    while the active chunk's update runs.  Consumed by ``fpft_streamed``
+    and by the segment streaming of ``lomo``/``adalomo`` (``depth`` is
+    then their segment window; ``chunk_bytes`` does not apply)."""
     chunk_bytes: int = 1 << 20
     depth: int = 2
 
@@ -315,7 +359,10 @@ class Strategy:
         self.loss_fn = loss_fn or self.model.loss_fn
         self.device = resolve_device(device)
 
-    def init(self, params: PyTree) -> TrainState:
+    def init(self, params: PyTree, rng=None) -> TrainState:
+        """The strategy's :class:`TrainState` of ``params``.  ``rng`` (a
+        2-word uint32 key, the reference's ``PRNGKey``) seeds the
+        stochastic strategies (MeZO); the others ignore it."""
         raise NotImplementedError
 
     def step(self, state: TrainState, batch) -> tuple[TrainState, Metrics]:
@@ -338,8 +385,10 @@ class Strategy:
         records); floating optimizer leaves on the device, or in pinned
         host memory where bundles are offloaded on the card; step counts
         as CPU int64; HiFT's ``extra["order"]`` as an int64 numpy
-        array.  Synchronises the card first, so host buffers that another
-        runner's side streams still write are complete."""
+        array and MeZO's ``extra["rng"]`` as a 2-word uint32 numpy array
+        (the reference's key).  Synchronises the card first, so host
+        buffers that another runner's side streams still write are
+        complete."""
         pinned = self.offload_optimizer and self.device.type == "cuda"
         if torch.cuda.is_available() and torch.cuda.is_initialized():
             torch.cuda.synchronize()
@@ -352,6 +401,8 @@ class Strategy:
         extra = dict(state.extra or {})
         if "order" in extra:
             extra["order"] = np.asarray(extra["order"], np.int64)
+        if "rng" in extra:
+            extra["rng"] = np.asarray(extra["rng"], np.uint32)
         return TrainState(
             params=tree_map(lambda t: t.to(self.device), state.params),
             opt_state=tree_map(opt_leaf, state.opt_state),
@@ -360,6 +411,12 @@ class Strategy:
     def peak_trainable_params(self, params: PyTree) -> int:
         """Max #params trainable in any single step (paper Fig. 6e)."""
         return tree_size(params)
+
+    def peak_grad_params(self, params: PyTree) -> int:
+        """Max #params whose gradient is live at any instant of a step
+        (the paper's zeta_3 granularity).  Default: everything trainable
+        at once; MeZO has none, the fused backward one grain."""
+        return self.peak_trainable_params(params)
 
 
 # --------------------------------------------------- grouped-step machinery
@@ -540,7 +597,7 @@ class HiFTStrategy(_GroupedStrategy):
         self.order = order_groups(self.groups, self.hift.strategy,
                                   self.hift.seed)
 
-    def init(self, params: PyTree) -> TrainState:
+    def init(self, params: PyTree, rng=None) -> TrainState:
         return TrainState(self._resident_params(params), {}, 0,
                           {"order": np.asarray(self.order, np.int64)})
 
@@ -629,7 +686,7 @@ class LiSAStrategy(_GroupedStrategy):
         step = int(state.step) if step is None else step
         return self.groups[self.group_index_at(step)]
 
-    def init(self, params: PyTree) -> TrainState:
+    def init(self, params: PyTree, rng=None) -> TrainState:
         return TrainState(self._resident_params(params), {}, 0, {})
 
     def step(self, state: TrainState, batch) -> tuple[TrainState, Metrics]:
@@ -659,7 +716,7 @@ class FPFTStrategy(Strategy):
     # moment tree may be narrowed
     supports_quant_moments = True
 
-    def init(self, params: PyTree) -> TrainState:
+    def init(self, params: PyTree, rng=None) -> TrainState:
         params = self._place(params)
         if self.policy.name == "bf16":
             params = tree_cast(params, self.policy.param_dtype)
@@ -752,7 +809,7 @@ class StreamedFPFTStrategy(FPFTStrategy):
         keys = sorted(streamed)
         return dict(zip(keys, pinned_trees([streamed[k] for k in keys])))
 
-    def init(self, params: PyTree) -> TrainState:
+    def init(self, params: PyTree, rng=None) -> TrainState:
         if self.device.type == "cpu":
             return super().init(params)    # host_put is the identity here
         params = self._place(params)
@@ -838,15 +895,771 @@ class StreamedFPFTStrategy(FPFTStrategy):
                 {"loss": loss, "lr": lr, "strategy": self.name})
 
 
+# ------------------------------------------------------------------- MeZO
+
+@register_strategy("mezo")
+class MeZOStrategy(Strategy):
+    """Zeroth-order SPSA fine-tuning (MeZO, Malladi et al. 2023): two
+    forward passes, no backward, no optimizer state — memory ~= inference
+    (``optim.mezo``).  ``opt_state`` stays empty and the key rides in
+    ``extra["rng"]`` (the reference's 2-word uint32 key); each step's z is
+    regenerated from ``(key, step)``, so resume is exact.  The step
+    perturbs the params in place on the card; on the CPU it perturbs a
+    copy, leaving its input state untouched.
+
+    ``noise``: a seam that holds the port to the reference and the card to
+    the CPU, ``noise(rng, step) -> (path, index) -> z``; it replaces the
+    generator of ``optim.mezo.mezo_step`` and is never the default."""
+
+    name = "mezo"
+    memory_mode = "mezo"
+
+    def __init__(self, cfg, optimizer=None, *,
+                 mezo: Optional[MeZOConfig] = None,
+                 noise: Optional[Callable] = None, **kw):
+        super().__init__(cfg, optimizer, **kw)
+        self.mezo = mezo if mezo is not None else MeZOConfig()
+        self._noise = noise
+        self._stacked = tuple(u.key for u in self.model.unit_spec(cfg)
+                              if u.kind == "stacked")
+
+    def init(self, params: PyTree, rng=None) -> TrainState:
+        if rng is None:
+            rng = prng_key(self.mezo.seed)
+        return TrainState(self._place(params), {}, 0,
+                          {"rng": np.asarray(rng, np.uint32)})
+
+    def step(self, state: TrainState, batch) -> tuple[TrainState, Metrics]:
+        step = int(state.step)
+        rng = np.asarray(state.extra["rng"], np.uint32)
+        lr = self.schedule.at_cycle(step)
+        cfg, dtype = self.cfg, self.policy.compute_dtype
+        params, loss = mezo_step(
+            lambda p, b: self.loss_fn(cfg, p, b, compute_dtype=dtype),
+            _own(state.params), _batch_to(batch, self.device),
+            (*(int(w) for w in rng), step), lr, self.mezo.eps,
+            stacked=self._stacked,
+            noise=self._noise(rng, step) if self._noise else None)
+        return (TrainState(params, state.opt_state, step + 1, state.extra),
+                {"loss": loss, "lr": lr, "strategy": self.name})
+
+    def peak_grad_params(self, params: PyTree) -> int:
+        return 0            # two forward passes, no backward at all
+
+
+def _own(tree: PyTree) -> PyTree:
+    """The tree a step may update in place: the tree itself on the card
+    (the step consumes its input state), a copy on the CPU (the step is
+    pure there)."""
+    leaves_ = list(flatten_with_paths(tree).values())
+    if leaves_ and leaves_[0].device.type == "cpu":
+        return tree_map(torch.clone, tree)
+    return tree
+
+
+# ----------------------------------------------------- fused backward: LOMO
+#
+# The reference's fused backward is a forward scan that saves each layer's
+# input and a hand-rolled reverse scan whose body runs one layer's vjp and
+# consumes its gradient at once.  Here: the forward runs without a graph,
+# saving each layer's input; one graph covers the head and the loss; the
+# reverse loop recomputes one layer under autograd, takes its gradient
+# with ``torch.autograd.grad``, updates the layer's slice of the stacked
+# leaves in place and drops the graph.  At any instant one layer's
+# gradient and graph are live.  Under ``grad_clip > 0`` a norm-only sweep
+# runs first (the head's graph retained for the second), and the clip
+# scale stays a device tensor: nothing is read back inside a step.
+
+def _sq(tree: PyTree):
+    """Squared norm of a gradient tree (0 for None)."""
+    return global_sq_norm(tree) if tree is not None else 0.0
+
+
+def _tadd(a, b):
+    """Leafwise add of two trees (or tensors), None-transparent."""
+    if a is None:
+        return b
+    if b is None:
+        return a
+    if isinstance(a, torch.Tensor):
+        return a + b
+    fb = flatten_with_paths(b)
+    return unflatten_from_paths({p: x + fb[p] for p, x in
+                                 flatten_with_paths(a).items()})
+
+
+class _Leaves:
+    """Autograd leaves sharing ``tree``'s storage (``tree`` may be None).
+    Gradients come from ``torch.autograd.grad``, so no ``.grad`` is left
+    behind and an in-place update of ``tree`` after the call is safe."""
+
+    def __init__(self, tree: PyTree):
+        self.paths, self.list, self.tree = [], [], None
+        if tree is not None:
+            self.paths, (flat,) = leaves(tree)
+            self.list = [t.detach().requires_grad_(True) for t in flat]
+            self.tree = rebuild(self.paths, self.list)
+
+    def grads(self, gs) -> Optional[PyTree]:
+        """The tree of ``gs`` (one per leaf, None = unused, a zero); None
+        when no leaf was used."""
+        if not self.paths or all(g is None for g in gs):
+            return None
+        return rebuild(self.paths, [torch.zeros_like(t) if g is None else g
+                                    for t, g in zip(self.list, gs)])
+
+
+def _save_inputs(fn: Callable, stack: PyTree, h: torch.Tensor):
+    """Run ``h`` through every layer of ``stack`` (``fn(layer_p, h)``)
+    without a graph: ``(each layer's input, the output)``."""
+    saved = []
+    with torch.no_grad():
+        for j in range(stack_len(stack)):
+            saved.append(h)
+            h = fn(layer_at(stack, j), h)
+    return saved, h
+
+
+def _head(head_loss_fn: Callable, hp: PyTree, emb: _Leaves,
+          h: torch.Tensor, batch):
+    """The one graph over ``(head_p, embed_p, h_out)``: ``(loss, vjp)``
+    with ``vjp(retain) -> (g_head, g_embed_from_head, dh)``;
+    ``g_embed_from_head`` is None for an untied head."""
+    head = _Leaves(hp)
+    h = h.detach().requires_grad_(True)
+    with torch.enable_grad():
+        loss = head_loss_fn(head.tree, emb.tree, h, batch)
+
+    def vjp(retain: bool):
+        nh, ne = len(head.list), len(emb.list)
+        gs = torch.autograd.grad(loss, head.list + emb.list + [h],
+                                 allow_unused=True, retain_graph=retain)
+        return head.grads(gs[:nh]), emb.grads(gs[nh:nh + ne]), gs[-1]
+
+    return loss.detach(), vjp
+
+
+def _sgd_tree(params: PyTree, grads: Optional[PyTree], lr, scale,
+              weight_decay: float) -> None:
+    """In place on each leaf of ``params``: the exact update of
+    ``optim.sgd`` with pre-scaled (clipped) gradients, ``p - lr * (g *
+    scale + weight_decay * p)`` in fp32.  ``grads`` None is a zero
+    gradient: only the decay moves ``p``."""
+    flat_g = flatten_with_paths(grads) if grads is not None else {}
+    with torch.no_grad():
+        for path, p in flatten_with_paths(params).items():
+            g = flat_g.get(path)
+            if g is None and not weight_decay:
+                continue
+            p32 = p.float()
+            if g is None:
+                u = weight_decay * p32
+            else:
+                u = (g * scale).to(g.dtype).float()
+                if weight_decay:
+                    u = u + weight_decay * p32
+            p.copy_(p32 - lr * u)
+
+
+def _lomo_fused_body(cfg, pieces, grad_clip: float,
+                     weight_decay: float) -> Callable:
+    """The fused step for families exposing the dense 3-tuple
+    ``lomo_pieces``: ``step(params, batch, lr) -> (params, loss,
+    grad_norm)``, updating ``params`` in place.
+
+    The tied head's order is the reference's: the head-side embedding
+    gradient is consumed first, as its own SGD increment carrying the
+    weight decay (``ep_mid``); the gather-side increment comes after the
+    reverse sweep, without decay (SGD is linear in the gradient, so the
+    two increments are one step).  The reported norm drops their cross
+    term (exact for untied heads); the clip scale never uses it — the
+    norm-only sweep sums the two embedding gradients elementwise, keeping
+    the head-side one live beside one layer's gradient."""
+    embed_fn, block_fn, head_loss_fn = pieces
+
+    def step(params, batch, lr):
+        ep, lp, hp = params["embed"], params["layers"], params["head"]
+        emb = _Leaves(ep)
+        with torch.enable_grad():
+            h0 = embed_fn(emb.tree, batch)
+        resid, h = _save_inputs(block_fn, lp, h0.detach())
+        loss, head_vjp = _head(head_loss_fn, hp, emb, h, batch)
+        del h
+
+        def layer_vjp(i, dh):
+            lyr = _Leaves(layer_at(lp, i))
+            x = resid[i].detach().requires_grad_(True)
+            with torch.enable_grad():
+                out = block_fn(lyr.tree, x)
+            *g, dx = torch.autograd.grad(out, lyr.list + [x], dh)
+            return lyr.grads(g), dx
+
+        def gather_vjp(dh0, retain):
+            return emb.grads(torch.autograd.grad(
+                h0, emb.list, dh0, allow_unused=True, retain_graph=retain))
+
+        def norm_sweep():
+            g_head, g_emb_h, dh = head_vjp(True)
+            sq = _sq(g_head)
+            del g_head
+            for i in reversed(range(len(resid))):
+                g, dh = layer_vjp(i, dh)
+                sq = sq + _sq(g)
+                del g
+            return sq + _sq(_tadd(gather_vjp(dh, True), g_emb_h))
+
+        def update_sweep(scale):
+            g_head, g_emb_h, dh = head_vjp(False)
+            _sgd_tree(hp, g_head, lr, scale, weight_decay)
+            sq = _sq(g_head)
+            del g_head
+            sq_emb_h = _sq(g_emb_h)
+            _sgd_tree(ep, g_emb_h, lr, scale, weight_decay)    # ep_mid
+            del g_emb_h
+            for i in reversed(range(len(resid))):
+                g, dh = layer_vjp(i, dh)
+                sq = sq + _sq(g)
+                _sgd_tree(layer_at(lp, i), g, lr, scale, weight_decay)
+                del g
+            g_gather = gather_vjp(dh, False)
+            _sgd_tree(ep, g_gather, lr, scale, 0.0)
+            return sq + sq_emb_h + _sq(g_gather)
+
+        if grad_clip and grad_clip > 0:
+            sq = norm_sweep()
+            update_sweep(clip_scale(grad_clip, sq))
+        else:
+            sq = update_sweep(1.0)
+        return params, loss, torch.sqrt(sq)
+
+    return step
+
+
+# ------------------------------------------- staged pieces (LomoPieces)
+#
+# The generalized fused-backward driver for the staged ``LomoPieces``
+# protocol (dense AdaLomo through ``from_embed_block_head``; the later
+# families).  One forward saves per-stage layer inputs; the reverse walk
+# recomputes one layer at a time and hands its gradient to a ``consume``
+# callback (SGD update, Adafactor update, or norm-only reduction), so
+# gradient residency stays one fused grain plus the small accumulating
+# segments (embed, shared, the side cotangent).
+
+
+def _pieces_forward(pieces: LomoPieces, ep, stages, sp, hp, batch):
+    """The segmented forward: ``(loss, head_vjp, emb, saved)`` with
+    ``saved[i]`` stage i's layer inputs, its side input and the graph of
+    its ``stage_inits`` over ``(embed_p, prev_stage_out)``."""
+    emb = _Leaves(ep)
+    saved, prev = [], None
+    for i, fn in enumerate(pieces.stage_fns):
+        prev_in = None if prev is None else prev.detach().requires_grad_(True)
+        with torch.enable_grad():
+            h0, side = pieces.stage_inits[i](emb.tree, prev_in, batch)
+        side_in = None if side is None else side.detach()
+        resid, prev = _save_inputs(
+            lambda lp, h, fn=fn, s=side_in: fn(lp, sp, s, h), stages[i],
+            h0.detach())
+        saved.append(dict(resid=resid, side=side_in, h0=h0, side_out=side,
+                          prev_in=prev_in))
+    loss, head_vjp = _head(pieces.head_loss_fn, hp, emb, prev, batch)
+    return loss, head_vjp, emb, saved
+
+
+def _pieces_reverse(pieces: LomoPieces, sp, stages, emb: _Leaves, saved,
+                    dh, consume: Callable, stage_extra=None,
+                    retain: bool = False):
+    """Walk every stage's layers last to first, consuming gradients.
+
+    ``consume(i, layer_p, g_layer, extra_slice) -> squared norm`` runs
+    with ONE layer's gradient; ``stage_extra[i]`` is a stacked tree sliced
+    beside the layer (AdaLomo's moments).  Shared-segment and side
+    cotangents accumulate; each stage-init graph chains ``dh`` backwards
+    and yields its embedding gradient (``retain`` keeps those graphs for a
+    second sweep).  Returns ``(g_embed_from_inits, g_shared, sum of
+    consume's values)``."""
+    g_emb = g_sh = None
+    sq = 0.0
+    for i in reversed(range(len(pieces.stage_fns))):
+        st, fn = saved[i], pieces.stage_fns[i]
+        dside = None
+        for j in reversed(range(len(st["resid"]))):
+            lp = layer_at(stages[i], j)
+            lyr, sh = _Leaves(lp), _Leaves(sp)
+            side = (None if st["side"] is None
+                    else st["side"].detach().requires_grad_(True))
+            x = st["resid"][j].detach().requires_grad_(True)
+            with torch.enable_grad():
+                out = fn(lyr.tree, sh.tree, side, x)
+            ins = lyr.list + sh.list + ([side] if side is not None else [])
+            gs = torch.autograd.grad(out, ins + [x], dh, allow_unused=True)
+            nl, ns = len(lyr.list), len(sh.list)
+            g_layer, dh = lyr.grads(gs[:nl]), gs[-1]
+            g_sh = _tadd(g_sh, sh.grads(gs[nl:nl + ns]))
+            if side is not None:
+                dside = _tadd(dside, gs[nl + ns])
+            ex = None if stage_extra is None else layer_at(stage_extra[i], j)
+            sq = sq + consume(i, lp, g_layer, ex)
+            del g_layer, gs
+        outs, cots = [st["h0"]], [dh]
+        if st["side_out"] is not None and dside is not None:
+            outs.append(st["side_out"])
+            cots.append(dside)
+        prev = [st["prev_in"]] if st["prev_in"] is not None else []
+        gs = torch.autograd.grad(outs, emb.list + prev, cots,
+                                 allow_unused=True, retain_graph=retain)
+        g_emb = _tadd(g_emb, emb.grads(gs[:len(emb.list)]))
+        dh = gs[-1] if prev else None
+    return g_emb, g_sh, sq
+
+
+def _lomo_pieces_body(cfg, pieces: LomoPieces, grad_clip: float,
+                      weight_decay: float) -> Callable:
+    """The staged fused step with LOMO's SGD update (the same two-sweep
+    clipping as ``_lomo_fused_body``).  The embedding (and a shared
+    segment) takes one update with its summed gradient after the sweep."""
+
+    def step(params, batch, lr):
+        ep, stages, sp, hp = pieces.split(params)
+        loss, head_vjp, emb, saved = _pieces_forward(pieces, ep, stages, sp,
+                                                     hp, batch)
+
+        def sweep(scale, retain):
+            """scale None -> norm only (every gradient reduced, then
+            dropped)."""
+            update = scale is not None
+            g_head, g_emb_head, dh = head_vjp(retain)
+            sq = _sq(g_head)
+            if update:
+                _sgd_tree(hp, g_head, lr, scale, weight_decay)
+            del g_head
+
+            def consume(i, lp, g, ex):
+                if update:
+                    _sgd_tree(lp, g, lr, scale, weight_decay)
+                return _sq(g)
+
+            g_emb, g_sh, sq_layers = _pieces_reverse(
+                pieces, sp, stages, emb, saved, dh, consume, retain=retain)
+            g_emb = _tadd(g_emb, g_emb_head)   # tied heads
+            if update:
+                _sgd_tree(ep, g_emb, lr, scale, weight_decay)
+                if sp is not None:
+                    _sgd_tree(sp, g_sh, lr, scale, weight_decay)
+            return sq + sq_layers + _sq(g_emb) + _sq(g_sh)
+
+        if grad_clip and grad_clip > 0:
+            sq = sweep(None, True)
+            sweep(clip_scale(grad_clip, sq), False)
+        else:
+            sq = sweep(1.0, False)
+        return params, loss, torch.sqrt(sq)
+
+    return step
+
+
+def _segment_pullback(cfg, loss_fn: Callable, compute_dtype, params, batch):
+    """The generic fallback's backward: one graph of ``loss_fn`` over the
+    top-level segments.  ``(loss, keys, pullback)`` with ``pullback(retain)
+    -> {segment: gradient tree or None}`` (None: no leaf used)."""
+    keys = list(params)
+    segs = {key: _Leaves(params[key]) for key in keys}
+    with torch.enable_grad():
+        loss = loss_fn(cfg, {key: segs[key].tree for key in keys}, batch,
+                       compute_dtype=compute_dtype)
+
+    def pullback(retain: bool) -> dict:
+        flat = [t for key in keys for t in segs[key].list]
+        gs = torch.autograd.grad(loss, flat, allow_unused=True,
+                                 retain_graph=retain)
+        out, o = {}, 0
+        for key in keys:
+            n = len(segs[key].list)
+            out[key] = segs[key].grads(gs[o:o + n])
+            o += n
+        return out
+
+    return loss.detach(), keys, pullback
+
+
+def _lomo_generic_body(cfg, loss_fn: Callable, compute_dtype,
+                       grad_clip: float, weight_decay: float) -> Callable:
+    """Fallback for families without ``lomo_pieces`` (or a custom
+    ``loss_fn``): one backward over the tuple of top-level segments,
+    consumed in cotangent (head-first) order.  Its one backward returns
+    every segment's gradient at once."""
+
+    def step(params, batch, lr):
+        loss, keys, pullback = _segment_pullback(cfg, loss_fn, compute_dtype,
+                                                 params, batch)
+
+        def sweep(scale, retain):
+            grads = pullback(retain)
+            sq = 0.0
+            for key in reversed(keys):
+                sq = sq + _sq(grads[key])
+                if scale is not None:
+                    _sgd_tree(params[key], grads[key], lr, scale,
+                              weight_decay)
+                grads[key] = None
+            return sq
+
+        if grad_clip and grad_clip > 0:
+            sq = sweep(None, True)
+            sweep(clip_scale(grad_clip, sq), False)
+        else:
+            sq = sweep(1.0, False)
+        return params, loss, torch.sqrt(sq)
+
+    return step
+
+
+def lomo_step_body(cfg, policy: Policy = FP32,
+                   loss_fn: Optional[Callable] = None,
+                   lomo: Optional[LOMOConfig] = None,
+                   pieces=None) -> Callable:
+    """The LOMO step ``step(params, batch, lr) -> (params, loss,
+    grad_norm)``, updating ``params`` in place.  Dispatches to the
+    per-layer fused backward when the family exposes ``lomo_pieces`` and
+    no custom ``loss_fn`` overrides the forward (staged ``LomoPieces`` ->
+    the staged driver, the dense 3-tuple -> its own body), otherwise to
+    the segment fallback.  ``pieces``: the family's pieces, already
+    resolved by the caller."""
+    lomo = lomo if lomo is not None else LOMOConfig()
+    model = get_family(cfg)
+    if loss_fn is None:
+        if pieces is None and hasattr(model, "lomo_pieces"):
+            pieces = model.lomo_pieces(cfg,
+                                       compute_dtype=policy.compute_dtype)
+        if isinstance(pieces, LomoPieces):
+            return _lomo_pieces_body(cfg, pieces, lomo.grad_clip,
+                                     lomo.weight_decay)
+        if pieces is not None:
+            return _lomo_fused_body(cfg, pieces, lomo.grad_clip,
+                                    lomo.weight_decay)
+    return _lomo_generic_body(cfg, loss_fn or model.loss_fn,
+                              policy.compute_dtype, lomo.grad_clip,
+                              lomo.weight_decay)
+
+
+# -------------------------------------------------- fused backward: AdaLomo
+
+def adalomo_init_opt_state(cfg, params: PyTree) -> PyTree:
+    """AdaLomo's resident optimizer state: Adafactor's factored second
+    moments for every leaf plus the step count (a CPU int64).  Stacked
+    segments (the family's ``unit_spec``) factor PER LAYER: a ``(L, r,
+    c)`` leaf keeps ``vr (L, r)`` and ``vc (L, c)``, a stacked ``(L, d)``
+    vector a full per-layer ``v``."""
+    model = get_family(cfg)
+    stacked = {u.key for u in model.unit_spec(cfg) if u.kind == "stacked"}
+    moments = {
+        key: tree_map(lambda p, _s=(key in stacked): moment_init(p,
+                                                                 stacked=_s),
+                      sub)
+        for key, sub in params.items()}
+    return {"moments": moments, "count": new_count()}
+
+
+def _ada_tree(params: PyTree, grads: Optional[PyTree], moms: PyTree, lr,
+              beta2, scale, acfg: AdaLomoConfig) -> None:
+    """In place on ``params`` and ``moms``: one Adafactor update per leaf
+    with pre-scaled (clipped) gradients (None = zero).  ``matrix_rms``
+    takes the update-RMS clip per trailing matrix, so a whole stacked
+    segment (fallback) and its per-layer slices (fused) get the same
+    arithmetic."""
+    flat_g = flatten_with_paths(grads) if grads is not None else {}
+    with torch.no_grad():
+        for path, p in flatten_with_paths(params).items():
+            g = flat_g.get(path)
+            g = torch.zeros_like(p) if g is None else (g * scale).to(g.dtype)
+            mom = _moment_at(moms, path)
+            new_p, new_m = leaf_update(
+                p, g, mom, lr, beta2, eps1=acfg.eps1,
+                clip_threshold=acfg.clip_threshold,
+                weight_decay=acfg.weight_decay, matrix_rms=True,
+                relative_step=acfg.relative_step, eps2=acfg.eps2)
+            p.copy_(new_p)
+            for k, v in new_m.items():
+                mom[k].copy_(v)
+
+
+def _adalomo_pieces_body(cfg, pieces: LomoPieces,
+                         acfg: AdaLomoConfig) -> Callable:
+    """The fused AdaLomo step ``step(params, opt_state, batch, lr) ->
+    (params, opt_state, loss, grad_norm)``, updating params and moments in
+    place: LOMO's reverse walk, each layer's gradient feeding an Adafactor
+    update of its slice of the stacked moments.  The head updates as soon
+    as its gradient exists; the embedding (and a shared segment), whose
+    gradient accumulates over the walk, updates once after it — Adafactor
+    is nonlinear in the gradient, so LOMO's increments do not apply."""
+
+    def step(params, opt_state, batch, lr):
+        ep, stages, sp, hp = pieces.split(params)
+        ep_m, stage_ms, sp_m, hp_m = pieces.split(opt_state["moments"])
+        count = opt_state["count"] + 1
+        beta2 = beta2_at(count, acfg.decay_rate)
+        loss, head_vjp, emb, saved = _pieces_forward(pieces, ep, stages, sp,
+                                                     hp, batch)
+
+        def sweep(scale, retain):
+            update = scale is not None
+            g_head, g_emb_head, dh = head_vjp(retain)
+            sq = _sq(g_head)
+            if update:
+                _ada_tree(hp, g_head, hp_m, lr, beta2, scale, acfg)
+            del g_head
+
+            def consume(i, lp, g, mom):
+                if update:
+                    _ada_tree(lp, g, mom, lr, beta2, scale, acfg)
+                return _sq(g)
+
+            g_emb, g_sh, sq_layers = _pieces_reverse(
+                pieces, sp, stages, emb, saved, dh, consume,
+                stage_extra=stage_ms, retain=retain)
+            g_emb = _tadd(g_emb, g_emb_head)
+            if update:
+                _ada_tree(ep, g_emb, ep_m, lr, beta2, scale, acfg)
+                if sp is not None:
+                    _ada_tree(sp, g_sh, sp_m, lr, beta2, scale, acfg)
+            return sq + sq_layers + _sq(g_emb) + _sq(g_sh)
+
+        if acfg.grad_clip and acfg.grad_clip > 0:
+            sq = sweep(None, True)
+            sweep(clip_scale(acfg.grad_clip, sq), False)
+        else:
+            sq = sweep(1.0, False)
+        return (params, {"moments": opt_state["moments"], "count": count},
+                loss, torch.sqrt(sq))
+
+    return step
+
+
+def _adalomo_generic_body(cfg, loss_fn: Callable, compute_dtype,
+                          acfg: AdaLomoConfig) -> Callable:
+    """Fallback for families without ``lomo_pieces`` (or a custom
+    ``loss_fn``): LOMO's segment backward with the Adafactor update per
+    top-level segment — the fused path's arithmetic (stacked-aware
+    moments, per-matrix RMS), coarser gradient liveness."""
+
+    def step(params, opt_state, batch, lr):
+        count = opt_state["count"] + 1
+        beta2 = beta2_at(count, acfg.decay_rate)
+        moms = opt_state["moments"]
+        loss, keys, pullback = _segment_pullback(cfg, loss_fn, compute_dtype,
+                                                 params, batch)
+
+        def sweep(scale, retain):
+            grads = pullback(retain)
+            sq = 0.0
+            for key in reversed(keys):
+                sq = sq + _sq(grads[key])
+                if scale is not None:
+                    _ada_tree(params[key], grads[key], moms[key], lr, beta2,
+                              scale, acfg)
+                grads[key] = None
+            return sq
+
+        if acfg.grad_clip and acfg.grad_clip > 0:
+            sq = sweep(None, True)
+            sweep(clip_scale(acfg.grad_clip, sq), False)
+        else:
+            sq = sweep(1.0, False)
+        return (params, {"moments": moms, "count": count}, loss,
+                torch.sqrt(sq))
+
+    return step
+
+
+def adalomo_step_body(cfg, policy: Policy = FP32,
+                      loss_fn: Optional[Callable] = None,
+                      adalomo: Optional[AdaLomoConfig] = None,
+                      pieces=None) -> Callable:
+    """The AdaLomo step ``step(params, opt_state, batch, lr) -> (params,
+    opt_state, loss, grad_norm)`` with ``opt_state`` from
+    :func:`adalomo_init_opt_state`, updating both in place.  Dispatches as
+    :func:`lomo_step_body`; the dense 3-tuple is adapted to the staged
+    driver (``LomoPieces.from_embed_block_head``)."""
+    acfg = adalomo if adalomo is not None else AdaLomoConfig()
+    model = get_family(cfg)
+    if loss_fn is None:
+        if pieces is None and hasattr(model, "lomo_pieces"):
+            pieces = model.lomo_pieces(cfg,
+                                       compute_dtype=policy.compute_dtype)
+        if pieces is not None:
+            if not isinstance(pieces, LomoPieces):
+                pieces = LomoPieces.from_embed_block_head(*pieces)
+            return _adalomo_pieces_body(cfg, pieces, acfg)
+    return _adalomo_generic_body(cfg, loss_fn or model.loss_fn,
+                                 policy.compute_dtype, acfg)
+
+
+class _FusedBackwardStrategy(Strategy):
+    """Shared machinery of ``lomo`` and ``adalomo``: the one-time
+    ``lomo_pieces`` resolution (fused path or segment fallback, and the
+    fused grain the memory accounting reads), the gradient-residency
+    accounting, and the opt-in segment streaming.
+
+    On the card a step updates the params (and AdaLomo's moments) in
+    place; on the CPU it updates copies and leaves its input state
+    untouched."""
+
+    def __init__(self, cfg, optimizer=None, *,
+                 stream: Optional[StreamConfig] = None, **kw):
+        # quant and cross_pod reach the base class, which rejects them: the
+        # fused backward has no frozen tree to encode, no moment tree to
+        # narrow and no whole-gradient tree to reduce
+        super().__init__(cfg, optimizer, **kw)
+        loss_fn = kw.get("loss_fn")
+        self._fused = loss_fn is None and hasattr(self.model, "lomo_pieces")
+        self._pieces = None
+        if self._fused:
+            self._pieces = self.model.lomo_pieces(
+                cfg, compute_dtype=self.policy.compute_dtype)
+            if isinstance(self._pieces, LomoPieces):
+                self.memory_m = self._pieces.liveness_m
+        self.stream = stream
+        self._seg_pipe = (BundlePipeline(stream.depth, device=self.device)
+                          if stream is not None else None)
+
+    def _resident(self, params: PyTree) -> PyTree:
+        params = self._place(params)
+        if self.policy.name == "bf16":
+            params = tree_cast(params, self.policy.param_dtype)
+        return params
+
+    def _stream_in(self, tree: PyTree, prefix: str) -> PyTree:
+        """Upload a dict of segments through the bounded window
+        (``stream=StreamConfig(depth=...)``; the identity when streaming
+        is off): depth-1 segment uploads stay in flight ahead of the one
+        fetched.  Keys are ``prefix:segment``, so params and moments share
+        one window.  This bounds transfer staging, not the step's
+        residency: the step consumes the whole uploaded tree."""
+        pipe = self._seg_pipe
+        if pipe is None or not tree:
+            return tree
+        keys = list(tree)
+        out = {}
+        for i, key in enumerate(keys):
+            for j in range(i, min(i + pipe.depth - 1, len(keys))):
+                kj = f"{prefix}:{keys[j]}"
+                if not pipe.holds(kj, tree[keys[j]]):
+                    pipe.prefetch(kj, tree[keys[j]])
+            out[key] = pipe.fetch(f"{prefix}:{key}", tree[key])
+        return out
+
+    def _stream_out(self, tree: PyTree, prefix: str,
+                    into: PyTree) -> PyTree:
+        """Deferred host offload of a step's output segments (the identity
+        when streaming is off), into ``into``'s pinned buffers where they
+        fit: the copies drain while the next step runs."""
+        pipe = self._seg_pipe
+        if pipe is None or not tree:
+            return tree
+        return {key: pipe.offload(f"{prefix}:{key}", sub, into=into.get(key))
+                for key, sub in tree.items()}
+
+    def peak_grad_params(self, params: PyTree) -> int:
+        if self._fused:
+            # one fused grain's gradient at a time (memory_m units)
+            units = self.model.unit_spec(self.cfg)
+            return max(tree_size(split_params(params, g)[0])
+                       for g in make_groups(units, self.memory_m))
+        # the fallback's one backward returns every segment's gradient
+        return tree_size(params)
+
+
+@register_strategy("lomo")
+class LOMOStrategy(_FusedBackwardStrategy):
+    """LOMO (Lv et al. 2023): full-parameter SGD with the update fused into
+    the backward.  Numerically one plain SGD step on all parameters
+    (gradients at the pre-step params, clipped by global norm), but no
+    full gradient tree is ever resident, and the optimizer state is empty
+    (``memory_model`` mode ``lomo``).  The optimizer argument is accepted
+    for registry uniformity and ignored; SGD's hyper-parameters live in
+    :class:`LOMOConfig`.  Metrics add ``grad_norm``."""
+
+    name = "lomo"
+    memory_mode = "lomo"
+
+    def __init__(self, cfg, optimizer=None, *,
+                 lomo: Optional[LOMOConfig] = None, **kw):
+        super().__init__(cfg, optimizer, **kw)
+        self.lomo = lomo if lomo is not None else LOMOConfig()
+        self._body = lomo_step_body(cfg, policy=self.policy,
+                                    loss_fn=kw.get("loss_fn"),
+                                    lomo=self.lomo, pieces=self._pieces)
+
+    def init(self, params: PyTree, rng=None) -> TrainState:
+        return TrainState(self._resident(params), {}, 0, {})
+
+    def step(self, state: TrainState, batch) -> tuple[TrainState, Metrics]:
+        step = int(state.step)
+        lr = self.schedule.at_cycle(step)
+        params = _own(self._stream_in(state.params, "p"))
+        params, loss, gnorm = self._body(params,
+                                         _batch_to(batch, self.device), lr)
+        params = self._stream_out(params, "p", state.params)
+        return (TrainState(params, state.opt_state, step + 1, state.extra),
+                {"loss": loss, "lr": lr, "strategy": self.name,
+                 "grad_norm": gnorm})
+
+
+@register_strategy("adalomo")
+class AdaLomoStrategy(_FusedBackwardStrategy):
+    """AdaLomo (Lv et al. 2023): LOMO's fused backward with Adafactor's
+    adaptivity.  Each layer's gradient feeds a factored second-moment
+    update (``optim.adafactor.leaf_update`` with ``matrix_rms``) of that
+    layer the moment it exists, so no full gradient tree is resident; the
+    factored statistics, O(r+c) floats per (r, c) matrix, are the only
+    optimizer state (``opt_state = {"moments", "count"}``,
+    ``memory_model`` mode ``adalomo``).  Hyper-parameters live in
+    :class:`AdaLomoConfig`; the optimizer argument is ignored.  Metrics
+    add ``grad_norm``."""
+
+    name = "adalomo"
+    memory_mode = "adalomo"
+
+    def __init__(self, cfg, optimizer=None, *,
+                 adalomo: Optional[AdaLomoConfig] = None, **kw):
+        super().__init__(cfg, optimizer, **kw)
+        self.adalomo = adalomo if adalomo is not None else AdaLomoConfig()
+        self._body = adalomo_step_body(cfg, policy=self.policy,
+                                       loss_fn=kw.get("loss_fn"),
+                                       adalomo=self.adalomo,
+                                       pieces=self._pieces)
+
+    def init(self, params: PyTree, rng=None) -> TrainState:
+        params = self._resident(params)
+        return TrainState(params, adalomo_init_opt_state(self.cfg, params),
+                          0, {})
+
+    def step(self, state: TrainState, batch) -> tuple[TrainState, Metrics]:
+        step = int(state.step)
+        lr = self.schedule.at_cycle(step)
+        opt = state.opt_state
+        params = _own(self._stream_in(state.params, "p"))
+        moments = _own(self._stream_in(opt["moments"], "m"))
+        params, new_opt, loss, gnorm = self._body(
+            params, {"moments": moments, "count": opt["count"]},
+            _batch_to(batch, self.device), lr)
+        new_opt["moments"] = self._stream_out(new_opt["moments"], "m",
+                                              opt["moments"])
+        params = self._stream_out(params, "p", state.params)
+        return (TrainState(params, new_opt, step + 1, state.extra),
+                {"loss": loss, "lr": lr, "strategy": self.name,
+                 "grad_norm": gnorm})
+
+
 # ------------------------------------------------------------------ Runner
 
 class Runner:
     """Mutable facade over ``(strategy, TrainState)`` — the driver
     surface."""
 
-    def __init__(self, strategy: Strategy, params: PyTree):
+    def __init__(self, strategy: Strategy, params: PyTree, rng=None):
         self.strategy = strategy
-        self.state = strategy.init(params)
+        self.state = strategy.init(params, rng)
         self.last_metrics: Metrics = {}
 
     @property

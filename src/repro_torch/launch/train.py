@@ -1,6 +1,6 @@
 """Training launcher for a ported ``--arch`` (port of
-``repro.launch.train`` for the ported strategies: hift, hift_pipelined,
-lisa, fpft, fpft_streamed).
+``repro.launch.train`` for every strategy of the reference: hift,
+hift_pipelined, lisa, fpft, fpft_streamed, mezo, lomo, adalomo).
 
     python -m repro_torch.launch.train --arch llama2-7b --smoke --steps 8
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama2-7b \\
@@ -8,6 +8,7 @@ lisa, fpft, fpft_streamed).
     ... --strategy hift_pipelined [--pipeline-depth 3]
     ... --strategy lisa --switch-every 2
     ... --strategy fpft_streamed --stream-window 65536 --pipeline-depth 3
+    ... --strategy lomo [--grad-clip 0]    # adalomo, mezo likewise
 
 The reference's flags for the ported surface, plus ``--device`` (default
 ``cuda``; without a card it raises unless ``--device cpu``).  Weights are
@@ -26,7 +27,8 @@ import torch
 from repro_torch.common.device import resolve_device
 from repro_torch.common.pytree import tree_size
 from repro_torch.configs.registry import get_config
-from repro_torch.core import (HiFTConfig, LiSAConfig, LRSchedule,
+from repro_torch.core import (AdaLomoConfig, HiFTConfig, LiSAConfig,
+                              LOMOConfig, LRSchedule, MeZOConfig,
                               make_runner, registry)
 from repro_torch.data.synthetic import DataConfig, PrefetchIterator, SyntheticLM
 from repro_torch.models import get_family
@@ -52,6 +54,10 @@ def main(argv=None):
                     help="HiFT group visit order")
     ap.add_argument("--switch-every", type=int, default=5,
                     help="LiSA re-sampling period")
+    ap.add_argument("--grad-clip", type=float, default=None,
+                    help="lomo/adalomo global-norm clip (0 disables the norm "
+                         "sweep; default 1.0 for lomo, 0 for adalomo whose "
+                         "per-matrix update-RMS clip already bounds steps)")
     ap.add_argument("--fused-update", dest="fused_update",
                     action="store_true", default=None,
                     help="force the fused update kernels (adamw/sgdm/"
@@ -99,6 +105,14 @@ def main(argv=None):
     elif args.strategy == "lisa":
         kw["lisa"] = LiSAConfig(m=args.m, switch_every=args.switch_every,
                                 seed=args.seed)
+    elif args.strategy == "mezo":
+        kw["mezo"] = MeZOConfig(seed=args.seed)
+    elif args.strategy == "lomo":
+        kw["lomo"] = LOMOConfig(
+            grad_clip=1.0 if args.grad_clip is None else args.grad_clip)
+    elif args.strategy == "adalomo":
+        kw["adalomo"] = AdaLomoConfig(
+            grad_clip=0.0 if args.grad_clip is None else args.grad_clip)
     runner = make_runner(cfg, args.strategy, params=params,
                          optimizer=args.optimizer, seed=args.seed, **kw)
     if args.strategy in ("hift", "hift_pipelined", "lisa"):

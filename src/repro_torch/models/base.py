@@ -99,6 +99,70 @@ def _slice_layer(stack: PyTree, i: int) -> PyTree:
                     stack, is_leaf=is_quantized)
 
 
+# ---------------------------------------------------- fused-backward pieces
+
+@dataclasses.dataclass(frozen=True)
+class LomoPieces:
+    """Segmented forward contract for the fused-backward strategies
+    (``lomo`` / ``adalomo`` in ``repro_torch.core.strategy``), the
+    reference's ``LomoPieces``.
+
+    The strategy runs each stage's forward without a graph, saving only
+    each layer's INPUT, then walks the layers in reverse: one layer is
+    recomputed under autograd, its gradient is consumed (SGD- or
+    Adafactor-updated in place) and dropped before the next layer's
+    exists.  The pieces must reproduce the family's ``loss_fn`` exactly
+    (same ops), i.e. for every ``params``/``batch``::
+
+        ep, stages, sp, hp = pieces.split(params)
+        h, side = pieces.stage_inits[0](ep, None, batch)
+        for i in range(len(pieces.stage_keys)):
+            if i > 0:
+                h, side = pieces.stage_inits[i](ep, h, batch)
+            for j in range(stack_len(stages[i])):
+                h = pieces.stage_fns[i](layer_at(stages[i], j), sp, side, h)
+        loss = pieces.head_loss_fn(hp, ep, h, batch)   # == loss_fn(...)
+
+    Fields: ``stage_keys`` (forward order of the stacked trunk stages);
+    ``stage_fns[i]``: ``block(layer_p, shared_p, side, h) -> h`` for one
+    layer of stage i (``shared_p``: a segment reused by every block, None
+    for dense; ``side``: a per-stage constant activation, None for dense);
+    ``stage_inits[i]``: ``(embed_p, prev_stage_out, batch) -> (h0,
+    side)``; ``head_loss_fn``: ``(head_p, embed_p, h_final, batch) ->
+    loss``; ``split``: ``params -> (embed_p, stages, shared_p, head_p)``,
+    restructuring only leading dims, so it applies verbatim to AdaLomo's
+    param-shaped moment tree; ``merge``: its inverse; ``liveness_m``: the
+    consecutive units whose gradients are live in one fused grain."""
+    stage_keys: tuple
+    stage_fns: tuple
+    stage_inits: tuple
+    head_loss_fn: Callable
+    split: Callable
+    merge: Callable
+    shared_key: Optional[str] = None
+    liveness_m: int = 1
+
+    @classmethod
+    def from_embed_block_head(cls, embed_fn: Callable, block_fn: Callable,
+                              head_loss_fn: Callable) -> "LomoPieces":
+        """Adapt the dense 3-tuple contract (``transformer.lomo_pieces``:
+        ``embed_fn(embed_p, batch)``, ``block_fn(layer_p, h)``,
+        ``head_loss_fn(head_p, embed_p, h, batch)``) over an
+        ``{"embed", "layers", "head"}`` tree to the staged protocol."""
+        return cls(
+            stage_keys=("layers",),
+            stage_fns=(lambda lp, sp, side, h: block_fn(lp, h),),
+            stage_inits=(lambda ep, prev, batch: (embed_fn(ep, batch),
+                                                  None),),
+            head_loss_fn=head_loss_fn,
+            split=lambda params: (params["embed"], (params["layers"],), None,
+                                  params["head"]),
+            merge=lambda ep, stages, sp, hp: {"embed": ep,
+                                              "layers": stages[0],
+                                              "head": hp},
+        )
+
+
 def n_layers_of(layers) -> int:
     return len(layers) if isinstance(layers, LayerStack) else stack_len(layers)
 

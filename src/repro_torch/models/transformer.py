@@ -3,7 +3,8 @@
 Port of ``repro.models.transformer`` with the same param dict and cache
 layouts.  Training: ``unit_spec``, ``apply`` and ``loss_fn`` (the chunked
 plain-torch attention and cross-entropy, as the reference trains; the
-HiFT cut detaches below the active group).  Serving: ``init``,
+HiFT cut detaches below the active group), and ``lomo_pieces``, the same
+loss in segments for the fused-backward strategies.  Serving: ``init``,
 ``head_weight``, ``init_cache``, ``prefill``, ``decode_step`` and
 ``paged_decode_step``, whose every attention goes through
 ``repro_torch.kernels.flash_attention``: on CUDA tensors a hand-written
@@ -191,6 +192,38 @@ def loss_fn(cfg: ArchConfig, params: PyTree, batch, cut: Optional[int] = None,
               return_hidden=True)
     return chunked_next_token_xent(h, head_weight(cfg, params),
                                    batch["labels"], chunk=cfg.ce_chunk or None)
+
+
+def lomo_pieces(cfg: ArchConfig, compute_dtype=torch.bfloat16):
+    """Segmented forward for the fused-backward strategies (``lomo``,
+    ``adalomo``): ``(embed_fn, block_fn, head_loss_fn)`` such that
+
+        h0   = embed_fn(params["embed"], batch)
+        h    = block_fn(layer i of params["layers"], h)   # i = 0..n-1
+        loss = head_loss_fn(params["head"], params["embed"], h, batch)
+
+    is ``loss_fn(cfg, params, batch)`` with the same ops: the embedding
+    lookup and cast, ``_block`` with the same rope table, the final norm
+    and the chunked cross-entropy against ``head_weight``.  The embedding
+    reaches ``head_loss_fn`` because a tied head reads it."""
+    _check_family(cfg)
+    _, norm = _norm_fns(cfg)
+
+    def embed_fn(embed_p, batch):
+        return embed_lookup(embed_p["tok"], batch["tokens"]).to(compute_dtype)
+
+    def block_fn(layer_p, h):
+        cos, sin = _rope(cfg, h.shape[1], h.device)
+        return _block(cfg, cos, sin)(h, layer_p)
+
+    def head_loss_fn(head_p, embed_p, h, batch):
+        from repro_torch.models.losses import chunked_next_token_xent
+        h = norm(head_p["final_norm"], h)
+        w = head_weight(cfg, {"embed": embed_p, "head": head_p})
+        return chunked_next_token_xent(h, w, batch["labels"],
+                                       chunk=cfg.ce_chunk or None)
+
+    return embed_fn, block_fn, head_loss_fn
 
 
 # ---------------------------------------------------------------- serving

@@ -348,9 +348,9 @@ def save_state(ckpt_dir, step: int, state, keep: int = 3,
 
 def restore_state(ckpt_dir, step: int, *, mesh=None, strategy=None):
     """Inverse of :func:`save_state`: a ``TrainState`` of CPU tensors (the
-    step an int, ``extra["order"]`` an int64 numpy array).  The elastic
-    resize onto another mesh (``mesh=``/``strategy=``) is not ported
-    yet."""
+    step an int, ``extra["order"]`` an int64 numpy array, ``extra["rng"]``
+    a uint32 one).  The elastic resize onto another mesh
+    (``mesh=``/``strategy=``) is not ported yet."""
     if mesh is not None or strategy is not None:
         raise NotImplementedError("restore_state(mesh=..., strategy=...) "
                                   "(the elastic resize) is not ported yet")
@@ -359,6 +359,8 @@ def restore_state(ckpt_dir, step: int, *, mesh=None, strategy=None):
     extra = dict(tree.get("extra") or {})
     if "order" in extra:
         extra["order"] = np.asarray(extra["order"], np.int64)
+    if "rng" in extra:
+        extra["rng"] = np.asarray(extra["rng"], np.uint32)
     tree["extra"] = extra
     return TrainState.from_tree(tree)
 

@@ -314,6 +314,44 @@ def test_jax_pipelined_checkpoint_continues_in_the_port(tmp_path, kind):
     np.testing.assert_allclose(tl, jl[3:], rtol=3e-5)
 
 
+@pytest.mark.parametrize("strategy", ["lomo", "adalomo", "mezo"])
+def test_fused_and_zeroth_order_checkpoints_cross_packages(tmp_path,
+                                                           strategy):
+    """3 steps of the reference's ``lomo``, ``adalomo`` or ``mezo``, saved
+    by ``repro.train.checkpoint``, continue 2 steps in a port runner of
+    other params; that state, saved by the port, is read by
+    ``repro.train.checkpoint.restore`` and the reference's runner (its
+    own state replaced) takes the last step: the losses of 6 JAX steps.  The port's ``mezo`` draws
+    the reference's z through its seam, so the step agrees only if the
+    restored ``extra["rng"]`` is the reference's key."""
+    from test_torch_mezo import jax_step_noise
+    jcfg, cfg = _cfgs("llama2-7b")
+    npp = _np_params("llama2-7b")
+    jr = jax_make_runner(jcfg, strategy, params=_jtree(npp), seed=3,
+                         schedule=JLRSchedule(base_lr=LR))
+    batches = _batches(cfg, 6)
+    jl = [float(jr.train_step(_jbatch(b))) for b in batches[:3]]
+    jckpt.save(tmp_path / "jax", 3, jax.tree.map(np.asarray,
+                                                 jr.state_dict()))
+    jl += [float(jr.train_step(_jbatch(b))) for b in batches[3:]]
+    kw = {"noise": jax_step_noise(npp)} if strategy == "mezo" else {}
+    r = make_runner(cfg, strategy, seed=7, schedule=LRSchedule(base_lr=LR),
+                    device="cpu", **kw)
+    r.load_state_dict(ckpt.restore(tmp_path / "jax", 3))
+    assert r.step_count == 3
+    if strategy == "mezo":
+        assert r.state.extra["rng"].dtype == np.uint32
+        np.testing.assert_array_equal(r.state.extra["rng"], [0, 3])
+    if strategy == "adalomo":
+        assert r.opt_state["count"].dtype == torch.int64
+    tl = [float(r.train_step(b)) for b in batches[3:5]]
+    ckpt.save(tmp_path / "port", 5, r.state_dict())
+    jr.load_state_dict(jckpt.restore(tmp_path / "port", 5))
+    assert jr.step_count == 5
+    tl.append(float(jr.train_step(_jbatch(batches[5]))))
+    np.testing.assert_allclose(tl, jl[3:], rtol=3e-5)
+
+
 def test_port_checkpoint_is_read_by_the_reference(tmp_path):
     """A port checkpoint (bf16 params under Mixed^Hi among its leaves) read
     by ``repro.train.checkpoint.restore``: every leaf equal, and the JAX

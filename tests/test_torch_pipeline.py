@@ -241,9 +241,11 @@ def test_registry_entry_and_knob_threading():
         _runner("hift", stream_window=1 << 12)
     with pytest.raises(ValueError, match="no fused update kernel"):
         _runner("hift", optimizer="adafactor", fused_update=True)
+    # the fused-backward and zeroth-order strategies are ported, and the
+    # bundle pipeline's depth does not apply to them
     for name in ("mezo", "lomo", "adalomo"):
-        with pytest.raises(ValueError, match="not yet ported"):
-            _runner(name)
+        with pytest.raises(ValueError, match="pipeline_depth applies"):
+            _runner(name, pipeline_depth=2)
 
 
 # ----------------------------------------------------------- against JAX

@@ -385,7 +385,7 @@ def test_port_imports_neither_jax_nor_repro():
         "'repro_torch.configs.gpt2_large', "
         "'repro_torch.configs.gpt_neo_2_7b', "
         "'repro_torch.optim.adafactor', 'repro_torch.core.memory_model', "
-        "'repro_torch.train.checkpoint']\n"
+        "'repro_torch.train.checkpoint', 'repro_torch.optim.mezo']\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('msgpack', 'zstandard'))\n"
         "assert not bad, bad\n"

@@ -36,8 +36,10 @@ CHECKS = ["purity", "lockstep", "metrics", "memory"]
 
 
 def test_registry_holds_the_ported_strategies():
-    assert {"fpft", "fpft_streamed", "hift", "hift_pipelined",
-            "lisa"} <= set(ALL_STRATEGIES)
+    from repro.core.registry import strategy_ids as reference_ids
+    assert {"adalomo", "fpft", "fpft_streamed", "hift", "hift_pipelined",
+            "lisa", "lomo", "mezo"} <= set(ALL_STRATEGIES)
+    assert set(ALL_STRATEGIES) == set(reference_ids())
     for name in ALL_STRATEGIES:
         assert registry.get_strategy_cls(name).name == name
 

@@ -230,9 +230,14 @@ def test_unported_options_raise():
     with pytest.raises(ValueError, match="does not apply to 'hift'"):
         make_runner(cfg, "hift", params=params, device="cpu",
                     stream_window=1 << 20)
+    # every strategy of the reference is ported: a name outside the
+    # registry raises, and the new strategies reject what is not ported
+    with pytest.raises(ValueError, match="unknown or not yet ported"):
+        make_runner(cfg, "no-such-strategy", params=params, device="cpu")
     for name in ("mezo", "lomo", "adalomo"):
-        with pytest.raises(ValueError, match="not yet ported"):
-            make_runner(cfg, name, params=params, device="cpu")
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            make_runner(cfg, name, params=params, device="cpu",
+                        cross_pod=object())
     with pytest.raises(ValueError, match="no fused update kernel"):
         make_runner(cfg, "hift", params=params, optimizer="sgd",
                     fused_update=True, device="cpu")
