@@ -88,8 +88,10 @@ Phases, one JSON line each:
       profiled ``lomo`` step (GEMM and update shares);
 9. the dequant-matmul kernel against its plain version at llama2-7b's
    shapes (M = 4 x 512; the three projection shapes of a stacked layer,
-   scale tile rows 8; the head, tile rows 1; one ragged case), int8 and
-   NF4, fp32 x (CUDA cores, ``dequant_matmul``) and bf16 x (tensor cores,
+   scale tile rows 8; the head, tile rows 1; one ragged case), then at
+   zamba2's Mamba2 projections (in_proj (2560, 10448), whose last column
+   tile is partial, and out_proj (5120, 2560)), int8 and NF4, fp32 x
+   (CUDA cores, ``dequant_matmul``) and bf16 x (tensor cores,
    ``dequant_matmul_bf16``): decode bit-exact (x = the identity) and the
    product within tolerance, with its time, the plain version's, the
    time of ``torch.matmul`` on the pre-decoded weight, and the bound;
@@ -105,6 +107,23 @@ Phases, one JSON line each:
    Mixed^Hi steps' on the tensor cores), the kernels' launches counted
    over that run, and profiles of a deep NF4 step and a deep Mixed^Hi +
    NF4 step;
+   then hybrid training (zamba2; its Mamba2 blocks train through the
+   plain chunked scan, as the reference trains through its jnp scan):
+   a. card against CPU (``train_hybrid_card_vs_cpu``): 12 layers (2
+      super-blocks) at zamba2-2.7b's width, slow-decay SSM scalars, fp32,
+      2 x 128: 4 HiFT steps (m = 4, top2down: the shared block's group,
+      whose cut rounds down to super-block 1, then layers of both
+      super-blocks, then the embedding's group) and one step each of
+      ``lomo`` (unclipped), ``adalomo`` and ``mezo``, losses within 1e-4;
+      the scan kernel never launched by training, and its refusal of an
+      input that requires grad under grad mode;
+   b. zamba2-2.7b at its published config (``train_hybrid_full``), fp32,
+      4 x 512: HiFT m=1 (embed, layer 0, head, shared, layer 53), FPFT,
+      ``lomo``, ``adalomo`` and ``mezo`` with step time and peak allocated
+      and reserved memory beside the analytic P+G+S (the fused and MeZO
+      peaks failing the run more than 6 GiB over it), the FPFT-vs-HiFT
+      saving beside the analytic one, then NF4 HiFT with the dequant
+      kernel's ms and launches a step;
 13. the SSM scan kernel against its plain version at zamba2-2.7b's widths
    (H 80, P = N = 64): batch 4 x 512 in fp32 and bf16, one 2048-token
    prompt in fp32 and bf16, a ragged S = 300, the published init's fast
@@ -902,12 +921,15 @@ def train_batches(cfg, seq, batch, n, device):
 
 
 class UpdateTimer:
-    """While in use: CUDA events around each launch of the fused update
-    kernels (``fused_update._launch``), and their launch counts from 0."""
+    """While in use: CUDA events around each launch of a kernel module's
+    ``_launch`` (by default the fused update kernels', ``fused_update``;
+    ``kernels.dequant_matmul`` for the dequant kernel), and the module's
+    launch counts from 0."""
 
-    def __init__(self, torch):
-        from repro_torch.kernels import fused_update
-        self.torch, self.fu, self.events = torch, fused_update, []
+    def __init__(self, torch, module=None):
+        if module is None:
+            from repro_torch.kernels import fused_update as module
+        self.torch, self.fu, self.events = torch, module, []
 
     def __enter__(self):
         launch, cuda = self.fu._launch, self.torch.cuda
@@ -930,7 +952,7 @@ class UpdateTimer:
         self.fu._launch = self._launch
 
     def take(self) -> tuple[float, int]:
-        """(device ms, launches) of the updates since the last take."""
+        """(device ms, launches) of the kernels since the last take."""
         ms = sum(a.elapsed_time(b) for a, b in self.events)
         n = len(self.events)
         self.events.clear()
@@ -2065,12 +2087,16 @@ class FusedUpdateTimer:
         return sum(a.elapsed_time(b) for a, b in self.events)
 
 
-def fused_step(torch, runner, batch, base: int = 0) -> dict:
-    """One step: host clock to a synchronise, the loss and grad norm, and
-    the peak allocated and reserved memory (reset before the step),
-    ``base`` (bytes allocated before the params) taken off the former."""
+def fused_step(torch, runner, batch, base: int = 0, timer=None) -> dict:
+    """One step: host clock to a synchronise, the group, loss and grad
+    norm, and the peak allocated and reserved memory (reset before the
+    step), ``base`` (bytes allocated before the params) taken off the
+    former; with ``timer`` (an ``UpdateTimer``) the fused updates' device
+    ms and launches too."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    if timer is not None:
+        timer.take()
     t0 = time.perf_counter()
     loss = runner.train_step(batch)
     torch.cuda.synchronize()
@@ -2079,11 +2105,15 @@ def fused_step(torch, runner, batch, base: int = 0) -> dict:
     if not math.isfinite(loss):
         raise RuntimeError(f"{runner.strategy.name}: non-finite loss {loss}")
     gnorm = runner.last_metrics.get("grad_norm")
-    return dict(loss=loss, grad_norm=None if gnorm is None else float(gnorm),
-                host_ms=host_ms,
-                peak_allocated_gib=(torch.cuda.max_memory_allocated() - base)
-                / 2**30,
-                peak_reserved_gib=torch.cuda.max_memory_reserved() / 2**30)
+    out = dict(group=runner.last_metrics.get("group", "all"), loss=loss,
+               grad_norm=None if gnorm is None else float(gnorm),
+               host_ms=host_ms,
+               peak_allocated_gib=(torch.cuda.max_memory_allocated() - base)
+               / 2**30,
+               peak_reserved_gib=torch.cuda.max_memory_reserved() / 2**30)
+    if timer is not None:
+        out["update_kernel_ms"], out["update_launches"] = timer.take()
+    return out
 
 
 def fused_profile(torch, runner, batch) -> dict:
@@ -2165,6 +2195,272 @@ def phase_train_fused_full(torch):
     torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------- hybrid training
+
+HYBRID_LR = 1e-4           # card against CPU
+HYBRID_SEQ = 128           # batch 2 x HYBRID_SEQ
+HYBRID_RTOL = 1e-4         # card against CPU: losses and grad norms
+
+
+def phase_train_hybrid_card_vs_cpu(torch, cfg=None, devices=("cpu", "cuda")):
+    """Hybrid training, card against CPU, from the same fp32 params: 12
+    layers (2 super-blocks) of zamba2-2.7b at full width with slow-decay
+    SSM scalars, batch 2 x 128.  ``hift`` (m = 4, top2down, AdamW: layer
+    11 + shared + head, whose cut rounds down to super-block 1; layers
+    7-10; layers 3-6, backward through both super-blocks; embed + layers
+    0-2), then one step each of ``lomo`` (unclipped, one reverse sweep:
+    the clipped two run at full size in ``train_hybrid_full`` and against
+    the CPU in ``train_fused_card_vs_cpu``), ``adalomo`` and ``mezo``
+    (the same z on both devices).  Losses and grad norms within
+    ``HYBRID_RTOL``, params within ``FUSED_PARAM_TOL`` (HiFT's AdamW: its
+    first update is about lr sign(g), so a near-zero gradient that rounds
+    to the other sign on one device moves its element 2 lr apart, plus
+    the subtraction's rounding, 1e-6).  The card's training
+    forward runs the plain chunked scan, never the scan kernel (its
+    launches stay 0), and the kernel refuses inputs that require grad
+    under grad mode.  ``cfg``/``devices`` let the phase run small on the
+    CPU alone."""
+    from repro_torch.common.pytree import flatten_with_paths
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import (HiFTConfig, LOMOConfig, LRSchedule,
+                                  make_runner)
+    from repro_torch.kernels import fused_update as FU
+    from repro_torch.kernels import ssm_scan as S
+    from repro_torch.models import zamba2 as Z
+    cfg = cfg or dataclasses.replace(get_config("zamba2-2.7b"), n_layers=12)
+    params = Z.init(cfg, torch.Generator().manual_seed(0), device="cpu",
+                    dtype=torch.float32)
+    slow_decay(torch, params)
+    shapes = {p: tuple(t.shape) for p, t in flatten_with_paths(params).items()}
+    batches = train_batches(cfg, HYBRID_SEQ, 2, 4, "cpu")
+    runs = (("hift", dict(hift=HiFTConfig(m=4, strategy="top2down"),
+                          optimizer="adamw"), 4, 2 * HYBRID_LR + 1e-6),
+            ("lomo", dict(lomo=LOMOConfig(grad_clip=0.0)), 1,
+             FUSED_PARAM_TOL["lomo"]),
+            ("adalomo", {}, 1, 2 * HYBRID_LR),
+            ("mezo", dict(noise=card_noise(torch, shapes)
+                          if "cuda" in devices else None), 1,
+             6 * HYBRID_LR))
+    for strategy, kw, n, param_tol in runs:
+        out = {}
+        for dev in devices:
+            runner = make_runner(cfg, strategy, params=params, device=dev,
+                                 schedule=LRSchedule(base_lr=HYBRID_LR), **kw)
+            S.reset_launches()
+            fu = FU.fused_adamw_update.launches
+            t0 = time.perf_counter()
+            losses, norms, groups = [], [], []
+            for b in batches[:n]:
+                losses.append(float(runner.train_step(b)))
+                g = runner.last_metrics.get("grad_norm")
+                norms.append(None if g is None else float(g))
+                groups.append(runner.last_metrics.get("group"))
+            secs = time.perf_counter() - t0
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                if S.ssm_scan.launches:
+                    raise RuntimeError("hybrid training launched the SSM "
+                                       "scan kernel, which has no backward")
+                if strategy == "hift" and \
+                        FU.fused_adamw_update.launches - fu != n:
+                    raise RuntimeError("the card's hybrid HiFT steps did "
+                                       "not run the fused AdamW once each")
+            final = {k: t.detach().cpu() for k, t in
+                     flatten_with_paths(runner.params).items()}
+            out[dev] = (losses, norms, final, secs, groups)
+            del runner
+        (cl, cn, cp, cs, groups), (gl, gn, gp, gs, _) = (out[devices[0]],
+                                                          out[devices[1]])
+        rel = max(abs(x - y) / abs(x) for x, y in zip(cl, gl))
+        nrel = (max(abs(x - y) / abs(x) for x, y in zip(cn, gn))
+                if cn[0] is not None else 0.0)
+        gap = max(float((cp[k] - gp[k]).abs().max()) for k in cp)
+        emit("train_hybrid_card_vs_cpu", arch=cfg.name, run=strategy,
+             n_layers=cfg.n_layers, d_model=cfg.d_model, batch=2,
+             seq=HYBRID_SEQ, lr=HYBRID_LR, groups=groups, cpu_losses=cl,
+             cuda_losses=gl, cpu_grad_norms=cn, cuda_grad_norms=gn,
+             max_rel_loss_gap=rel, max_rel_grad_norm_gap=nrel,
+             rtol=HYBRID_RTOL, max_param_gap=gap, param_tol=param_tol,
+             cpu_seconds=cs, cuda_seconds=gs,
+             cpu_threads=torch.get_num_threads())
+        if (not all(math.isfinite(x) for x in gl) or rel > HYBRID_RTOL
+                or nrel > HYBRID_RTOL or gap > param_tol):
+            raise RuntimeError(f"{cfg.name} {strategy}: card and CPU differ: "
+                               f"losses {cl} {gl}, norms {cn} {gn}, param "
+                               f"gap {gap}")
+        del out
+    if "cuda" in devices:
+        x = torch.zeros((1, 64, 2, 64), device="cuda", requires_grad=True)
+        a = torch.zeros((1, 64, 2), device="cuda")
+        bc = torch.zeros((1, 64, 64), device="cuda")
+        try:
+            S.ssm_scan(x, a, bc, bc)
+        except RuntimeError as e:
+            refused = "no backward" in str(e)
+        else:
+            refused = False
+        with torch.no_grad():
+            S.ssm_scan(x, a, bc, bc)        # the same call without a graph
+        torch.cuda.synchronize()
+        emit("train_hybrid_scan_guard", refuses_grad=refused)
+        if not refused:
+            raise RuntimeError("ssm_scan accepted an input that requires "
+                               "grad under grad mode on the card")
+    del params
+    gc.collect()
+
+
+def phase_train_hybrid_full(torch):
+    """zamba2-2.7b at its published config (54 layers, d_model 2560, 80 SSM
+    heads of 64, state 64, the shared block every 6 layers), random fp32
+    weights from seed 0 trained in place, batch 4 x 512:
+
+    - HiFT m=1, AdamW (fused): embed and layer 0 (bottom2up), then head,
+      shared and layer 53 (top2down): step ms, peak allocated and
+      reserved beside the analytic P+G+S; layer 1's step (a backward
+      through every super-block) under ``torch.profiler``: busy ms, idle
+      share, the GEMMs' share, the top kernels;
+    - FPFT, AdamW (fused, in place): 2 steps, the same; the FPFT-vs-HiFT
+      saving in peak memory beside the analytic one;
+    - ``lomo`` (clip 1.0), ``adalomo`` and ``mezo``, 2 steps each: a peak
+      more than ``FUSED_ALLOWANCE_GIB`` over the analytic P+G+S (the fused
+      grain one super-block) fails the run;
+    - NF4 HiFT (bf16 moments; embed, layer 0) from fresh params encoded
+      and then freed: the dequant kernel's device ms and launches a step.
+
+    Returns the kernels' launches over the HiFT and NF4 runs (counted from
+    0 at their start)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import (HiFTConfig, LOMOConfig, LRSchedule,
+                                  QuantConfig, make_runner)
+    from repro_torch.core.memory_model import analyze, param_shapes
+    from repro_torch.kernels import dequant_matmul as DM
+    from repro_torch.models import zamba2 as Z
+    cfg = get_config("zamba2-2.7b")
+    units = Z.unit_spec(cfg)
+    shapes = param_shapes(cfg)
+
+    def model(mode, m=1, **kw):
+        return analyze(shapes, units, optimizer="adamw", precision="fp32",
+                       mode=mode, m=m, **kw).pgs_gb
+
+    def fresh():
+        gc.collect()
+        torch.cuda.empty_cache()
+        return Z.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                      device="cuda", dtype=torch.float32)
+
+    batches = train_batches(cfg, 512, 4, 4, "cuda")
+    sched = LRSchedule(base_lr=1e-5)
+    params = fresh()
+    rows, runs = [], {}
+    with UpdateTimer(torch) as timer:   # counts the main path's run only
+        for order, n in (("bottom2up", 2), ("top2down", 3)):
+            runner = make_runner(cfg, "hift", params=params, optimizer="adamw",
+                                 hift=HiFTConfig(m=1, strategy=order),
+                                 schedule=sched, device="cuda")
+            for _ in range(n):
+                rows.append(fused_step(torch, runner, batches[len(rows) % 4],
+                                       timer=timer))
+                emit("train_hybrid_step", arch=cfg.name, strategy="hift",
+                     order=order, analytic_pgs_gib=model("hift"),
+                     **rows[-1])
+            if order == "bottom2up":
+                # layer 1: a backward through every super-block
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    float(runner.train_step(batches[2]))
+                    torch.cuda.synchronize()
+                    host_ms = 1e3 * (time.perf_counter() - t0)
+                out = profile_summary(prof, host_ms, top=10, gemm_ms="gemm")
+                emit("train_hybrid_profile", arch=cfg.name,
+                     group=runner.last_metrics["group"],
+                     gemm_share=out["gemm_ms"] / out["device_busy_ms"], **out)
+            del runner
+        # FPFT updates in place through the fused kernel: the plain
+        # update's temporaries of the 5.4 GiB stacked in_proj leaf would
+        # not fit beside the full tree, its gradients and moments
+        runner = make_runner(cfg, "fpft", params=params, optimizer="adamw",
+                             fused_update=True, schedule=sched,
+                             device="cuda")
+        runs["fpft"] = []
+        for i in range(2):
+            runs["fpft"].append(fused_step(torch, runner, batches[i],
+                                          timer=timer))
+            emit("train_hybrid_step", arch=cfg.name, strategy="fpft",
+                 analytic_pgs_gib=model("fpft"), **runs["fpft"][-1])
+        del runner
+        launches = timer.launches()
+    gc.collect()
+    torch.cuda.empty_cache()            # each run's reserved bytes its own
+    runs["hift"] = rows
+    for strategy, n, kw in (("lomo", 2, {"lomo": LOMOConfig(grad_clip=1.0)}),
+                            ("adalomo", 2, {}), ("mezo", 2, {})):
+        runner = make_runner(cfg, strategy, params=params, schedule=sched,
+                             device="cuda", **kw)
+        m = runner.strategy.memory_m
+        pgs = model(runner.strategy.memory_mode, m)
+        runs[strategy] = []
+        for i in range(n):
+            runs[strategy].append(fused_step(torch, runner, batches[i]))
+            emit("train_hybrid_step", arch=cfg.name, strategy=strategy, m=m,
+                 analytic_pgs_gib=pgs, **runs[strategy][-1])
+        peak = max(r["peak_allocated_gib"] for r in runs[strategy])
+        if peak - pgs > FUSED_ALLOWANCE_GIB:
+            raise RuntimeError(f"{cfg.name} {strategy}: peak {peak:.2f} GiB "
+                               f"exceeds the analytic {pgs:.2f} GiB by more "
+                               f"than {FUSED_ALLOWANCE_GIB} GiB")
+        del runner
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params
+    hift_peak = max(r["peak_allocated_gib"] for r in runs["hift"])
+    fpft_peak = max(r["peak_allocated_gib"] for r in runs["fpft"])
+    hift_pgs, fpft_pgs = model("hift"), model("fpft")
+    emit("train_hybrid_memory", arch=cfg.name, dtype="float32", batch=4,
+         seq=512, n_params=analyze(shapes, units).n_params,
+         hift_peak_gib=hift_peak, fpft_peak_gib=fpft_peak,
+         hift_analytic_gib=hift_pgs, fpft_analytic_gib=fpft_pgs,
+         saving=1 - hift_peak / fpft_peak,
+         analytic_saving=1 - hift_pgs / fpft_pgs,
+         runs={k: dict(peak_allocated_gib=max(r["peak_allocated_gib"]
+                                              for r in v),
+                       host_ms=[r["host_ms"] for r in v])
+               for k, v in runs.items()})
+
+    params = fresh()
+    runner = make_runner(cfg, "hift", params=params, optimizer="adamw",
+                         hift=HiFTConfig(m=1), quant=QuantConfig("nf4",
+                                                                 "bf16"),
+                         schedule=sched, device="cuda")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    # count the main path's run only
+    with UpdateTimer(torch) as timer, UpdateTimer(torch, DM) as dq:
+        for i in range(2):
+            row = fused_step(torch, runner, batches[i], timer=timer)
+            row["dequant_kernel_ms"], row["dequant_launches"] = dq.take()
+            emit("train_hybrid_quant_step", arch=cfg.name, fmt="nf4",
+                 moments="bf16", analytic_pgs_gib=model(
+                     "hift", frozen_quant="nf4", moment_dtype="bf16"),
+                 **row)
+        launches["fused_adamw"] += timer.launches()["fused_adamw"]
+    tc = DM.dequant_matmul.launches_tc
+    launches["dequant_matmul"] = DM.dequant_matmul.launches - tc
+    launches["dequant_matmul_bf16"] = tc
+    if not launches["dequant_matmul"]:
+        raise RuntimeError("NF4 hybrid HiFT never launched the dequant "
+                           "kernel")
+    del runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("train_hybrid_launches", launches=launches)
+    return launches
+
+
 # ------------------------------------------------------------ phases 9-12
 
 def dequant_cases(cfg):
@@ -2179,6 +2475,20 @@ def dequant_cases(cfg):
     return [(f"{name} {fmt} {dtype}", fmt, dtype, k, n, stacked)
             for fmt in ("nf4", "int8") for dtype in ("float32", "bfloat16")
             for name, k, n, stacked in shapes]
+
+
+def mamba_dequant_cases(cfg):
+    """(case, fmt, dtype, K, N, stacked) at a zamba2 Mamba2 layer's
+    projections: ``in_proj`` (d_model, 2 d_inner + 2 N + H) = (2560,
+    10448), 81.6 lane tiles of 128, its last column tile partial; and
+    ``out_proj`` (d_inner, d_model) = (5120, 2560)."""
+    di = cfg.expand * cfg.d_model
+    n_in = 2 * di + 2 * cfg.ssm_state + cfg.ssm_heads
+    shapes = [("mamba in_proj", cfg.d_model, n_in),
+              ("mamba out_proj", di, cfg.d_model)]
+    return [(f"{name} {fmt} {dtype}", fmt, dtype, k, n, True)
+            for fmt in ("nf4", "int8") for dtype in ("float32", "bfloat16")
+            for name, k, n in shapes]
 
 
 def dequant_inputs(torch, fmt, dt, m, k, n, stacked, gen):
@@ -2202,7 +2512,9 @@ def phase_dequant_kernel(torch):
     product of ``torch.matmul`` on the pre-decoded weight (no single
     PyTorch call decodes and multiplies, so ``library_ms`` is null).  bf16
     x runs on the tensor cores (``dequant_matmul_bf16``, bound at the bf16
-    tensor-core rate), fp32 x on the CUDA cores (``dequant_matmul``)."""
+    tensor-core rate), fp32 x on the CUDA cores (``dequant_matmul``).
+    After llama2-7b's shapes, zamba2's Mamba2 projections
+    (``mamba_dequant_cases``: N = 10448 ends in a partial column tile)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import dequant_matmul as DM
     from repro_torch.kernels import ref
@@ -2210,7 +2522,9 @@ def phase_dequant_kernel(torch):
     gen = torch.Generator(device="cuda").manual_seed(99)
     m = 4 * 512
     results = {}
-    for case, fmt, dtype, k, n, stacked in dequant_cases(cfg):
+    for case, fmt, dtype, k, n, stacked in (
+            dequant_cases(cfg)
+            + mamba_dequant_cases(get_config("zamba2-2.7b"))):
         dt = getattr(torch, dtype)
         x, view = dequant_inputs(torch, fmt, dt, m, k, n, stacked, gen)
         eye = torch.eye(k, dtype=dt, device="cuda")
@@ -2366,26 +2680,12 @@ def phase_train_quant_full(torch):
     from repro_torch.optim.mixed_precision import get_policy
     cfg = get_config("llama2-7b")
     batches = train_batches(cfg, 512, 4, 4, "cuda")
-    events = []
-    launch = DM._launch
-
-    def timed_launch(*args):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        out = launch(*args)
-        e1.record()
-        events.append((e0, e1))
-        return out
-
     plan = [("nf4", "fp32", "bottom2up", 3), ("nf4", "fp32", "top2down", 2),
             ("int8", "fp32", "bottom2up", 2),
             ("nf4", "mixed_hi", "bottom2up", 2)]
     steps, peaks = [], {}
-    DM._launch = timed_launch
-    DM.reset_launches()                 # count the main path's run only
-    FU.reset_launches()
-    try:
+    FU.reset_launches()                 # count the main path's run only
+    with UpdateTimer(torch, DM) as dq:
         for fmt, policy, order, n in plan:
             gc.collect()
             torch.cuda.empty_cache()
@@ -2410,7 +2710,7 @@ def phase_train_quant_full(torch):
             for i in range(n):
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
-                events.clear()
+                dq.take()
                 tc0 = DM.dequant_matmul.launches_tc
                 t0 = time.perf_counter()
                 loss = float(runner.train_step(batches[i]))
@@ -2419,6 +2719,7 @@ def phase_train_quant_full(torch):
                 label = runner.last_metrics["group"]
                 peak = torch.cuda.max_memory_allocated()
                 key = (32, "hift", policy, fmt, "bf16")
+                dequant_ms, dequant_n = dq.take()
                 steps.append(dict(
                     quant=f"{fmt}/bf16", policy=policy, order=order,
                     group=label, kind=_group_kind(label), loss=loss,
@@ -2426,9 +2727,8 @@ def phase_train_quant_full(torch):
                     peak_memory_gib=peak / 2**30,
                     analytic_pgs_gib=model_gib,
                     resident_bytes=resident, encode_s=encode_s,
-                    dequant_kernel_ms=sum(a.elapsed_time(b)
-                                          for a, b in events),
-                    dequant_launches=len(events),
+                    dequant_kernel_ms=dequant_ms,
+                    dequant_launches=dequant_n,
                     dequant_launches_tc=DM.dequant_matmul.launches_tc - tc0))
                 emit("train_quant_step", arch=cfg.name, **steps[-1])
                 peaks[key] = max(peaks.get(key, 0), peak)
@@ -2443,8 +2743,6 @@ def phase_train_quant_full(torch):
                     "dequant_matmul_bf16": tc,
                     **{fn.__name__.replace("_update", ""): fn.launches
                        for fn in FU.KERNELS}}
-    finally:
-        DM._launch = launch
     emit("train_quant_full_size", arch=cfg.name, n_layers=cfg.n_layers,
          batch=4, seq=512, remat=cfg.remat, launches=launches,
          peaks_vs_model=[dict(policy=k[2], quant=f"{k[3]}/{k[4]}",
@@ -2989,6 +3287,12 @@ def main() -> int:
     quant = phase_train_quant_full(torch)
     launches.update({k: quant[k] for k in ("dequant_matmul",
                                            "dequant_matmul_bf16")})
+    # hybrid training (zamba2): the fused AdamW and, under NF4 residency,
+    # the dequant kernel; the training scan is plain torch, as the
+    # reference's is plain jnp
+    phase_train_hybrid_card_vs_cpu(torch)
+    for name, n in phase_train_hybrid_full(torch).items():
+        launches[name] = launches.get(name, 0) + n
     rows.update(phase_ssm_kernel(torch))
     phase_kernels(torch, hybrid_attention_cases())
     phase_hybrid_card_vs_cpu(torch)

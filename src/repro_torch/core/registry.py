@@ -7,7 +7,8 @@
     loss = runner.train_step(batch)
 
 It runs on the card (``device="cuda"``, raising when there is none)
-unless the caller passes ``device="cpu"``.  Every strategy of the
+unless the caller passes ``device="cpu"``, for the dense and the hybrid
+(zamba2) families.  Every strategy of the
 reference is ported: ``hift``, ``hift_pipelined``, ``lisa``, ``fpft``,
 ``fpft_streamed``, ``mezo``, ``lomo`` and ``adalomo``.
 """
@@ -20,6 +21,9 @@ _REGISTRY: dict[str, type] = {}
 
 # optimizers with a fused update kernel (kernels/csrc/fused_update.cu)
 FUSED_OPTIMIZERS = ("adamw", "sgdm", "adagrad")
+# model families with a ported training path (models/transformer.py,
+# models/zamba2.py)
+TRAINED_FAMILIES = ("dense", "hybrid")
 
 
 def register_strategy(name: str):
@@ -86,8 +90,9 @@ def make_runner(cfg, strategy: str = "hift", *, params: Any = None,
     ``stream_window``: ``fpft_streamed``'s chunk size in bytes
     (``StreamConfig.chunk_bytes``).
 
-    ``mesh``, ``cross_pod`` and the families other than dense (hybrid
-    training among them) are not ported yet and raise.  Remaining kwargs
+    ``mesh``, ``cross_pod`` and the families outside
+    ``TRAINED_FAMILIES`` (dense and hybrid) are not ported yet and
+    raise.  Remaining kwargs
     go to the strategy (``schedule``, ``policy``, ``loss_fn``, ``hift=``,
     ``lisa=``, ``stream=``, ``mezo=``, ``lomo=``, ``adalomo=``)."""
     import torch
@@ -99,9 +104,10 @@ def make_runner(cfg, strategy: str = "hift", *, params: Any = None,
     from repro_torch.optim import make_optimizer
     from repro_torch.optim.mezo import prng_key
 
-    if cfg.family != "dense":
-        raise NotImplementedError(f"training of the {cfg.family!r} family is "
-                                  "not ported yet (dense only)")
+    if cfg.family not in TRAINED_FAMILIES:
+        raise NotImplementedError(
+            f"training of the {cfg.family!r} family is not ported yet "
+            f"(ported: {', '.join(TRAINED_FAMILIES)})")
     device = resolve_device(device)
     stream_window = kwargs.pop("stream_window", None)
     if stream_window is not None:

@@ -20,7 +20,11 @@ gated_chunked_scan`` (the Mamba2 SSD core).  :func:`ssm_scan`:
   sequence in 64-row chunks (the result does not depend on the chunk
   length beyond rounding), so ``chunk`` only sets the plain version's
   chunking.  An entering state ``h0`` has no kernel (no serving path
-  passes one) and raises;
+  passes one) and raises.  The kernel has no backward (nor has the
+  Pallas kernel: the reference trains through its jnp scan), so under
+  grad mode an input that requires grad raises too, rather than return a
+  ``y`` that silently carries no gradient; training runs
+  ``models.mamba2.gated_chunked_scan``;
 - counts its kernel launches in ``ssm_scan.launches`` (and nowhere else),
   the bf16 ones in ``ssm_scan.launches_bf16`` as well.
 """
@@ -82,6 +86,12 @@ def ssm_scan(x: torch.Tensor, a_log: torch.Tensor, b: torch.Tensor,
     if x.device.type == "cpu":
         y, h = ref.gated_chunked_scan_ref(x, a_log, b, c, chunk=chunk, h0=h0)
         return y, h.float()
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, a_log, b, c)):
+        raise RuntimeError(
+            "ssm_scan: the CUDA kernel has no backward; an input requires "
+            "grad under grad mode (train through models.mamba2."
+            "gated_chunked_scan, or call this under torch.no_grad())")
     if x.device.type != "cuda":
         raise ValueError(f"ssm_scan: no kernel for device {x.device}")
     if h0 is not None:

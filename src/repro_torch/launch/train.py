@@ -9,8 +9,12 @@ hift_pipelined, lisa, fpft, fpft_streamed, mezo, lomo, adalomo).
     ... --strategy lisa --switch-every 2
     ... --strategy fpft_streamed --stream-window 65536 --pipeline-depth 3
     ... --strategy lomo [--grad-clip 0]    # adalomo, mezo likewise
+    ... --fpft                             # = --strategy fpft (deprecated)
+    PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-2.7b \\
+        --smoke --steps 8 --device cpu [--strategy ...]   # hybrid family
 
-The reference's flags for the ported surface, plus ``--device`` (default
+The reference's flags for the ported surface (``--fpft`` its deprecated
+alias for ``--strategy fpft``), plus ``--device`` (default
 ``cuda``; without a card it raises unless ``--device cpu``).  Weights are
 random from ``--seed``; batches come from the synthetic Markov LM with the
 same seed; the LR follows the reference's cosine schedule.  Prints the
@@ -79,6 +83,8 @@ def main(argv=None):
     ap.add_argument("--policy", default="fp32",
                     choices=["fp32", "mixed", "mixed_hi", "bf16"])
     ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--fpft", action="store_true",
+                    help="deprecated alias for --strategy fpft")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--resume", default="none", choices=["none", "auto"])
     ap.add_argument("--seed", type=int, default=0)
@@ -86,6 +92,7 @@ def main(argv=None):
                     help="cuda (hand-written kernels) or cpu (plain versions)")
     args = ap.parse_args(argv)
 
+    strategy = "fpft" if args.fpft else args.strategy
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
     gen = torch.Generator(device=device).manual_seed(args.seed)
@@ -100,24 +107,24 @@ def main(argv=None):
           "pipeline_depth": args.pipeline_depth}
     if args.stream_window is not None:
         kw["stream_window"] = args.stream_window
-    if args.strategy in ("hift", "hift_pipelined"):
+    if strategy in ("hift", "hift_pipelined"):
         kw["hift"] = HiFTConfig(m=args.m, strategy=args.order, seed=args.seed)
-    elif args.strategy == "lisa":
+    elif strategy == "lisa":
         kw["lisa"] = LiSAConfig(m=args.m, switch_every=args.switch_every,
                                 seed=args.seed)
-    elif args.strategy == "mezo":
+    elif strategy == "mezo":
         kw["mezo"] = MeZOConfig(seed=args.seed)
-    elif args.strategy == "lomo":
+    elif strategy == "lomo":
         kw["lomo"] = LOMOConfig(
             grad_clip=1.0 if args.grad_clip is None else args.grad_clip)
-    elif args.strategy == "adalomo":
+    elif strategy == "adalomo":
         kw["adalomo"] = AdaLomoConfig(
             grad_clip=0.0 if args.grad_clip is None else args.grad_clip)
-    runner = make_runner(cfg, args.strategy, params=params,
+    runner = make_runner(cfg, strategy, params=params,
                          optimizer=args.optimizer, seed=args.seed, **kw)
-    if args.strategy in ("hift", "hift_pipelined", "lisa"):
+    if strategy in ("hift", "hift_pipelined", "lisa"):
         peak = runner.peak_trainable_params()
-        print(f"{args.strategy} k={runner.k}, peak trainable "
+        print(f"{strategy} k={runner.k}, peak trainable "
               f"{peak/1e6:.2f}M ({100*peak/n:.2f}%)")
 
     data = PrefetchIterator(SyntheticLM(DataConfig(

@@ -1,9 +1,10 @@
 """Model-family registry (port of ``repro.models.get_family``).
 
-The dense family (serving and training) and the hybrid family (serving)
-are ported; every other family raises.  (The vlm family reuses the dense
-module in JAX but needs ``vision_tokens`` on the serving path, which is
-not ported yet.)
+The dense family (serving and training) and the hybrid family (zamba2:
+serving and training) are ported; every other family raises.  (The vlm
+family reuses the dense module in JAX but needs ``vision_tokens`` on the
+serving path, which is not ported yet.)  The family-dispatching
+``unit_first_depth`` lives in ``models.base``.
 """
 import importlib
 

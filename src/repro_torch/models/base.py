@@ -51,15 +51,24 @@ def stacked_units(key: str, n: int) -> list[Unit]:
     return [Unit("stacked", key, i) for i in range(n)]
 
 
-def unit_first_depth(cfg, unit: Unit) -> int:
-    """Depth at which a unit is first used (the reference's
-    ``default_unit_first_depth``): the embedding at 0, stacked layer ``i``
-    at ``i``, the head at ``n_layers``."""
+def default_unit_first_depth(cfg, unit: Unit) -> int:
+    """Depth at which a unit is first used, the reference's default rule:
+    the embedding at 0, stacked layer ``i`` at ``i``, the head at
+    ``n_layers``."""
     if unit.key == "embed":
         return 0
     if unit.kind == "stacked":
         return unit.index
     return cfg.n_layers
+
+
+def unit_first_depth(cfg, unit: Unit) -> int:
+    """The family's own ``unit_first_depth`` where its module has one (the
+    hybrid family's shared block: after super-block 0), else the default
+    rule (``repro.models.unit_first_depth``)."""
+    from repro_torch.models import get_family   # the families import us
+    fn = getattr(get_family(cfg), "unit_first_depth", None)
+    return fn(cfg, unit) if fn else default_unit_first_depth(cfg, unit)
 
 
 def stack_len(tree: PyTree) -> int:

@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.dist import quant as Q
 from repro_torch.dist.quant import QuantView
 
 
@@ -31,6 +32,18 @@ def linear(x: torch.Tensor, w) -> torch.Tensor:
         y = dequant_matmul(x.reshape(-1, x.shape[-1]), w)
         return y.reshape(*x.shape[:-1], y.shape[-1])
     return x @ w.to(x.dtype)
+
+
+def weight(w):
+    """A 2-d weight for :func:`linear`: the tensor itself, or a codec
+    record (quantized residency) as its ``QuantView``."""
+    return Q.view_of(w) if Q.is_quantized(w) else w
+
+
+def embed_lookup(tok, tokens: torch.Tensor) -> torch.Tensor:
+    """Rows ``tokens`` of the embedding table; of a codec record, the
+    gathered rows of its codes and scales, decoded."""
+    return Q.gather_rows(tok, tokens) if Q.is_quantized(tok) else tok[tokens]
 
 
 # ---------------------------------------------------------------- init utils

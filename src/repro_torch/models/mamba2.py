@@ -1,22 +1,31 @@
-"""Mamba2 (SSD) block (port of ``repro.models.mamba2``), serving path.
+"""Mamba2 (SSD) block (port of ``repro.models.mamba2``).
 
 Recurrence per head (state N = ``ssm_state``, head dim P):
     h_t = a_t * h_{t-1} + dt_t * B_t (outer) x_t        a_t = exp(dt_t * A)
     y_t = C_t . h_t + D * x_t
-The prompt pass runs the chunked scan (``gated_chunked_scan``, on the
-card the hand-written kernel ``kernels/csrc/ssm_scan.cu``); decode runs
-the single-step recurrence in plain torch.  Params keep the reference's
-keys and ``x @ W`` layout; ``A_log`` and ``dt_bias`` stay fp32 (the SSM
-reads them in fp32), every other leaf may be in the compute dtype.
-
-The training forward (``mamba2_forward``) waits for hybrid training.
+Two scans run it chunkwise.  Training (``mamba2_forward``) runs
+``gated_chunked_scan``, the reference's chunked scan in plain torch ops
+that autograd differentiates, on every device: the reference trains
+through its jnp scan, and no kernel (the Pallas one nor the port's) has a
+backward.  The prompt pass (``mamba2_prefill``) runs ``kernels.ssm_scan``,
+on the card the hand-written kernel ``kernels/csrc/ssm_scan.cu``; decode
+runs the single-step recurrence in plain torch.  Params keep the
+reference's keys and ``x @ W`` layout; ``A_log`` and ``dt_bias`` stay fp32
+(the SSM reads them in fp32), every other leaf may be in the compute
+dtype.  In the training forward any leaf may be a layer of a codec record
+(quantized residency, ``dist.quant.layer_of``): the projections multiply
+through the dequant-matmul kernel, ``conv_w`` is decoded at use, and the
+``(L, d)`` stacks come decoded.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist.quant import QuantView
+from repro_torch.kernels import ref
 from repro_torch.kernels.ssm_scan import ssm_scan
 from repro_torch.models import layers as L
 
@@ -75,19 +84,28 @@ def _depthwise_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return y, new_state
 
 
-# The reference's ``gated_chunked_scan``: on CUDA tensors the hand-written
-# kernel, on CPU tensors its plain version; the final state comes in fp32.
-gated_chunked_scan = ssm_scan
+def gated_chunked_scan(x_scaled, a_log, B, C, chunk: int = 128, h0=None):
+    """The reference's ``gated_chunked_scan`` (the shared core of Mamba2
+    SSD), the training scan: ``kernels.ref.gated_chunked_scan_ref``, the
+    reference's algorithm line for line in plain torch ops, so autograd
+    differentiates it on every device.  x_scaled (Bt,S,H,P); a_log
+    (Bt,S,H); B/C (Bt,S,N).  Returns (y, final state fp32)."""
+    y, h = ref.gated_chunked_scan_ref(x_scaled, a_log, B, C, chunk=chunk,
+                                      h0=h0)
+    return y, h.float()
 
 
-def ssd_chunked(x, dt, A_log, B, C, D, chunk: int = 128, h0=None):
+def ssd_chunked(x, dt, A_log, B, C, D, chunk: int = 128, h0=None,
+                scan=gated_chunked_scan):
     """Mamba2 SSD scan.  x (Bt,S,H,P); dt (Bt,S,H) softplus'd; B/C
     (Bt,S,N).  The ``dt`` scaling and the ``D`` skip stay outside the
-    scan, as in the reference.  Returns (y, final state fp32)."""
+    scan, as in the reference.  ``scan``: the training scan (default) or
+    ``kernels.ssm_scan`` (the prompt pass).  Returns (y, final state
+    fp32)."""
     A = -torch.exp(A_log.float())                     # (H,) negative rates
     a_log = dt.float() * A                            # (Bt,S,H)
     x_scaled = x * dt[..., None].to(x.dtype)
-    y, hfinal = gated_chunked_scan(x_scaled, a_log, B, C, chunk=chunk, h0=h0)
+    y, hfinal = scan(x_scaled, a_log, B, C, chunk=chunk, h0=h0)
     return y + x * D.to(x.dtype)[None, None, :, None], hfinal
 
 
@@ -123,10 +141,47 @@ def mamba2_prefill(p, x: torch.Tensor, cfg: ArchConfig, chunk: int = 128):
     dt = _softplus(dt.float() + p["dt_bias"])
     y, state = ssd_chunked(xin2.reshape(b, s, h, di // h), dt, p["A_log"],
                            Bm2.contiguous(), Cm2.contiguous(), p["D"],
-                           chunk=chunk)
+                           chunk=chunk, scan=ssm_scan)
     y = y.reshape(b, s, di)
     y = L.rmsnorm(p["norm"], y * F.silu(z))
     return y @ p["out_proj"].to(x.dtype), state.float(), conv_in[:, -(W - 1):]
+
+
+def _dense(w) -> torch.Tensor:
+    """A leaf used elementwise: a codec view decoded (template dtype)."""
+    return w.decode() if isinstance(w, QuantView) else w
+
+
+def mamba2_forward(p, x: torch.Tensor, cfg: ArchConfig, chunk: int = 128):
+    """Full-sequence training forward of one Mamba2 block.  x: (B, S, D),
+    already normed -> (B, S, D).
+
+    The reference's ops in its order; the SSD call runs under
+    ``torch.utils.checkpoint`` (non re-entrant), as the reference wraps it
+    in ``jax.checkpoint``: its O(Lc^2) decay and score blocks are
+    recomputed in the backward instead of saved."""
+    b, s, _ = x.shape
+    di = d_inner(cfg)
+    h, n = cfg.ssm_heads, cfg.ssm_state
+    z, xin, Bm, Cm, dt = _split_proj(cfg, L.linear(x, p["in_proj"]))
+    conv_in = torch.cat([xin, Bm, Cm], dim=-1)
+    conv_out, _ = _depthwise_conv(conv_in, _dense(p["conv_w"]), p["conv_b"])
+    conv_out = F.silu(conv_out)
+    xin, Bm, Cm = torch.split(conv_out, [di, n, n], dim=-1)
+    dt = _softplus(dt.float() + p["dt_bias"].float())
+    A_log, D = p["A_log"], p["D"]
+
+    def ssd(xh, dtt, bm, cm):
+        return ssd_chunked(xh, dtt, A_log, bm, cm, D, chunk=chunk)[0]
+
+    args = (xin.reshape(b, s, h, di // h), dt, Bm, Cm)
+    if torch.is_grad_enabled():
+        y = checkpoint(ssd, *args, use_reentrant=False,
+                       preserve_rng_state=False)
+    else:
+        y = ssd(*args)
+    y = L.rmsnorm(p["norm"], y.reshape(b, s, di) * F.silu(z))
+    return L.linear(y, p["out_proj"])
 
 
 def mamba2_decode(p, x: torch.Tensor, cfg: ArchConfig, ssm_state, conv_state):

@@ -98,14 +98,7 @@ def head_weight(cfg: ArchConfig, params):
     if cfg.tie_embeddings:
         tok = params["embed"]["tok"]
         return (Q.dequantize_leaf(tok) if Q.is_quantized(tok) else tok).T
-    w = params["head"]["w"]
-    return Q.view_of(w) if Q.is_quantized(w) else w
-
-
-def embed_lookup(tok, tokens: torch.Tensor) -> torch.Tensor:
-    """Rows ``tokens`` of the embedding table; of a codec record, the
-    gathered rows of its codes and scales, decoded."""
-    return Q.gather_rows(tok, tokens) if Q.is_quantized(tok) else tok[tokens]
+    return L.weight(params["head"]["w"])
 
 
 def _rope(cfg: ArchConfig, max_len: int, device):
@@ -172,7 +165,8 @@ def apply(cfg: ArchConfig, params: PyTree, batch, cut: Optional[int] = None,
     layer ``c`` is detached, so the backward never descends below the
     active group."""
     _check_family(cfg)
-    h = embed_lookup(params["embed"]["tok"], batch["tokens"]).to(compute_dtype)
+    h = L.embed_lookup(params["embed"]["tok"],
+                       batch["tokens"]).to(compute_dtype)
     cos, sin = _rope(cfg, h.shape[1], h.device)
     if cut is not None:
         h = h.detach()
@@ -210,7 +204,8 @@ def lomo_pieces(cfg: ArchConfig, compute_dtype=torch.bfloat16):
     _, norm = _norm_fns(cfg)
 
     def embed_fn(embed_p, batch):
-        return embed_lookup(embed_p["tok"], batch["tokens"]).to(compute_dtype)
+        return L.embed_lookup(embed_p["tok"],
+                              batch["tokens"]).to(compute_dtype)
 
     def block_fn(layer_p, h):
         cos, sin = _rope(cfg, h.shape[1], h.device)

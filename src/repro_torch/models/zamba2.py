@@ -1,33 +1,50 @@
 """Zamba2-style hybrid: stacked Mamba2 blocks + one SHARED attention block
 applied after every ``attn_every`` Mamba layers (port of
-``repro.models.zamba2``), serving path.
+``repro.models.zamba2``).
 
-The same param dict and cache layouts as the reference.  ``init``,
-``init_cache``, ``prefill`` and ``decode_step``; the prefill's scans go
-through ``kernels.ssm_scan`` (on CUDA tensors a hand-written kernel), the
-shared block's attention through ``kernels.flash_attention``
-(``flash_attention`` in the prefill, ``flash_decode`` in decode).  Decode
-runs each Mamba2 step in plain torch (the reference has no kernel for it).
+The same param dict and cache layouts as the reference.
 
-Differences from JAX, all deliberate (those of ``models.transformer``'s
-serving functions): caches are updated in place and also returned, and
-``"pos"`` is a host int.  As in the reference, the prefill masks no left
-pad (pad tokens run through the SSM states and the shared attention).
+Training: ``unit_spec`` ([embed] + the Mamba layers + [shared] + [head]),
+``apply``, ``loss_fn``, ``unit_first_depth`` and ``lomo_pieces``.  Each
+Mamba2 block trains through the plain chunked scan
+(``mamba2.mamba2_forward``) on every device, the shared block's attention
+through the plain chunked attention, as the reference trains.  The
+shared block's params are first used at depth ``attn_every``, so the HiFT
+cut is rounded down to a super-block, as in the reference: super-block 0
+runs below the cut whenever the shared unit trains without the embedding,
+and its application of the shared block gets no gradient (HiFT's shared
+gradient is not FPFT's; the tests hold the port to the reference's).
+Any leaf may be a codec record (quantized residency): the embedding
+decodes its gathered rows, every projection and the head multiply
+through the dequant-matmul kernel (``layers.linear``), and the rest is
+decoded one layer at a time.
 
-Training (``apply``, ``loss_fn``, ``unit_spec``, ``lomo_pieces``) waits
-for hybrid training.
+Serving: ``init``, ``init_cache``, ``prefill`` and ``decode_step``; the
+prefill's scans go through ``kernels.ssm_scan`` (on CUDA tensors a
+hand-written kernel), the shared block's attention through
+``kernels.flash_attention`` (``flash_attention`` in the prefill,
+``flash_decode`` in decode).  Decode runs each Mamba2 step in plain torch
+(the reference has no kernel for it).  Differences of the serving
+functions from JAX, all deliberate (those of ``models.transformer``'s):
+caches are updated in place and also returned, and ``"pos"`` is a host
+int.  As in the reference, the prefill masks no left pad (pad tokens run
+through the SSM states and the shared attention).
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.pytree import tree_map
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import quant as Q
 from repro_torch.kernels.flash_attention import flash_attention, flash_decode
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
+from repro_torch.models.base import (LomoPieces, Unit, dense_unit, layer_at,
+                                     stacked_units)
 
 PyTree = Any
 FP32_LEAVES = M.FP32_LEAVES
@@ -59,6 +76,161 @@ def init(cfg: ArchConfig, generator: torch.Generator, device="cpu",
                                    **kw)},
     }
 
+
+# ---------------------------------------------------------------- training
+
+def unit_spec(cfg: ArchConfig) -> list[Unit]:
+    return ([dense_unit("embed")] + stacked_units("layers", cfg.n_layers)
+            + [dense_unit("shared"), dense_unit("head")])
+
+
+def unit_first_depth(cfg: ArchConfig, unit: Unit) -> int:
+    """Depth (in Mamba-layer index) at which a unit's params are first
+    used: the shared block after super-block 0, at ``attn_every``."""
+    if unit.key == "embed":
+        return 0
+    if unit.kind == "stacked":
+        return unit.index
+    if unit.key == "shared":
+        return cfg.attn_every
+    return cfg.n_layers        # head
+
+
+def _views(tree: PyTree) -> PyTree:
+    """A whole-leaf segment with each codec record as its view (the shared
+    block's projections multiply through the dequant-matmul kernel)."""
+    return tree_map(L.weight, tree, is_leaf=Q.is_quantized)
+
+
+def _super_block(cfg: ArchConfig, shared, cos, sin):
+    """``block(h, layers) -> h``: ``attn_every`` Mamba2 layers (pre-norm,
+    residual), then one application of the shared attention + MLP block.
+    ``shared`` has its codec records already as views."""
+
+    def block(h, layers):
+        for p in layers:
+            h = h + M.mamba2_forward(p["mamba"], L.rmsnorm(p["ln"], h), cfg)
+        h = h + L.gqa_attention(shared["attn"], L.rmsnorm(shared["ln1"], h),
+                                cfg, cos, sin, impl=cfg.attention_impl,
+                                balanced=cfg.attention_balanced)
+        return h + L.swiglu(shared["mlp"], L.rmsnorm(shared["ln2"], h))
+    return block
+
+
+def _sb_layers(cfg: ArchConfig, layers, sb: int) -> list:
+    """The layers of super-block ``sb``, one at a time from whichever piece
+    of a ``LayerStack`` holds each (a super-block may straddle two)."""
+    ae = cfg.attn_every
+    return [layer_at(layers, i) for i in range(sb * ae, (sb + 1) * ae)]
+
+
+def apply(cfg: ArchConfig, params: PyTree, batch, cut: Optional[int] = None,
+          compute_dtype=torch.bfloat16, return_hidden: bool = False):
+    """Training forward -> logits (B, S, V) float32 (or the final hidden
+    states with ``return_hidden``).
+
+    ``params["layers"]`` is the stacked sub-tree or a
+    ``models.base.LayerStack``.  ``cut``: the HiFT backward cut, rounded
+    down to a super-block as the reference rounds it (``sb_cut = min(cut
+    // attn_every, n_sb)``).  None = FPFT.  Otherwise the embedding's
+    output is detached, super-blocks below ``sb_cut`` run without a graph
+    and the activation entering super-block ``sb_cut`` is detached.  Each
+    super-block that records a graph runs under
+    ``torch.utils.checkpoint`` when the config asks for
+    ``remat="layer"``."""
+    h = L.embed_lookup(params["embed"]["tok"],
+                       batch["tokens"]).to(compute_dtype)
+    cos, sin = L.rope_frequencies(cfg.head_dim, h.shape[1], cfg.rope_theta,
+                                  h.device)
+    block = _super_block(cfg, _views(params["shared"]), cos, sin)
+    n_sb = cfg.n_layers // cfg.attn_every
+    sb_cut = 0
+    if cut is not None:
+        h = h.detach()
+        sb_cut = min(cut // cfg.attn_every, n_sb)
+    remat = cfg.remat == "layer"
+    for sb in range(n_sb):
+        layers = _sb_layers(cfg, params["layers"], sb)
+        if sb < sb_cut:
+            with torch.no_grad():
+                h = block(h, layers)
+            continue
+        if sb == sb_cut and sb_cut:
+            h = h.detach()
+        if remat and torch.is_grad_enabled():
+            h = checkpoint(block, h, layers, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            h = block(h, layers)
+    h = L.rmsnorm(params["head"]["final_norm"], h)
+    if return_hidden:
+        return h
+    return L.linear(h, L.weight(params["head"]["w"])).float()
+
+
+def loss_fn(cfg: ArchConfig, params: PyTree, batch, cut: Optional[int] = None,
+            compute_dtype=torch.bfloat16):
+    """Next-token cross-entropy (chunked: never materializes (B, S, V))."""
+    from repro_torch.models.losses import chunked_next_token_xent
+    h = apply(cfg, params, batch, cut=cut, compute_dtype=compute_dtype,
+              return_hidden=True)
+    return chunked_next_token_xent(h, L.weight(params["head"]["w"]),
+                                   batch["labels"], chunk=cfg.ce_chunk or None)
+
+
+def lomo_pieces(cfg: ArchConfig, compute_dtype=torch.bfloat16) -> LomoPieces:
+    """Segmented forward for the fused-backward strategies.
+
+    The fused grain is one SUPER-BLOCK (``attn_every`` Mamba layers + one
+    application of the shared block), because the shared block's weights
+    are reused inside every super-block, so ``liveness_m = attn_every``.
+    The shared segment rides ``shared_key``: each super-block's reverse
+    step contributes its application's gradient, the strategy sums them
+    over the sweep and applies one update (the gradient a plain backward
+    gives reused weights, all ``n_sb`` applications).  ``split`` reshapes
+    ``layers`` from ``(L, ...)`` to ``(n_sb, attn_every, ...)`` as VIEWS
+    (``Tensor.view``, which raises rather than copy): ``lomo`` and
+    ``adalomo`` update those slices in place."""
+    from repro_torch.models.losses import chunked_next_token_xent
+    n_sb, ae = cfg.n_layers // cfg.attn_every, cfg.attn_every
+
+    def embed_init(embed_p, prev, batch):
+        del prev
+        return L.embed_lookup(embed_p["tok"],
+                              batch["tokens"]).to(compute_dtype), None
+
+    def block(sb_p, shared, side, h):
+        del side
+        cos, sin = L.rope_frequencies(cfg.head_dim, h.shape[1],
+                                      cfg.rope_theta, h.device)
+        return _super_block(cfg, _views(shared), cos, sin)(
+            h, [layer_at(sb_p, j) for j in range(ae)])
+
+    def head_loss(head_p, embed_p, h, batch):
+        del embed_p  # untied head
+        h = L.rmsnorm(head_p["final_norm"], h)
+        return chunked_next_token_xent(h, L.weight(head_p["w"]),
+                                       batch["labels"],
+                                       chunk=cfg.ce_chunk or None)
+
+    def split(params):
+        sb = tree_map(lambda x: x.view((n_sb, ae) + tuple(x.shape[1:])),
+                      params["layers"])
+        return params["embed"], (sb,), params["shared"], params["head"]
+
+    def merge(ep, stages, sp, hp):
+        layers = tree_map(
+            lambda x: x.view((x.shape[0] * x.shape[1],) + tuple(x.shape[2:])),
+            stages[0])
+        return {"embed": ep, "layers": layers, "shared": sp, "head": hp}
+
+    return LomoPieces(stage_keys=("layers",), stage_fns=(block,),
+                      stage_inits=(embed_init,), head_loss_fn=head_loss,
+                      split=split, merge=merge, shared_key="shared",
+                      liveness_m=ae)
+
+
+# ---------------------------------------------------------------- serving
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device="cpu") -> PyTree:

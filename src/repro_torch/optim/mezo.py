@@ -13,10 +13,16 @@ Differences from the reference, all deliberate:
   ``jax.random.PRNGKey(seed)``), and the z of each slice is drawn from a
   ``torch.Generator`` seeded by a hash of (key words, leaf path, slice
   index), so z depends on the key and nothing else;
-- in place, as MeZO's own algorithm runs: p += eps z, L+, p -= 2 eps z,
-  L-, p += eps z, p -= lr ghat z.  The reference builds each perturbed
-  tree from the original p, so the params the update starts from differ
-  from it by the rounding of the three in-place adds (a few ulps);
+- fp32 leaves are perturbed in place, as MeZO's own algorithm runs: p +=
+  eps z, L+, p -= 2 eps z, L-, p += eps z, p -= lr ghat z.  The reference
+  builds each perturbed tree from the original p, so the params the
+  update starts from differ from it by the rounding of the three in-place
+  adds (a few ulps).  A leaf of any other dtype would random-walk under
+  those adds (a bf16 ulp is far above lr ghat z), so its original is kept
+  (a copy on its own device, one layer slice at a time) and every
+  perturbed value and the update are computed from it, as the reference
+  computes them: ``orig + sign eps z`` in the leaf's dtype and
+  ``(orig.float() - lr ghat z)`` rounded once;
 - a leaf of a stacked segment is perturbed one layer slice at a time, so
   the temporary z is one slice, never a whole stacked leaf.
 
@@ -97,22 +103,35 @@ def mezo_step(loss_fn: Callable[[PyTree, Any], torch.Tensor], params: PyTree,
     host).  The same key regenerates z for +eps, -2 eps and the restore
     and update, so z is never stored."""
     stacked = tuple(stacked)
+    # originals of the non-fp32 slices (the fp32 ones are restored by
+    # subtraction), keyed by slice; filled by the first perturbation
+    orig: dict = {}
 
-    def perturb(scale: float) -> None:
+    def perturb(sign: float, fp32_scale: float) -> None:
         for path, i, p in _slices(params, stacked):
-            p.add_(_z(key, path, i, p, noise).to(p.dtype), alpha=scale)
+            z = _z(key, path, i, p, noise).to(p.dtype)
+            if p.dtype == torch.float32:
+                p.add_(z, alpha=fp32_scale)
+                continue
+            o = orig.setdefault((path, i), p.clone())
+            # the reference's ``p + sign * eps * z.astype(p.dtype)``: the
+            # Python scalar takes the leaf's dtype, the scaled z rounds to
+            # it, then the sum once
+            torch.add(o, z.mul_(torch.tensor(sign * eps, dtype=p.dtype)),
+                      out=p)
 
-    perturb(eps)
+    perturb(1.0, eps)
     lplus = loss_fn(params, batch)
-    perturb(-2.0 * eps)
+    perturb(-1.0, -2.0 * eps)
     lminus = loss_fn(params, batch)
     ghat = (lplus - lminus) / (2.0 * eps)
     coef = lr * ghat.float()
     for path, i, p in _slices(params, stacked):
         z = _z(key, path, i, p, noise)
-        p.add_(z.to(p.dtype), alpha=eps)                # restore
         if p.dtype == torch.float32:
+            p.add_(z, alpha=eps)                        # restore
             p.sub_(z.mul_(coef))
         else:
-            p.copy_((p.float() - z.mul_(coef)).to(p.dtype))
+            o = orig.pop((path, i))
+            p.copy_((o.float() - z.mul_(coef)).to(p.dtype))
     return params, 0.5 * (lplus + lminus)

@@ -33,8 +33,8 @@ from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.optim.mixed_precision import get_policy  # noqa: E402
 from repro_torch.train import checkpoint as ckpt  # noqa: E402
 from repro_torch.train.loop import LoopConfig, train  # noqa: E402
-from test_torch_training import (LR, _batches, _cfgs, _jbatch,  # noqa: E402
-                                 _jtree, _np_params)
+from test_torch_training import (LR, _batches, _cfgs, _jbatch,  # noqa: E402,F401
+                                 _jtree, _np_params, one_thread)
 
 _REPO = Path(__file__).resolve().parents[1]
 

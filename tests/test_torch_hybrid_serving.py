@@ -16,8 +16,9 @@ prefill) would pass every comparison.
   within 1e-4 at fp32;
 - ``ServeEngine``: the JAX engine's greedy tokens, token for token, on
   mixed-length prompts (left pad unmasked, as in the reference);
-- continuous batching and hybrid training raise; the bridge carries the
-  hybrid tree bit for bit; bf16 serving keeps the SSM scalars in fp32.
+- continuous batching and the unported families' training raise; the
+  bridge carries the hybrid tree bit for bit; bf16 serving keeps the SSM
+  scalars in fp32.
 """
 import dataclasses
 
@@ -171,8 +172,13 @@ def test_continuous_batching_and_training_raise():
     _, tp = _params()
     with pytest.raises(ValueError, match="dense"):
         TE.ContinuousServeEngine(CFG, tp, device="cpu")
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        make_runner(CFG, "hift", params=tp, device="cpu")
+    # hybrid training is ported (test_torch_hybrid_training); a family
+    # still unported raises
+    assert make_runner(CFG, "hift", params=tp, device="cpu").k == \
+        CFG.n_layers + 3
+    with pytest.raises(NotImplementedError, match="'moe'"):
+        make_runner(dataclasses.replace(CFG, family="moe"), "hift",
+                    params=tp, device="cpu")
     from repro_torch.launch import serve
     with pytest.raises(ValueError, match="dense"):
         serve.main(["--arch", "zamba2-2.7b", "--device", "cpu",

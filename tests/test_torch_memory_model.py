@@ -48,7 +48,10 @@ def _shapes(arch):
     return get_family(cfg).unit_spec(cfg), TM.param_shapes(cfg)
 
 
-@pytest.mark.parametrize("arch", PAPER_IDS)
+HYBRID = "zamba2_2_7b"
+
+
+@pytest.mark.parametrize("arch", PAPER_IDS + [HYBRID])
 def test_param_shapes_are_the_references_without_storage(arch):
     units, shapes = _shapes(arch)
     junits, jshapes = _jax_shapes(arch)
@@ -61,7 +64,7 @@ def test_param_shapes_are_the_references_without_storage(arch):
     assert [u.label() for u in units] == [u.label() for u in junits]
 
 
-@pytest.mark.parametrize("arch", PAPER_IDS)
+@pytest.mark.parametrize("arch", PAPER_IDS + [HYBRID])
 def test_analyze_matches_the_reference(arch):
     units, shapes = _shapes(arch)
     junits, jshapes = _jax_shapes(arch)
@@ -86,6 +89,29 @@ def test_analyze_matches_the_reference(arch):
                     compared += 1
     # mixed + a codec is the one combination the reference rejects
     assert (compared, rejected) == (5 * 3 * 7 * 3 - 5 * 7 * 2, 5 * 7 * 2)
+
+
+def test_zamba2_prices_as_the_reference():
+    """The hybrid family on its meta-device ``init``: 2,422,670,240
+    params; fp32 AdamW P+G+S 10.20 GiB under HiFT m=1 (the largest group,
+    the shared block's 104.86 M params) against 36.10 GiB under FPFT, a
+    71.8 % saving; the fused strategies' grain is one super-block
+    (``liveness_m = attn_every``), priced as the reference prices it."""
+    units, shapes = _shapes(HYBRID)
+    junits, jshapes = _jax_shapes(HYBRID)
+    kw = dict(optimizer="adamw", precision="fp32")
+    h = TM.analyze(shapes, units, mode="hift", **kw)
+    f = TM.analyze(shapes, units, mode="fpft", **kw)
+    assert h.n_params == 2_422_670_240
+    assert round(h.pgs_gb, 2) == 10.20 and round(f.pgs_gb, 2) == 36.10
+    assert round(h.peak_trainable / 1e6, 2) == 104.86
+    assert round(100 * (1 - h.pgs_gb / f.pgs_gb), 1) == 71.8
+    m = get_config("zamba2-2.7b").attn_every
+    for mode in ("lomo", "adalomo", "hift", "hift_pipelined"):
+        want = JM.analyze(jshapes, junits, mode=mode, m=m, **kw)
+        assert dataclasses.asdict(TM.analyze(shapes, units, mode=mode, m=m,
+                                             **kw)) == \
+            dataclasses.asdict(want), mode
 
 
 @pytest.mark.parametrize("kw", [

@@ -44,8 +44,8 @@ from repro_torch.configs import registry as treg  # noqa: E402
 from repro_torch.core import HiFTConfig, LRSchedule, make_runner  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.optim import make_optimizer  # noqa: E402
-from test_torch_training import (LR, _batches, _cfgs, _jbatch,  # noqa: E402
-                                 _jtree, _np_params)
+from test_torch_training import (LR, _batches, _cfgs, _jbatch,  # noqa: E402,F401
+                                 _jtree, _np_params, one_thread)
 
 # the packages export the factory under the module's name
 JA = importlib.import_module("repro.optim.adafactor")

@@ -35,20 +35,8 @@ from repro_torch.core.pipeline import BundlePipeline  # noqa: E402
 from repro_torch.data.synthetic import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.train import checkpoint as ckpt  # noqa: E402
-from test_torch_training import (LR, _batches, _cfgs, _jbatch,  # noqa: E402
-                                 _jtree, _np_params)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """These tiny models run fastest on one intra-op thread; the tier-1 run
-    puts several workers on the machine's cores, where torch's default of
-    one thread a core makes them contend."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
+from test_torch_training import (LR, _batches, _cfgs, _jbatch,  # noqa: E402,F401
+                                 _jtree, _np_params, one_thread)
 
 # the reference's tiny_dense_cfg(ce_chunk=0): 4 layers, so k = 6 groups
 TINY = ArchConfig(name="tiny", family="dense", n_layers=4, d_model=64,
@@ -76,9 +64,9 @@ def _assert_same(a, b, err=""):
             np.testing.assert_array_equal(x, b[path], err_msg=f"{err}{path}")
 
 
-def _runner(strategy, seed=0, **kw):
+def _runner(strategy, seed=0, cfg=TINY, **kw):
     kw.setdefault("schedule", LRSchedule(base_lr=3e-3))
-    return make_runner(TINY, strategy, seed=seed, device="cpu", **kw)
+    return make_runner(cfg, strategy, seed=seed, device="cpu", **kw)
 
 
 # ------------------------------------------------------- bitwise equality

@@ -42,8 +42,8 @@ from repro_torch.core import (LRSchedule, QuantConfig,  # noqa: E402
 from repro_torch.dist import quant as Q  # noqa: E402
 from repro_torch.optim import make_optimizer  # noqa: E402
 from repro_torch.optim.mixed_precision import get_policy  # noqa: E402
-from test_torch_training import (LR, _batches, _cfgs, _jbatch,  # noqa: E402
-                                 _jtree, _np_params)
+from test_torch_training import (LR, _batches, _cfgs, _jbatch,  # noqa: E402,F401
+                                 _jtree, _np_params, one_thread)
 
 CASES = {
     "int8": dict(frozen="int8", policy="fp32"),

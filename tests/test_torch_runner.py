@@ -44,8 +44,8 @@ from repro_torch.common.pytree import flatten_with_paths  # noqa: E402
 from repro_torch.core import (HiFTConfig, LiSAConfig, LRSchedule,  # noqa: E402
                               make_runner)
 from repro_torch.optim.mixed_precision import get_policy  # noqa: E402
-from test_torch_training import (LR, _batches, _cfgs, _jbatch,  # noqa: E402
-                                 _jtree, _np_params, _runner)
+from test_torch_training import (LR, _batches, _cfgs, _jbatch,  # noqa: E402,F401
+                                 _jtree, _np_params, _runner, one_thread)
 
 CASES = {
     "adamw": dict(opt="adamw", steps=8, fused=True),
@@ -193,3 +193,27 @@ def test_step_is_pure_on_cpu_and_metrics_match_jax(strategy):
             jax_runner.group_for_step(1).label()
 
 
+
+
+# -------------------------------------------------------------- launcher
+
+def test_launcher_fpft_flag_is_the_strategy_alias(monkeypatch, capsys):
+    """``--fpft`` is the reference's deprecated alias for ``--strategy
+    fpft``: it builds the ``fpft`` runner (whatever ``--strategy`` says)
+    and trains exactly as the spelled-out strategy does."""
+    from repro_torch.launch import train as train_cli
+    built = []
+    real = train_cli.make_runner
+
+    def spy(cfg, strategy, **kw):
+        built.append(strategy)
+        return real(cfg, strategy, **kw)
+
+    monkeypatch.setattr(train_cli, "make_runner", spy)
+    base = ["--arch", "llama2-7b", "--smoke", "--steps", "2", "--device",
+            "cpu"]
+    alias = train_cli.main(base + ["--fpft", "--strategy", "hift"])
+    spelled = train_cli.main(base + ["--strategy", "fpft"])
+    assert built == ["fpft", "fpft"]
+    assert alias["losses"] == spelled["losses"]
+    assert "hift k=" not in capsys.readouterr().out

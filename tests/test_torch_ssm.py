@@ -40,6 +40,7 @@ from repro_torch.configs.base import ArchConfig  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels import ssm_scan as K  # noqa: E402
 from repro_torch.models import mamba2 as TM  # noqa: E402
+from test_torch_training import one_thread  # noqa: E402,F401
 
 TOL = dict(atol=3e-5, rtol=1e-4)
 MODEL_TOL = dict(atol=1e-4, rtol=1e-4)
@@ -160,6 +161,27 @@ def test_cpu_wrapper_takes_plain_version_and_counts_nothing():
     assert K.ssm_scan.launches == 0
     gy, gh = TM.gated_chunked_scan(x, a_log, bm, cm, chunk=32)
     assert torch.equal(gy, y) and torch.equal(gh, h)
+
+
+def test_wrapper_refuses_grad_mode_off_the_cpu():
+    """The kernel has no backward: off the CPU (the meta device stands in
+    for the card, where ``chip_smoke.py`` checks the CUDA raise) an input
+    that requires grad under grad mode raises before any launch, and the
+    same call under ``torch.no_grad()`` gets past the guard.  On the CPU
+    the plain version keeps its graph."""
+    shapes = ((1, 8, 2, 64), (1, 8, 2), (1, 8, 64), (1, 8, 64))
+    for i in range(4):
+        args = [torch.empty(s, device="meta", requires_grad=(j == i))
+                for j, s in enumerate(shapes)]
+        with pytest.raises(RuntimeError, match="no backward"):
+            K.ssm_scan(*args)
+        with torch.no_grad(), pytest.raises(ValueError, match="no kernel"):
+            K.ssm_scan(*args)
+    x, a_log, bm, cm = (_t(a).requires_grad_(True)
+                        for a in _inputs(40, "slow", seed=5))
+    y, _ = K.ssm_scan(x, a_log, bm, cm, chunk=16)
+    gx, ga = torch.autograd.grad(y.square().sum(), (x, a_log))
+    assert gx.abs().sum() > 0 and ga.abs().sum() > 0
 
 
 def test_wrapper_refuses_devices_and_shapes_without_a_kernel():

@@ -54,6 +54,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import ref as jax_ref  # noqa: E402
 from repro.models import mamba2 as JM  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
+from test_torch_training import one_thread  # noqa: E402,F401
 
 _spec = importlib.util.spec_from_file_location(
     "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")

@@ -58,6 +58,17 @@ LR = 1e-3
 SEQ, BATCH = 32, 2
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """These tiny models run fastest on one intra-op thread; the tier-1 run
+    puts several workers on the machine's cores, where torch's default of
+    one thread a core makes them contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfgs(name):
     """(JAX config, port config) of an arch's smoke twin, ce_chunk 16."""
     return (dataclasses.replace(jax_get_config(name, smoke=True), ce_chunk=16),
