@@ -28,7 +28,7 @@ Phases, one JSON line each:
    the attention kernels' launches counted over that run, then a profile
    of a prefill (batch 4, the attention's share) and of a decode step;
    then the same at fp32, the launcher's default dtype (``full_size_fp32``:
-   27 GB of weights, 16 new tokens a request);
+   16 of the 32 layers, 14 GB of weights, 16 new tokens a request);
 5. each fused update kernel (AdamW, SGD-momentum, AdaGrad) against its
    plain version at one llama2-7b layer group, the embedding group, a
    Mixed^Hi case (f32 master, bf16 grads) and bf16 moments, with times,
@@ -71,9 +71,9 @@ Phases, one JSON line each:
    g. ``fpft_streamed`` (``train_streamed``): gpt-neo-2.7b at full depth,
       one ``fpft`` and one ``fpft_streamed`` step (64 MiB chunks, depth
       3), bit-equal, peaks, pinned bytes, chunks, the update's share;
-      then two streamed steps of llama2-7b at full depth;
+      then two streamed steps of llama2-7b at 16 of its 32 layers;
    h. ``lomo``, ``adalomo`` and ``mezo``, card against CPU
-      (``train_fused_card_vs_cpu``): 2 layers at llama2-7b's width (untied
+      (``train_fused_card_vs_cpu``): 1 layer at llama2-7b's width (untied
       head) and at gpt-neo-2.7b's (tied), fp32, 3 steps each of ``lomo``
       (clip 1.0), ``adalomo`` (clip 0; 1.0 at the tied width) and
       ``mezo`` (the same z on both devices), losses and grad norms within
@@ -140,11 +140,34 @@ Phases, one JSON line each:
 16. hybrid serving at full size: zamba2-2.7b (54 layers, random weights
    from a seed) through ``ServeEngine``, batch 4, prompts of 128-512
    tokens, in bf16 with 32 new tokens and then in fp32 (the launcher's
-   default) with 8, each after one warm-up run: tokens/s, peak memory,
-   the kernels' launches over that run (54 scans a prefill, of the
-   dtype's instantiation), then prefill and decode-step times (the step
+   default; 24 of the 54 layers) with 8, each after one warm-up run:
+   tokens/s, peak memory, the kernels' launches over that run (a scan a
+   layer a prefill, of the dtype's instantiation), then prefill and decode-step times (the step
    in rounds, as ``generate`` runs it) and a profile of each (the scan's
-   and the attention's share of the prefill).
+   and the attention's share of the prefill);
+17. the moe and vlm families and the last dense configs
+   (``phase_moe_vlm``; ``--only moe_vlm`` builds and runs only this):
+   a. the prefill and the decode with internvl2-26b's 256-token vision
+      prefix in front of ragged left pads (48 heads over 8, hd 128) and
+      the decode at smollm-360m's 15 heads over 5, bf16 and fp32, each
+      against its plain version;
+   b. ``train_moe_card_vs_cpu``: 2 layers of deepseek-moe-16b at full
+      width, fp32, 2 x 128, 4 HiFT steps and one step each of ``lomo``,
+      ``adalomo`` and ``mezo``, then one HiFT step of arctic-480b's SMOKE
+      twin, losses within 1e-4, the routes that flip counted;
+   c. ``train_moe_full``: deepseek-moe-16b at its published config, 4 x
+      512, fp32 HiFT m=1 (embed, layer 0, head, layer 27) beside the
+      analytic P+G+S and FPFT's, ``lomo`` and ``mezo`` (6 GiB gate), NF4
+      HiFT from a tree encoded leaf by leaf;
+   d. ``train_dense_vlm_full``: deepseek-7b (embed, head), internlm2-1.8b
+      and smollm-360m fp32 HiFT, internvl2-26b NF4 HiFT with 256 vision
+      tokens (its fp32 tree does not fit);
+   e. ``serve_moe_vlm_full``: deepseek-moe-16b, internvl2-26b and
+      smollm-360m (also continuous) in bf16, 4 ragged prompts, 16 new
+      tokens: prefill ms, decode-step ms, tokens/s, launches;
+   f. ``serve_moe_vlm_card_vs_cpu``: 2 layers of deepseek-moe-16b and of
+      internvl2-26b width at fp32, the same greedy tokens on both
+      devices, or a route flip behind a difference.
 
 Then the ``nvidia-smi`` line, the kernels line and, last, the result line.
 Any failure raises: the script exits non-zero and prints no result.  It
@@ -203,17 +226,18 @@ SOURCES = {
 
 def analytic(cfg, mode: str = "hift", precision: str = "fp32",
              optimizer: str = "adamw", frozen=None, moments: str = "fp32",
-             stream_depth: int = 2, stream_chunk_bytes: int = 1 << 20):
+             stream_depth: int = 2, stream_chunk_bytes: int = 1 << 20,
+             m: int = 1):
     """The port's Appendix-B model of ``cfg`` (``core.memory_model.analyze``
-    on its meta-device shapes, m=1): a ``MemoryReport`` whose ``pgs_gb``
-    is the analytic P+G+S in GiB, a model, not a measurement.
+    on its meta-device shapes, m=1 unless given): a ``MemoryReport`` whose
+    ``pgs_gb`` is the analytic P+G+S in GiB, a model, not a measurement.
     ``stream_depth``: the bundles of ``hift_pipelined`` or the chunks of
     ``fpft_streamed`` on the device; ``stream_chunk_bytes``: the latter's
     chunk size."""
     from repro_torch.core.memory_model import analyze, param_shapes
     from repro_torch.models import get_family
     return analyze(param_shapes(cfg), get_family(cfg).unit_spec(cfg),
-                   optimizer=optimizer, precision=precision, mode=mode, m=1,
+                   optimizer=optimizer, precision=precision, mode=mode, m=m,
                    frozen_quant=frozen, moment_dtype=moments,
                    stream_depth=stream_depth,
                    stream_chunk_bytes=stream_chunk_bytes)
@@ -340,8 +364,9 @@ def kernel_cases(torch):
 
 
 def make_inputs(torch, kernel, dt, sh, gen):
-    """One set of inputs (a tuple of the kernel's arguments) and the rows
-    of its output that are defined (pad rows of prefill are not)."""
+    """One set of inputs (a tuple of the kernel's arguments; with a vision
+    ``prefix`` in ``sh``, the prefill's ``causal`` and ``prefix`` and the
+    decode's ``prefix`` follow the tensors)."""
     dev = "cuda"
     b, h, kvh, hd = sh["b"], sh["h"], sh["kvh"], sh["hd"]
 
@@ -351,15 +376,16 @@ def make_inputs(torch, kernel, dt, sh, gen):
     def idx(vals):
         return torch.tensor(vals, dtype=torch.int32, device=dev)
 
+    extra = (sh["prefix"],) if "prefix" in sh else ()
     if kernel == "flash_attention":
         s = sh["s"]
         return (rnd(b, s, h, hd), rnd(b, s, kvh, hd), rnd(b, s, kvh, hd),
-                idx(sh["starts"]))
+                idx(sh["starts"])) + ((True,) + extra if extra else ())
     q = rnd(b, h, hd)
     if kernel == "flash_decode":
         s = sh["s"]
         return (q, rnd(b, s, kvh, hd), rnd(b, s, kvh, hd),
-                idx(sh["lengths"]), idx(sh["starts"]))
+                idx(sh["lengths"]), idx(sh["starts"])) + extra
     n_blocks = 1 + b * sh["max_blocks"]
     perm = torch.randperm(n_blocks - 1, generator=gen, device=dev) + 1
     tables = perm.reshape(b, sh["max_blocks"]).to(torch.int32)
@@ -374,14 +400,18 @@ def work(kernel, dtype, sh):
     output written once."""
     e = 2 if dtype == "bfloat16" else 4
     h, kvh, hd = sh["h"], sh["kvh"], sh["hd"]
+    pre = sh.get("prefix", 0)     # valid keys [0, pre) and [pre + start, ..)
     if kernel == "flash_attention":
         s = sh["s"]
-        valid = [s - st for st in sh["starts"]]
-        pairs = sum(n * (n + 1) // 2 for n in valid)
-        nbytes = sum(valid) * (h + 2 * kvh) * hd * e       # q, k, v rows
+        valid = [s - pre - st for st in sh["starts"]]
+        # a valid query sees the valid keys at or before it
+        pairs = sum(pre * (pre + 1) // 2 + n * pre + n * (n + 1) // 2
+                    for n in valid)
+        nbytes = sum(pre + n for n in valid) * (h + 2 * kvh) * hd * e
         nbytes += sh["b"] * s * h * hd * e + 4 * sh["b"]    # out, starts
         return 4 * hd * h * pairs, nbytes
-    window = [max(0, ln - st) for st, ln in zip(sh["starts"], sh["lengths"])]
+    window = [min(pre, ln) + max(0, ln - pre - st)
+              for st, ln in zip(sh["starts"], sh["lengths"])]
     nbytes = 2 * sh["b"] * h * hd * e + 8 * sh["b"]         # q, out, idx
     nbytes += sum(window) * 2 * kvh * hd * e                # k, v rows
     if kernel == "paged_flash_decode":
@@ -404,20 +434,24 @@ def library_call(torch, kernel, args, h, kvh):
         if (major, minor) < (2, 5):
             return None
         gqa = {"enable_gqa": True}
+    pre = args[-1] if isinstance(args[-1], int) and \
+        not isinstance(args[-1], bool) else 0
     if kernel == "flash_attention":
-        q, k, v, starts = args
+        q, k, v, starts = args[:4]
         s = q.shape[1]
         pos = torch.arange(s, device=q.device)
+        key_ok = (pos[None, :] >= starts.long()[:, None] + pre) | \
+            (pos[None, :] < pre)
         mask = (pos[None, :, None] >= pos[None, None, :]) & \
-            (pos[None, None, :] >= starts.long()[:, None, None])
+            key_ok[:, None, :]
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         mask = mask[:, None]
         return lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                       attn_mask=mask, **gqa)
-    q, k, v, lengths, starts = args
+    q, k, v, lengths, starts = args[:5]
     pos = torch.arange(k.shape[1], device=q.device)
-    mask = (pos[None, :] >= starts.long()[:, None]) & \
-        (pos[None, :] < lengths.long()[:, None])
+    mask = ((pos[None, :] >= starts.long()[:, None] + pre) |
+            (pos[None, :] < pre)) & (pos[None, :] < lengths.long()[:, None])
     qt, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
     mask = mask[:, None, None]
     return lambda: F.scaled_dot_product_attention(qt, kt, vt,
@@ -461,16 +495,17 @@ def phase_kernels(torch, cases=None):
         want = plains[kernel](*args)
         torch.cuda.synchronize()
         extra = {}
+        pre = sh.get("prefix", 0)
         if kernel == "flash_attention":       # pad rows: finite, else free
-            keep = torch.arange(sh["s"], device="cuda")[None, :] >= \
-                args[3].long()[:, None]
+            pos = torch.arange(sh["s"], device="cuda")[None, :]
+            keep = (pos >= args[3].long()[:, None] + pre) | (pos < pre)
             pad_finite = bool(torch.isfinite(got[~keep].float()).all())
             if not pad_finite:
                 raise RuntimeError(f"{kernel} ({case}): non-finite pad row")
             got, want = got[keep], want[keep]
             extra["pad_rows_finite"] = pad_finite
         else:                                 # empty windows come out as 0
-            keep = torch.tensor([ln > st for st, ln in
+            keep = torch.tensor([ln > st or pre > 0 for st, ln in
                                  zip(sh["starts"], sh["lengths"])],
                                 device="cuda")
             if not bool((got[~keep] == 0).all()):
@@ -487,7 +522,8 @@ def phase_kernels(torch, cases=None):
         if bool((err > tol + tol * want.abs()).any()):
             raise RuntimeError(f"{kernel} ({case}): max |err| {max_err} "
                                f"over tolerance {tol}")
-        nbytes = sum(a.numel() * a.element_size() for a in args)
+        nbytes = sum(a.numel() * a.element_size() for a in args
+                     if isinstance(a, torch.Tensor))
         sets = [args] + [make_inputs(torch, kernel, dt, sh, gen)
                          for _ in range(copies(nbytes) - 1)]
         ms = time_ms(torch, wrappers[kernel], sets)
@@ -601,15 +637,19 @@ def phase_card_vs_cpu(torch):
                            "prefill kernel")
 
 
-def phase_full(torch, dtype: str = "bfloat16", max_new: int = 32):
-    """llama2-7b at full width and depth, both engines, in ``dtype``: bf16
-    (``full_size``), or fp32 (``full_size_fp32``), the launcher's default,
-    whose prefill runs ``flash_attention_fp32``.  Returns the attention
-    kernels' launches over the run by instantiation (``instance``)."""
+def phase_full(torch, dtype: str = "bfloat16", max_new: int = 32,
+               n_layers=None):
+    """llama2-7b at full width, both engines, in ``dtype``: bf16
+    (``full_size``, full depth), or fp32 (``full_size_fp32``), the
+    launcher's default, whose prefill runs ``flash_attention_fp32``, at
+    ``n_layers`` (None: full depth).  Returns the attention kernels'
+    launches over the run by instantiation (``instance``)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import flash_attention as K
     from repro_torch.models import transformer as T
     cfg = get_config("llama2-7b")
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     dt = getattr(torch, dtype)
     gc.collect()
     torch.cuda.empty_cache()
@@ -646,7 +686,8 @@ def phase_full(torch, dtype: str = "bfloat16", max_new: int = 32):
     prefix = [next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
                    len(a)) for a, b in zip(cont, fixed)]
     emit("full_size" if dtype == "bfloat16" else "full_size_fp32",
-         arch=cfg.name, n_layers=cfg.n_layers, dtype=dtype, depth="full",
+         arch=cfg.name, n_layers=cfg.n_layers, dtype=dtype,
+         depth="full" if n_layers is None else n_layers,
          init_s=init_s, prompt_lens=plens, new_tokens=max_new,
          continuous=dict(slots=4, block_size=16, wall_s=t_cont,
                          tokens_per_s=n_tok / t_cont, steps=ceng.steps,
@@ -1536,6 +1577,7 @@ def phase_train_checkpoint(torch):
 # reference's default 1 MiB would be ~10,000 chunks a gpt-neo-2.7b step,
 # each ~10 eager launches)
 STREAM_WINDOW, STREAM_DEPTH = 64 << 20, 3
+STREAM_LLAMA_LAYERS = 16
 
 
 def _host_trees_unequal(torch, a, b) -> list:
@@ -1831,9 +1873,10 @@ def phase_train_streamed(torch):
     what was allocated before its params, beside the analytic figures, the
     pinned host bytes, the chunks, the stream's counters and the update's
     share of the step (the update between two synchronises).  Then
-    llama2-7b at full depth, whose resident FPFT needs 100.4 GiB: two
-    ``fpft_streamed`` steps, the moments (50.2 GiB) in one pinned
-    buffer."""
+    llama2-7b at 16 of its 32 layers (``STREAM_LLAMA_LAYERS``; at full
+    depth, where resident FPFT needs 100.4 GiB, the phase took 46.3 s of
+    the whole script's 933.1 in PR 22): two ``fpft_streamed`` steps, the
+    moments in one pinned buffer."""
     from repro_torch.common.pytree import flatten_with_paths
     from repro_torch.configs.registry import get_config
     from repro_torch.core import LRSchedule, make_runner
@@ -1895,7 +1938,8 @@ def phase_train_streamed(torch):
         gc.collect()
         torch.cuda.empty_cache()
         torch._C._host_emptyCache()      # the cached pinned blocks go back
-        cfg = get_config("llama2-7b")
+        cfg = dataclasses.replace(get_config("llama2-7b"),
+                                  n_layers=STREAM_LLAMA_LAYERS)
         base = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
         runner = runner_of(cfg, "fpft_streamed", **window)
@@ -1928,6 +1972,9 @@ def phase_train_streamed(torch):
 FUSED_LR = 1e-4            # card against CPU
 FUSED_STEPS = 3
 FUSED_SEQ = 32             # batch 2 x FUSED_SEQ
+# one layer (two until PR 22: the phase's CPU side took 135.7 of the
+# whole script's 933.1 s); the full-size phase runs every layer
+FUSED_LAYERS = 1
 FUSED_RTOL = 1e-4          # card against CPU: losses and grad norms
 # Params' largest gap, card against CPU, after FUSED_STEPS steps at
 # FUSED_LR.  LOMO moves an element by lr * g, so the gradients' rounding
@@ -1968,8 +2015,9 @@ def card_noise(torch, shapes: dict):
 def phase_train_fused_card_vs_cpu(torch):
     """``lomo`` (clip 1.0, weight decay 0.01), ``adalomo`` (defaults, then
     clip 1.0) and ``mezo`` (the same z on both devices, ``card_noise``),
-    3 steps each, from the same params on the CPU and the card: 2 layers
-    at llama2-7b's width (untied head) and at gpt-neo-2.7b's (tied), fp32,
+    3 steps each, from the same params on the CPU and the card: one layer
+    (``FUSED_LAYERS``) at llama2-7b's width (untied head) and at
+    gpt-neo-2.7b's (tied), fp32,
     batch 2 x 32 (the CPU's side sets the phase's time; at 2 x 128 its
     steps take minutes), the clipped ``adalomo`` at the tied width only.
     Losses and grad norms within ``FUSED_RTOL``, params
@@ -2001,7 +2049,7 @@ def phase_train_fused_card_vs_cpu(torch):
         return max(abs(x - y) / abs(x) for x, y in zip(a, b))
 
     for arch in ("llama2-7b", "gpt-neo-2.7b"):
-        cfg = dataclasses.replace(get_config(arch), n_layers=2)
+        cfg = dataclasses.replace(get_config(arch), n_layers=FUSED_LAYERS)
         params = T.init(cfg, torch.Generator().manual_seed(0), device="cpu",
                         dtype=torch.float32)
         shapes = {p: tuple(t.shape)
@@ -3018,8 +3066,10 @@ def phase_hybrid_card_vs_cpu(torch):
     torch.cuda.empty_cache()
 
 
-def phase_hybrid_full(torch, dtype: str = "bfloat16", max_new: int = 32):
-    """zamba2-2.7b at full width and depth in ``dtype``, random weights
+def phase_hybrid_full(torch, dtype: str = "bfloat16", max_new: int = 32,
+                      n_layers=None):
+    """zamba2-2.7b at full width in ``dtype`` (at ``n_layers``, a multiple
+    of ``attn_every``; None: full depth), random weights
     from seed 0, through ``ServeEngine``: batch 4, prompts of 128-512
     tokens, ``max_new`` new tokens, max_len 544.  After one warm-up run of
     the same requests, the kernels' launches are counted over a second
@@ -3033,6 +3083,8 @@ def phase_hybrid_full(torch, dtype: str = "bfloat16", max_new: int = 32):
     from repro_torch.models import zamba2 as Z
     from repro_torch.serve.engine import ServeEngine
     cfg = get_config("zamba2-2.7b")
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     dt = getattr(torch, dtype)
     bf16 = dtype == "bfloat16"
     gc.collect()
@@ -3168,6 +3220,648 @@ def phase_hybrid_timing(torch, cfg, params, prompts, dt, rounds: int = 5,
          prefill_profile=prefill_prof, decode_profile=decode_prof)
 
 
+# ------------------------------------------------------------ moe, vlm and
+# the last dense configs
+
+def vlm_attention_cases():
+    """The prefill and the contiguous decode with internvl2-26b's 256
+    vision tokens in front of ragged left pads (48 heads over 8, head dim
+    128), bf16 and fp32, and the decode at smollm-360m's GQA of 3 (15
+    heads over 5, head dim 64), bf16 and fp32."""
+    vl = dict(h=48, kvh=8, hd=128, prefix=256)
+    smol = dict(h=15, kvh=5, hd=64)
+    starts4 = [0, 37, 100, 5]
+    return [
+        ("flash_attention", "internvl2-26b prefill, 256 vision tokens + "
+         "ragged pad", "bfloat16",
+         dict(b=4, s=768, starts=[0, 50, 120, 400], **vl)),
+        ("flash_attention", "internvl2-26b prefill fp32, 256 vision tokens "
+         "+ ragged pad", "float32",
+         dict(b=2, s=512, starts=[0, 75], **vl)),
+        ("flash_decode", "internvl2-26b decode, 256 vision tokens + ragged "
+         "pad", "bfloat16",
+         dict(b=4, s=800, starts=starts4, lengths=[800, 776, 556, 289],
+              **vl)),
+        ("flash_decode", "internvl2-26b decode fp32, 256 vision tokens + "
+         "ragged pad", "float32",
+         dict(b=4, s=800, starts=starts4, lengths=[800, 776, 556, 289],
+              **vl)),
+        ("flash_decode", "smollm-360m GQA-3 decode", "bfloat16",
+         dict(b=4, s=544, starts=starts4, lengths=[544, 520, 300, 33],
+              **smol)),
+        ("flash_decode", "smollm-360m GQA-3 decode fp32", "float32",
+         dict(b=4, s=544, starts=starts4, lengths=[544, 520, 300, 33],
+              **smol)),
+    ]
+
+
+MOE_LR = 1e-4              # card against CPU
+MOE_SEQ = 128              # batch 2 x MOE_SEQ
+MOE_RTOL = 1e-4            # card against CPU: losses and grad norms
+# The card-against-CPU moe runs compare params on a sample: every
+# MOE_SAMPLE-th element of each leaf (the CPU side may run in another
+# process, and the whole trees are 6.4 GB a run).
+MOE_SAMPLE = 97
+
+
+def route_flips(a: list, b: list) -> int:
+    """(token, slot) routes that differ between two recordings of the
+    same runs (``models.moe.recording_routes``, as numpy arrays)."""
+    if len(a) != len(b):
+        return sum(int(x.size) for x in a)
+    return sum(int((x != y).sum()) for x, y in zip(a, b))
+
+
+def _sample(t):
+    return t.detach().reshape(-1)[::MOE_SAMPLE].float().cpu().numpy()
+
+
+def cpu_noise(torch, shapes: dict):
+    """MeZO's seam for the card-against-CPU moe runs: each slice's z drawn
+    on the CPU from the port's own seed of (key, step, path, index) and
+    kept, so two processes draw the same z and the card's run copies it
+    over."""
+    from repro_torch.optim.mezo import noise_seed
+    kept = {}
+
+    def at(rng, step):
+        key = (*(int(w) for w in rng), step)
+
+        def z(path, index):
+            if (key, path, index) not in kept:
+                shape = shapes[path][1:] if index is not None \
+                    else shapes[path]
+                gen = torch.Generator().manual_seed(
+                    noise_seed(key, path, index))
+                kept[key, path, index] = torch.randn(shape, generator=gen)
+            return kept[key, path, index]
+        return z
+    return at
+
+
+def moe_train_runs(torch, cfgs=None):
+    """The runs of the moe card-against-CPU phase: (cfg, label, strategy,
+    runner kwargs, steps, param tolerance).  2 layers of deepseek-moe-16b
+    at full width: ``hift`` (m = 1, AdamW: embed, layer 0, layer 1,
+    head), ``lomo`` (clip 1.0), ``adalomo``, ``mezo`` (``cpu_noise``);
+    one HiFT step of arctic-480b's SMOKE twin."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import HiFTConfig, LOMOConfig
+    from repro_torch.models import moe as M
+    cfg, arctic = cfgs or (
+        dataclasses.replace(get_config("deepseek-moe-16b"), n_layers=2),
+        get_config("arctic-480b", smoke=True))
+    shapes = {p: tuple(t.shape) for p, t in
+              _flat(M.init(cfg, torch.Generator(), device="meta")).items()}
+    hift = dict(hift=HiFTConfig(m=1), optimizer="adamw")
+    hift_tol = 2 * MOE_LR + 1e-6       # AdamW's sign-like first update
+    return [(cfg, "hift", "hift", hift, 4, hift_tol),
+            (cfg, "lomo", "lomo", dict(lomo=LOMOConfig(grad_clip=1.0)), 1,
+             FUSED_PARAM_TOL["lomo"]),
+            (cfg, "adalomo", "adalomo", {}, 1, 2 * MOE_LR),
+            (cfg, "mezo", "mezo", dict(noise=cpu_noise(torch, shapes)), 1,
+             6 * MOE_LR),
+            (arctic, "arctic_hift", "hift", hift, 1, hift_tol)]
+
+
+def _flat(tree):
+    from repro_torch.common.pytree import flatten_with_paths
+    return flatten_with_paths(tree)
+
+
+def moe_train_side(torch, runs, dev: str) -> dict:
+    """One device's side of the moe card-against-CPU runs, from the params
+    of seed 0 drawn on the CPU: per run the losses, grad norms, groups,
+    routes, seconds and a sample of the final params; for ``adalomo`` also
+    (on the card) where the starting gradient exceeds 1e-4 on that
+    sample."""
+    from repro_torch.core import LRSchedule, make_runner
+    from repro_torch.models import moe as M
+    out, params = {}, {}
+    for cfg, label, strategy, kw, n, _ in runs:
+        if cfg.name not in params:
+            params = {cfg.name: M.init(cfg, torch.Generator().manual_seed(0),
+                                       device="cpu", dtype=torch.float32)}
+        p0 = params[cfg.name]
+        batches = train_batches(cfg, MOE_SEQ, 2, n, "cpu")
+        runner = make_runner(cfg, strategy, params=p0, device=dev,
+                             schedule=LRSchedule(base_lr=MOE_LR), **kw)
+        t0 = time.perf_counter()
+        losses, norms, groups = [], [], []
+        with M.recording_routes() as routes:
+            for b in batches:
+                losses.append(float(runner.train_step(b)))
+                g = runner.last_metrics.get("grad_norm")
+                norms.append(None if g is None else float(g))
+                groups.append(runner.last_metrics.get("group"))
+        secs = time.perf_counter() - t0
+        row = dict(losses=losses, norms=norms, groups=groups, seconds=secs,
+                   routes=[r.cpu().numpy() for r in routes],
+                   params={k: _sample(t) for k, t in
+                           _flat(runner.params).items()})
+        del runner, routes
+        if strategy == "adalomo" and dev != "cpu":
+            row["mask"] = _grad_above(torch, cfg, p0, batches[0], dev)
+        out[label] = row
+    return out
+
+
+def _grad_above(torch, cfg, params, batch, dev, floor: float = 1e-4):
+    """Where FPFT's starting gradient (on ``dev``) exceeds ``floor``, on
+    the params' sample."""
+    from repro_torch.common.pytree import unflatten_from_paths
+    from repro_torch.models import moe as M
+    flat = {k: t.detach().to(dev).requires_grad_(True)
+            for k, t in _flat(params).items()}
+    loss = M.loss_fn(cfg, unflatten_from_paths(flat),
+                     {k: v.to(dev) for k, v in batch.items()},
+                     compute_dtype=torch.float32)
+    grads = torch.autograd.grad(loss, list(flat.values()))
+    return {k: np.abs(_sample(g)) > floor for k, g in zip(flat, grads)}
+
+
+def compare_moe_train(torch, runs, sides: dict, devices) -> None:
+    """Emits a ``train_moe_card_vs_cpu`` line a run; raises where the
+    devices differ: losses and grad norms beyond ``MOE_RTOL`` relative,
+    the params' sample beyond the run's tolerance (``adalomo``'s where the
+    starting gradient exceeds 1e-4, the reference's own bar for its moe
+    pieces: the factored update divides a near-zero gradient by its row's
+    and column's near-zero moments, so rounding moves such an element by
+    several lr, 6.5e-4 at lr 1e-4 seen unmasked)."""
+    a, b = (sides[d] for d in devices)
+    for cfg, label, strategy, _, n, param_tol in runs:
+        x, y = a[label], b[label]
+        rel = max(abs(p - q) / abs(p) for p, q in zip(x["losses"],
+                                                       y["losses"]))
+        nrel = (max(abs(p - q) / abs(p) for p, q in zip(x["norms"],
+                                                        y["norms"]))
+                if x["norms"][0] is not None else 0.0)
+        diff = {k: np.abs(x["params"][k] - y["params"][k])
+                for k in x["params"]}
+        gap_all = max(float(d.max()) for d in diff.values())
+        worst = max(diff, key=lambda k: float(diff[k].max()))
+        mask = y.get("mask") or x.get("mask")
+        gap = gap_all if mask is None else max(
+            float(d[mask[k]].max()) if mask[k].any() else 0.0
+            for k, d in diff.items())
+        flips = route_flips(x["routes"], y["routes"])
+        emit("train_moe_card_vs_cpu", arch=cfg.name, run=label,
+             n_layers=cfg.n_layers, d_model=cfg.d_model,
+             n_experts=cfg.n_experts, top_k=cfg.top_k, batch=2, seq=MOE_SEQ,
+             lr=MOE_LR, groups=x["groups"], cpu_losses=x["losses"],
+             cuda_losses=y["losses"], cpu_grad_norms=x["norms"],
+             cuda_grad_norms=y["norms"], max_rel_loss_gap=rel,
+             max_rel_grad_norm_gap=nrel, rtol=MOE_RTOL, max_param_gap=gap,
+             max_param_gap_unmasked=gap_all, worst_leaf=worst,
+             param_sample=f"every {MOE_SAMPLE}th element",
+             param_tol=param_tol, route_flips=flips,
+             routes=sum(int(r.size) for r in x["routes"]),
+             cpu_seconds=x["seconds"], cuda_seconds=y["seconds"])
+        if (not all(math.isfinite(v) for v in y["losses"])
+                or rel > MOE_RTOL or nrel > MOE_RTOL or gap > param_tol):
+            raise RuntimeError(f"{cfg.name} {label}: card and CPU differ: "
+                               f"losses {x['losses']} {y['losses']}, norms "
+                               f"{x['norms']} {y['norms']}, param gap {gap} "
+                               f"({worst}), route flips {flips}")
+
+
+def phase_train_moe_card_vs_cpu(torch, cfgs=None, devices=("cpu", "cuda")):
+    """moe training, card against CPU, from the same fp32 params
+    (``moe_train_runs``): 2 layers of deepseek-moe-16b at full width (64
+    experts top-6, 2 shared, d 2048, expert ff 1408, vocab 102400), batch
+    2 x 128, then arctic-480b's SMOKE twin (the parallel dense residual
+    FFN); ``compare_moe_train``'s gates, the routes that flip counted.
+    ``phase_moe_vlm`` runs the CPU's side in a child process beside the
+    card's phases; here each device's side runs in turn, and ``cfgs`` /
+    ``devices`` let the phase run small on the CPU alone."""
+    runs = moe_train_runs(torch, cfgs)
+    sides = {dev: moe_train_side(torch, runs, dev) for dev in set(devices)}
+    compare_moe_train(torch, runs, sides, devices)
+    gc.collect()
+
+
+def encoded_init(torch, cfg, fmt: str, seed: int = 0):
+    """A random ``cfg`` tree codec-encoded on the card one leaf at a time,
+    so the whole fp32 tree never exists (internvl2-26b's is 104 GB): each
+    leaf drawn as the family's ``init`` draws it (normal / sqrt(fan_in),
+    the embedding x 0.02, unit norm scales, zero biases), encoded, its
+    fp32 copy freed.  Other numbers than ``init`` from the same seed."""
+    from repro_torch.common.pytree import (flatten_with_paths,
+                                           unflatten_from_paths)
+    from repro_torch.core.memory_model import param_shapes
+    from repro_torch.dist.quant import quantizable, quantize_leaf
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    flat = {}
+    for path, meta in flatten_with_paths(param_shapes(cfg)).items():
+        leaf = path.split("/")[-1]
+        if leaf == "scale":
+            t = torch.ones(meta.shape, device="cuda")
+        elif leaf.startswith("b"):
+            t = torch.zeros(meta.shape, device="cuda")
+        else:
+            t = torch.randn(meta.shape, generator=gen, device="cuda")
+            t.mul_(0.02 if leaf == "tok" else 1 / math.sqrt(meta.shape[-2]))
+        flat[path] = quantize_leaf(t, fmt) if quantizable(t) else t
+        del t
+    torch.cuda.synchronize()
+    return unflatten_from_paths(flat)
+
+
+def pinned_bundle_bytes(torch, runner) -> int:
+    """Bytes of the optimizer bundles held in pinned host memory."""
+    from repro_torch.common.pytree import flatten_with_paths
+    return sum(t.numel() * t.element_size() for t in
+               flatten_with_paths(runner.opt_state).values()
+               if isinstance(t, torch.Tensor) and t.is_pinned())
+
+
+def _hift_steps(torch, cfg, params, batches, steps, timer, tag):
+    """fp32 HiFT m=1 (AdamW, fused) steps: ``steps`` is ((order, n), ..);
+    one line a step with its analytic P+G+S and the pinned bundle
+    bytes."""
+    from repro_torch.core import HiFTConfig, LRSchedule, make_runner
+    rows = []
+    pgs = analytic(cfg).pgs_gb
+    for order, n in steps:
+        runner = make_runner(cfg, "hift", params=params, optimizer="adamw",
+                             hift=HiFTConfig(m=1, strategy=order),
+                             schedule=LRSchedule(base_lr=1e-5),
+                             device="cuda")
+        for _ in range(n):
+            row = fused_step(torch, runner, batches[len(rows) % len(batches)],
+                             timer=timer)
+            row["pinned_bundle_bytes"] = pinned_bundle_bytes(torch, runner)
+            rows.append(row)
+            emit(tag, arch=cfg.name, strategy="hift", order=order,
+                 analytic_pgs_gib=pgs,
+                 over_analytic_gib=row["peak_allocated_gib"] - pgs, **row)
+        del runner
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_train_moe_full(torch):
+    """deepseek-moe-16b at its published config (28 layers, 64 routed
+    experts top-6 + 2 shared, 16.9 B params), random weights from seed 0,
+    batch 4 x 512:
+
+    - fp32 HiFT m=1, AdamW (fused, trained in place): the embed step (a
+      backward through all 28 layers) and layer 0 (bottom2up), then the
+      head and layer 27 (top2down): host ms, peak allocated and reserved
+      beside the analytic P+G+S, the update kernel's device ms, the
+      pinned host bytes of the visited bundles; the analytic FPFT figure
+      and saving beside the measured HiFT peak (FPFT cannot run on one
+      card);
+    - ``lomo`` (clip 1.0) and ``mezo``, one step each: a peak more than
+      ``FUSED_ALLOWANCE_GIB`` over the analytic P+G+S fails the run;
+    - NF4 HiFT (bf16 moments) from a tree encoded leaf by leaf: the embed
+      step and layer 0, with the dequant kernel's device ms and launches.
+
+    Returns the kernels' launches over the HiFT runs."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import LOMOConfig, LRSchedule, QuantConfig, \
+        make_runner
+    from repro_torch.kernels import dequant_matmul as DM
+    from repro_torch.models import moe as M
+    cfg = get_config("deepseek-moe-16b")
+    batches = train_batches(cfg, 512, 4, 2, "cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = M.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                    device="cuda", dtype=torch.float32)
+    with UpdateTimer(torch) as timer:   # counts the main path's run only
+        rows = _hift_steps(torch, cfg, params, batches,
+                           (("bottom2up", 2), ("top2down", 2)), timer,
+                           "train_moe_step")
+        launches = timer.launches()
+    report = analytic(cfg)
+    hift_pgs, fpft = report.pgs_gb, analytic(cfg, "fpft").pgs_gb
+    peak = max(r["peak_allocated_gib"] for r in rows)
+    emit("train_moe_memory", arch=cfg.name, dtype="float32", batch=4,
+         seq=512, n_params=report.n_params, hift_peak_gib=peak,
+         hift_analytic_gib=hift_pgs, fpft_analytic_gib=fpft,
+         analytic_saving=1 - hift_pgs / fpft,
+         saving_vs_analytic_fpft=1 - peak / fpft,
+         card_gib=torch.cuda.get_device_properties(0).total_memory / 2**30,
+         host_ms=[r["host_ms"] for r in rows])
+    sched = LRSchedule(base_lr=1e-5)
+    for strategy, kw in (("lomo", {"lomo": LOMOConfig(grad_clip=1.0)}),
+                         ("mezo", {})):
+        runner = make_runner(cfg, strategy, params=params, schedule=sched,
+                             device="cuda", **kw)
+        st = runner.strategy
+        pgs = analytic(cfg, st.memory_mode, m=st.memory_m).pgs_gb
+        row = fused_step(torch, runner, batches[0])
+        emit("train_moe_step", arch=cfg.name, strategy=strategy,
+             m=st.memory_m, analytic_pgs_gib=pgs,
+             over_analytic_gib=row["peak_allocated_gib"] - pgs, **row)
+        if row["peak_allocated_gib"] - pgs > FUSED_ALLOWANCE_GIB:
+            raise RuntimeError(f"{cfg.name} {strategy}: peak "
+                               f"{row['peak_allocated_gib']:.2f} GiB exceeds "
+                               f"the analytic {pgs:.2f} GiB by more than "
+                               f"{FUSED_ALLOWANCE_GIB} GiB")
+        del runner
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params
+    quant = QuantConfig("nf4", "bf16")
+    params = encoded_init(torch, cfg, "nf4")
+    with UpdateTimer(torch) as timer, UpdateTimer(torch, DM) as dq:
+        _nf4_steps(torch, cfg, params, batches, timer, dq, quant,
+                   "train_moe_quant_step")
+        launches["fused_adamw"] += timer.launches()["fused_adamw"]
+    del params
+    launches["dequant_matmul"] = DM.dequant_matmul.launches - \
+        DM.dequant_matmul.launches_tc
+    if not launches["dequant_matmul"]:
+        raise RuntimeError("NF4 moe HiFT never launched the dequant kernel")
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("train_moe_launches", launches=launches)
+    return launches
+
+
+def _nf4_steps(torch, cfg, params, batches, timer, dq, quant, tag) -> None:
+    """NF4 HiFT m=1 (bf16 moments, AdamW fused): the embed step and layer
+    0, one line each with the dequant kernel's device ms and launches."""
+    from repro_torch.core import HiFTConfig, LRSchedule, make_runner
+    runner = make_runner(cfg, "hift", params=params, optimizer="adamw",
+                         hift=HiFTConfig(m=1), quant=quant,
+                         schedule=LRSchedule(base_lr=1e-5), device="cuda")
+    pgs = analytic(cfg, frozen=quant.frozen, moments=quant.moments).pgs_gb
+    for i in range(2):
+        dq.take()
+        row = fused_step(torch, runner, batches[i % len(batches)],
+                         timer=timer)
+        row["dequant_kernel_ms"], row["dequant_launches"] = dq.take()
+        row["pinned_bundle_bytes"] = pinned_bundle_bytes(torch, runner)
+        emit(tag, arch=cfg.name, fmt=quant.frozen, moments=quant.moments,
+             analytic_pgs_gib=pgs,
+             over_analytic_gib=row["peak_allocated_gib"] - pgs, **row)
+    del runner
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def vlm_batches(cfg, seq, batch, n, device):
+    """Token batches with the stub frontend's ``vision_embeds``
+    (``data.synthetic.VisionStubLM``)."""
+    from repro_torch.data.synthetic import (DataConfig, SyntheticLM,
+                                            VisionStubLM)
+    data = VisionStubLM(SyntheticLM(DataConfig(
+        vocab=cfg.vocab, seq_len=seq, global_batch=batch, seed=0),
+        device=device), cfg.vision_tokens, cfg.d_model)
+    return [data.batch_at(s) for s in range(n)]
+
+
+def phase_train_dense_vlm_full(torch):
+    """The last dense configs and the vlm backbone at full size, batch
+    4 x 512, HiFT m=1, AdamW (fused), random weights from seed 0:
+    deepseek-7b fp32 (the embed step, a backward through all 30 layers,
+    then the head with its 102,400-row CE blocks), internlm2-1.8b and
+    smollm-360m fp32 (embed and layer 0), and internvl2-26b at full depth
+    under NF4 residency with bf16 moments (its fp32 tree does not fit):
+    the embed step and layer 0 with 256 vision tokens in front of 512 text
+    tokens, the dequant kernel's ms and launches.  Each step's peak beside
+    the analytic P+G+S.  Returns the kernels' launches over the run."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import QuantConfig
+    from repro_torch.kernels import dequant_matmul as DM
+    launches = {"fused_adamw": 0}
+    with UpdateTimer(torch) as timer:
+        for arch, steps in (("deepseek-7b", (("bottom2up", 1),
+                                             ("top2down", 1))),
+                            ("internlm2-1.8b", (("bottom2up", 2),)),
+                            ("smollm-360m", (("bottom2up", 2),))):
+            cfg = get_config(arch)
+            params = fresh_params(torch, cfg)
+            _hift_steps(torch, cfg, params, train_batches(cfg, 512, 4, 2,
+                                                          "cuda"),
+                        steps, timer, "train_dense_step")
+            del params
+        launches["fused_adamw"] += timer.launches()["fused_adamw"]
+    cfg = get_config("internvl2-26b")
+    quant = QuantConfig("nf4", "bf16")
+    params = encoded_init(torch, cfg, "nf4")
+    batches = vlm_batches(cfg, 512, 4, 2, "cuda")
+    with UpdateTimer(torch) as timer, UpdateTimer(torch, DM) as dq:
+        _nf4_steps(torch, cfg, params, batches, timer, dq, quant,
+                   "train_vlm_quant_step")
+        launches["fused_adamw"] += timer.launches()["fused_adamw"]
+    del params
+    launches["dequant_matmul"] = DM.dequant_matmul.launches - \
+        DM.dequant_matmul.launches_tc
+    if not launches["dequant_matmul"]:
+        raise RuntimeError("NF4 vlm HiFT never launched the dequant kernel")
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("train_dense_vlm_launches", launches=launches)
+    return launches
+
+
+def phase_serve_moe_vlm_full(torch, max_new: int = 16):
+    """``ServeEngine`` in bf16, 4 ragged prompts of 128-512 tokens, 16 new
+    tokens each, at full size, random weights from seed 0:
+    deepseek-moe-16b (33.8 GB of weights; capacity dispatch in the
+    prefill, the dropless expert gather in decode), internvl2-26b (39.7
+    GB; 256 zero vision embeddings in front of the left pad) and
+    smollm-360m (also through ``ContinuousServeEngine``).  Host-clock
+    prefill ms (a 1-token generation), decode-step ms ((16-token run -
+    prefill) / 15) and tokens/s, one warm-up call first, and the attention
+    kernels' launches over the timed runs.  Returns those launches."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as K
+    from repro_torch.models import get_family
+    from repro_torch.serve.engine import ServeEngine
+    rng = np.random.default_rng(12)
+    total = {}
+    for arch in ("deepseek-moe-16b", "internvl2-26b", "smollm-360m"):
+        cfg = get_config(arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        params = get_family(cfg).init(
+            cfg, torch.Generator(device="cuda").manual_seed(0),
+            device="cuda", dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        plens = [int(n) for n in rng.integers(128, 513, 4)]
+        prompts = [rng.integers(0, cfg.vocab, n) for n in plens]
+        eng = ServeEngine(cfg, params, batch=4,
+                          max_len=cfg.vision_tokens + max(plens) + max_new,
+                          compute_dtype=torch.bfloat16, device="cuda")
+        eng.generate(prompts, max_new_tokens=2)          # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()                 # count the timed runs only
+        t0 = time.perf_counter()
+        eng.generate(prompts, max_new_tokens=1)
+        prefill_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out = eng.generate(prompts, max_new_tokens=max_new)
+        run_s = time.perf_counter() - t0
+        launches = {"flash_attention": K.flash_attention.launches_tc,
+                    "flash_decode": K.flash_decode.launches}
+        cont = None
+        if cfg.family == "dense":
+            ceng, cout, fixed, t_cont, _ = serve_both(
+                torch, cfg, params, prompts, max_new, torch.bfloat16, "cuda",
+                slots=4, prefill_bucket=128,
+                max_blocks=-(-(512 + max_new) // 16))
+            launches["paged_flash_decode"] = K.paged_flash_decode.launches
+            cont = dict(wall_s=t_cont,
+                        tokens_per_s=len(prompts) * max_new / t_cont,
+                        decode_step_ms_median=1e3 * statistics.median(
+                            ceng.decode_seconds),
+                        engines_agree=sum(a == b for a, b in
+                                          zip(cout, fixed)))
+            del ceng
+        if K.flash_attention.launches != K.flash_attention.launches_tc:
+            raise RuntimeError(f"{arch}: bf16 serving ran the fp32 prefill")
+        for toks in out:
+            if len(toks) != max_new or not all(0 <= t < cfg.vocab_padded
+                                               for t in toks):
+                raise RuntimeError(f"{arch}: bad generation {toks}")
+        missing = [k for k, n in launches.items() if n == 0]
+        if missing:
+            raise RuntimeError(f"{arch}: kernels never launched: {missing}")
+        leaves = list(_flat(params).values())
+        emit("serve_moe_vlm_full", arch=arch, family=cfg.family,
+             dtype="bfloat16", init_s=init_s, prompt_lens=plens,
+             vision_tokens=cfg.vision_tokens, new_tokens=max_new,
+             prefill_ms=1e3 * prefill_s,
+             decode_step_ms=1e3 * (run_s - prefill_s) / (max_new - 1),
+             tokens_per_s=len(prompts) * max_new / run_s,
+             weights_gb=sum(t.numel() * t.element_size() for t in
+                            leaves) / 1e9,
+             n_params=sum(t.numel() for t in leaves),
+             peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+             launches=launches, continuous=cont)
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+        del eng, params, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def moe_vlm_serve_sides(torch, devices, smoke: bool = False) -> dict:
+    """Each device's side of the moe/vlm card-against-CPU serving, {dev:
+    {arch: ..}}: per arch (2 layers at deepseek-moe-16b's and
+    internvl2-26b's width, fp32, the params of seed 0 drawn on the CPU
+    once for both) the greedy tokens of 4 prompts of mixed length (8 new
+    tokens), the routes and the seconds."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import get_family
+    from repro_torch.models import moe as M
+    from repro_torch.serve.engine import ServeEngine
+    rng = np.random.default_rng(6)
+    out = {dev: {} for dev in devices}
+    for arch in ("deepseek-moe-16b", "internvl2-26b"):
+        cfg = dataclasses.replace(get_config(arch, smoke=smoke), n_layers=2)
+        params = get_family(cfg).init(cfg, torch.Generator().manual_seed(0),
+                                      device="cpu", dtype=torch.float32)
+        plens = [64, 37, 20, 50]
+        prompts = [rng.integers(0, cfg.vocab, n) for n in plens]
+        for dev in out:
+            eng = ServeEngine(cfg, params, batch=4,
+                              max_len=cfg.vision_tokens + 72,
+                              compute_dtype=torch.float32, device=dev)
+            t0 = time.perf_counter()
+            with M.recording_routes() as rec:
+                toks = eng.generate(prompts, max_new_tokens=8)
+            out[dev][arch] = dict(name=cfg.name, n_layers=cfg.n_layers,
+                                  d_model=cfg.d_model, prompts=plens,
+                                  tokens=toks,
+                                  routes=[r.cpu().numpy() for r in rec],
+                                  seconds=time.perf_counter() - t0)
+            del eng, rec
+        del params
+        gc.collect()
+    return out
+
+
+def phase_serve_moe_vlm_card_vs_cpu(torch, smoke=False,
+                                    devices=("cpu", "cuda")):
+    """The same fp32 weights served on the CPU (plain versions) and the
+    card (kernels), ``ServeEngine`` (``moe_vlm_serve_sides``): 2 layers at
+    deepseek-moe-16b's width (left pad unmasked, as the reference serves
+    moe; the routes of both runs recorded) and at internvl2-26b's (256
+    zero vision embeddings, then the left pad, masked).  The greedy tokens
+    must be equal, or the report must show a route that flipped between
+    the devices.  ``smoke`` / ``devices`` let the phase run small on the
+    CPU alone."""
+    sides = moe_vlm_serve_sides(torch, dict.fromkeys(devices), smoke)
+    a, b = (sides[d] for d in devices)
+    for arch, x in a.items():
+        y = b[arch]
+        flips = route_flips(x["routes"], y["routes"])
+        same = x["tokens"] == y["tokens"]
+        emit("serve_moe_vlm_card_vs_cpu", arch=x["name"],
+             n_layers=x["n_layers"], d_model=x["d_model"],
+             prompts=x["prompts"], new_tokens=8, tokens_equal=same,
+             route_flips=flips,
+             routes=sum(int(r.size) for r in x["routes"]),
+             seconds={"cpu": x["seconds"], "cuda": y["seconds"]},
+             cpu_tokens=x["tokens"], cuda_tokens=y["tokens"])
+        if not same and not flips:
+            raise RuntimeError(f"{arch}: card and CPU greedy tokens differ "
+                               f"with no route flip: {x['tokens']} "
+                               f"{y['tokens']}")
+
+
+def cpu_side(path: str) -> int:
+    """The CPU side of the moe card-against-CPU training, pickled to
+    ``path``: ``phase_moe_vlm`` runs this in a child process on 6 of the
+    host's threads beside the card's phases."""
+    import pickle
+
+    import torch
+    torch.set_num_threads(6)
+    out = {"train": moe_train_side(torch, moe_train_runs(torch), "cpu")}
+    with open(path, "wb") as f:
+        pickle.dump(out, f)
+    return 0
+
+
+class CpuSide:
+    """``cpu_side`` in a child process, started on construction: joined
+    and read with ``result`` (which raises if the child failed), killed
+    by ``close`` if still running."""
+
+    def __init__(self):
+        import tempfile
+        self.dir = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+        self.path = os.path.join(self.dir.name, "cpu_side.pkl")
+        self.err = open(os.path.join(self.dir.name, "stderr"), "w+")
+        self.proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--cpu-side",
+             self.path], stdout=subprocess.DEVNULL, stderr=self.err)
+        self.t0 = time.perf_counter()
+
+    def result(self) -> dict:
+        import pickle
+        rc = self.proc.wait(timeout=900)
+        if rc != 0:
+            self.err.seek(0)
+            raise RuntimeError(f"the CPU sides' process failed ({rc}): "
+                               f"{self.err.read()[-2000:]}")
+        with open(self.path, "rb") as f:
+            out = pickle.load(f)
+        out["seconds"] = time.perf_counter() - self.t0
+        return out
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.err.close()
+        self.dir.cleanup()
+
+
 # ------------------------------------------------------------ main
 
 TC_KERNELS = ("flash_attention_tc_kernel", "flash_attention_3xtf32_kernel",
@@ -3221,8 +3915,64 @@ def sass_mma(libs, usage: dict) -> dict:
     return out
 
 
-def main() -> int:
+def phase_moe_vlm(torch) -> dict:
+    """The moe and vlm families and the last dense configs: the attention
+    kernels with a vision prefix and at smollm-360m's GQA, the card's
+    side of the moe training card against CPU, deepseek-moe-16b trained
+    and the dense and vlm configs trained at full size, the three served
+    at full size, and moe and vlm served card against CPU.  The CPU side
+    of the moe training runs in a child process (``CpuSide``) beside the
+    rest; its comparison comes last.  Each part's seconds in a line;
+    returns the kernels' launches over the main-path runs."""
+    launches, secs = {}, {}
+    cpu = CpuSide()
+    try:
+        t0 = time.perf_counter()
+        phase_kernels(torch, vlm_attention_cases())
+        secs["kernels_vlm"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        runs = moe_train_runs(torch)
+        card = moe_train_side(torch, runs, "cuda")
+        # the comparison keeps no runner kwargs (MeZO's kept z)
+        runs = [r[:3] + (None,) + r[4:] for r in runs]
+        gc.collect()
+        torch.cuda.empty_cache()
+        secs["train_moe_card_side"] = time.perf_counter() - t0
+        for fn in (phase_train_moe_full, phase_train_dense_vlm_full,
+                   phase_serve_moe_vlm_full):
+            t0 = time.perf_counter()
+            for kernel, n in fn(torch).items():
+                launches[kernel] = launches.get(kernel, 0) + n
+            secs[fn.__name__[len("phase_"):]] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        phase_serve_moe_vlm_card_vs_cpu(torch)
+        torch.cuda.empty_cache()
+        secs["serve_moe_vlm_card_vs_cpu"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sides = cpu.result()
+        secs["cpu_side_wait"] = time.perf_counter() - t0
+        secs["cpu_side"] = sides["seconds"]
+        compare_moe_train(torch, runs, {"cpu": sides["train"],
+                                        "cuda": card}, ("cpu", "cuda"))
+    finally:
+        cpu.close()
+    emit("moe_vlm_seconds", seconds=secs,
+         total=sum(v for k, v in secs.items() if k != "cpu_side"))
+    return launches
+
+
+def main(argv=None) -> int:
+    import argparse
+
     import torch
+    ap = argparse.ArgumentParser(description="Drive the port on one card.")
+    ap.add_argument("--only", choices=["moe_vlm"],
+                    help="build, then run only the moe/vlm phase (no "
+                    "result line)")
+    ap.add_argument("--cpu-side", metavar="PATH", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.cpu_side:                  # phase_moe_vlm's child process
+        return cpu_side(args.cpu_side)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -3254,18 +4004,41 @@ def main() -> int:
         if not inst or any(v["hmma"] + v["hgmma"] == 0 for v in inst):
             raise RuntimeError(f"{name}: no tensor-core instruction in its "
                                f"SASS: {inst}")
+    if args.only:
+        phase_moe_vlm(torch)
+        emit("done", seconds=time.perf_counter() - start)
+        return 0
+
+    laps, t_lap = {}, [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        """Seconds since the previous lap, under ``name``."""
+        now = time.perf_counter()
+        laps[name] = laps.get(name, 0.0) + now - t_lap[0]
+        t_lap[0] = now
 
     rows = phase_kernels(torch)
+    lap("kernels")
     phase_card_vs_cpu(torch)
+    lap("card_vs_cpu")
     launches = phase_full(torch)
-    # the launcher's default path: fp32 serving at full size
-    for name, n in phase_full(torch, "float32", max_new=16).items():
+    lap("full_size")
+    # the launcher's default path: fp32 serving at full width, half depth
+    # (the whole script's time: full depth took 15.4 s of 933.1 in PR 22)
+    for name, n in phase_full(torch, "float32", max_new=16,
+                              n_layers=16).items():
         launches[name] = launches.get(name, 0) + n
+    lap("full_size_fp32")
     rows.update(phase_update_kernels(torch))
+    lap("update_kernels")
     phase_train_card_vs_cpu(torch)
+    lap("train_card_vs_cpu")
     launches.update(phase_train_full(torch))
+    lap("train_full")
     phase_train_mixed_hi(torch)
+    lap("train_mixed_hi")
     phase_train_4_layers(torch)
+    lap("train_4_layers")
     # the paper's experiment matrix: its other models, optimizers, the
     # balanced schedule, FPFT against HiFT at full depth, checkpoint/resume;
     # each runs the fused updates
@@ -3277,30 +4050,52 @@ def main() -> int:
                   phase_train_streamed):
         for name, n in phase(torch).items():
             launches[name] += n
+        lap(phase.__name__[len("phase_"):])
     # the fused-backward and zeroth-order strategies: no hand-written
     # kernel lies on their path (the reference's updates there are plain)
     phase_train_fused_card_vs_cpu(torch)
+    lap("train_fused_card_vs_cpu")
     phase_train_fused_full(torch)
+    lap("train_fused_full")
     rows.update(phase_dequant_kernel(torch))
+    lap("dequant_kernel")
     phase_quant_codes(torch)
+    lap("quant_codes")
     phase_train_quant_card_vs_cpu(torch)
+    lap("train_quant_card_vs_cpu")
     quant = phase_train_quant_full(torch)
     launches.update({k: quant[k] for k in ("dequant_matmul",
                                            "dequant_matmul_bf16")})
+    lap("train_quant_full")
     # hybrid training (zamba2): the fused AdamW and, under NF4 residency,
     # the dequant kernel; the training scan is plain torch, as the
     # reference's is plain jnp
     phase_train_hybrid_card_vs_cpu(torch)
+    lap("train_hybrid_card_vs_cpu")
     for name, n in phase_train_hybrid_full(torch).items():
         launches[name] = launches.get(name, 0) + n
+    lap("train_hybrid_full")
     rows.update(phase_ssm_kernel(torch))
+    lap("ssm_kernel")
     phase_kernels(torch, hybrid_attention_cases())
+    lap("kernels_hybrid")
     phase_hybrid_card_vs_cpu(torch)
+    lap("hybrid_card_vs_cpu")
     # the scan's main paths: zamba2-2.7b served at full size in bf16 and
     # in fp32, the launcher's default; they run the attention kernels too
-    for dtype, max_new in (("bfloat16", 32), ("float32", 8)):
-        for name, n in phase_hybrid_full(torch, dtype, max_new).items():
+    # (fp32 at 24 of the 54 layers: the whole script's time, PR 22)
+    for dtype, max_new, depth in (("bfloat16", 32, None),
+                                  ("float32", 8, 24)):
+        for name, n in phase_hybrid_full(torch, dtype, max_new,
+                                         depth).items():
             launches[name] = launches.get(name, 0) + n
+    lap("hybrid_full")
+    # the moe and vlm families and the last dense configs: the prefill and
+    # the decode with a vision prefix, the fused AdamW, the dequant kernel
+    for name, n in phase_moe_vlm(torch).items():
+        launches[name] = launches.get(name, 0) + n
+    lap("moe_vlm")
+    emit("seconds", laps=laps)
     emit("done", seconds=time.perf_counter() - start)
 
     kernels = []

@@ -74,3 +74,27 @@ class PrefetchIterator:
         self.step += 1
         self._next = self.source.batch_at(self.step)
         return out
+
+
+class VisionStubLM:
+    """The vlm family's stub frontend over a token source (the
+    reference's launcher wraps its stream the same way): each batch gains
+    ``vision_embeds`` (B, vision_tokens, d_model), standard normal.  The
+    reference draws ``jax.random.normal(PRNGKey(step + 1))``; the port
+    cannot draw ``jax.random``, so it draws from a ``torch.Generator``
+    seeded by (seed, step) on the source's device: the same law, other
+    numbers."""
+
+    def __init__(self, source: SyntheticLM, vision_tokens: int,
+                 d_model: int):
+        self.source = source
+        self.device = source.device
+        self.shape = (source.per_host, vision_tokens, d_model)
+
+    def batch_at(self, step: int) -> dict:
+        out = self.source.batch_at(step)
+        gen = torch.Generator(device=self.device).manual_seed(
+            (self.source.cfg.seed * 1_000_003 + step) % (2**63 - 1))
+        out["vision_embeds"] = torch.randn(self.shape, generator=gen,
+                                           device=self.device)
+        return out

@@ -209,7 +209,9 @@ class QuantView:
     """One 2-d matrix of a codec record: ``q`` (K, N) int8 or (K,
     ceil(N/2)) packed NF4, ``s`` its scale grid, ``tile_rows`` (8 for a
     layer of a stacked ndim >= 3 leaf, 1 for a 2-d leaf), the true
-    ``shape`` (K, N) and the template ``dtype``."""
+    ``shape`` (K, N) and the template ``dtype``.  A layer of a 4-d stack
+    (the moe family's experts) is a view of shape (E, K, N) with leading
+    dims on ``q`` and ``s``: only ``decode`` takes it."""
     q: torch.Tensor
     s: torch.Tensor
     tile_rows: int
@@ -241,16 +243,16 @@ def view_of(leaf) -> QuantView:
 
 def layer_of(leaf, i: int):
     """Layer ``i`` of a stacked record: the :class:`QuantView` of its
-    matrix for an ndim >= 3 leaf, the decoded row (template dtype) for a
-    2-d ``(L, d)`` stack (norm scales and biases, used elementwise)."""
+    matrix for an ``(L, K, N)`` leaf (and of its ``(E, d, ff)`` stack for
+    a deeper leaf, the moe family's experts, which decode it at use: the
+    (8, 128) scale tiles lie on the trailing two dims), the decoded row
+    (template dtype) for a 2-d ``(L, d)`` stack (norm scales and biases,
+    used elementwise)."""
     shape = quant_shape(leaf)
     if len(shape) == 2:
         row = QuantView(leaf["q"][i:i + 1], leaf["s"][i:i + 1], 1,
                         (1, shape[1]), leaf["t"].dtype)
         return row.decode()[0]
-    if len(shape) != 3:
-        raise ValueError(f"layer_of takes an (L, d) or (L, K, N) record, "
-                         f"got shape {shape}")
     return QuantView(leaf["q"][i], leaf["s"][i], _SUBLANE, shape[1:],
                      leaf["t"].dtype)
 

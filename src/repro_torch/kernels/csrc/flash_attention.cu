@@ -46,8 +46,8 @@
 //   mma.sync.m16n8k8, whose fragments the threads load themselves from any
 //   layout.  One block per (head, batch row, 32-row q tile), so llama2-7b's
 //   1 x 256 is 256 blocks on 132 SMs; its four warps are two key parts of
-//   two warps (16 rows each): part p takes the 16-key tiles t_lo + p,
-//   t_lo + p + 2, .., so the diagonal tile's chain is halved and an SM
+//   two warps (16 rows each): part p takes the p-th, (p + 2)-th, .. of the
+//   row's 16-key tiles, so the diagonal tile's chain is halved and an SM
 //   holds two warps a scheduler, and the parts merge their (m, l, o)
 //   through shared memory at the end (four parts, or 8-key tiles, measured
 //   no faster).  Q is split once into big and small parts in shared
@@ -61,13 +61,17 @@
 //   shuffle.  The online softmax runs in fp32 registers with exp2 and the
 //   scale folded into log2 e.
 //
-// Both start the kv loop at the tile that holds starts[b] (left pad) and
-// stop at the diagonal; the ragged edge is masked, so S need not divide
-// the tile.  q tiles are launched longest first (the diagonal tiles do the
-// most work), a warp whose rows all precede a key tile skips its products,
-// and a causal q tile wholly inside the left pad is written as zeros
-// without reading a key.  A q row inside the pad otherwise sees no key and
-// comes out finite (the mean of the visited values).
+// Both take `prefix` (a vlm's vision tokens, 0 otherwise): key j of row b
+// is valid iff j < prefix or j >= prefix + starts[b], so the left pad sits
+// behind the prefix.  The kv loop visits the prefix's tiles, then starts
+// again at the tile that holds prefix + starts[b] and stops at the
+// diagonal; the pad's and the ragged edge's keys are masked, so S need not
+// divide the tile.  With prefix 0 the loop is the plain left-pad one.  q
+// tiles are launched longest first (the diagonal tiles do the most work), a
+// warp whose rows all precede a key tile skips its products, and with no
+// prefix a causal q tile wholly inside the left pad is written as zeros
+// without reading a key (with one, pad rows see the prefix).  A q row that
+// sees no key comes out finite (the mean of the visited values).
 //
 // Decode (replaces flash_decode_pallas, :141, _decode_kernel :109, and
 //   paged_flash_decode_pallas, :230, _paged_decode_kernel :187):
@@ -76,8 +80,9 @@
 //   per row reads the whole valid window of its kv head once, 2*hd*elem
 //   bytes per key, against 4*hd operations per query head.  Split-KV
 //   ("flash-decoding"): the grid is (kv head x head group, batch row,
-//   split), and each block takes the keys of its row's window [starts[b],
-//   lengths[b]) that fall in [split * chunk, (split + 1) * chunk); the host
+//   split), and each block takes the keys of its row's window ([0, prefix)
+//   and [prefix + starts[b], lengths[b]); the paged cache has no prefix)
+//   that fall in [split * chunk, (split + 1) * chunk); the host
 //   picks the chunk from the cache's capacity so the longest row is cut
 //   into enough pieces to fill the card, and a block whose chunk misses
 //   the window exits at once.  One block serves GM query heads of its kv
@@ -176,7 +181,7 @@ flash_attention_3xtf32_kernel(const float* __restrict__ q,
                               const float* __restrict__ v,
                               const int* __restrict__ starts,
                               float* __restrict__ out, int S, int H, int KV,
-                              int causal, float scale_log2) {
+                              int causal, int prefix, float scale_log2) {
   constexpr int LD = HD + 4;                 // padded row, in floats
   constexpr int C4 = HD / 4;                 // 16-byte chunks of a row
   constexpr int TILE = kF3BK * LD;
@@ -207,7 +212,7 @@ flash_attention_3xtf32_kernel(const float* __restrict__ q,
   float* ob = out + ((size_t)b * S * H + h) * HD;
   const int q_end = min(q0 + kF3BQ, S);
 
-  if (causal && q_end <= start) {            // every row in the pad
+  if (causal && prefix == 0 && q_end <= start) {   // every row in the pad
     for (int c = tid; c < (q_end - q0) * C4; c += kF3Threads)
       *reinterpret_cast<float4*>(ob + (size_t)(q0 + c / C4) * q_stride +
                                  (c % C4) * 4) = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -227,14 +232,22 @@ flash_attention_3xtf32_kernel(const float* __restrict__ q,
     }
   };
 
-  // Key tiles [t_lo, t_hi); part p takes t_lo + p, t_lo + p + parts, ..
+  // Key tiles: the prefix's [0, n_pre), then [t_b, t_hi) from the tile
+  // that holds prefix + start on; part p takes the tiles p, p + parts, ..
+  // of that list.
   const int kv_end = causal ? q_end : S;     // keys [.., kv_end)
-  const int t_lo = min(start, kv_end) / kF3BK + part;
+  const int n_pre = (min(prefix, kv_end) + kF3BK - 1) / kF3BK;
+  const int t_b = max(n_pre, min(prefix + start, kv_end) / kF3BK);
   const int t_hi = (kv_end + kF3BK - 1) / kF3BK;
-  const int n_mine = max(0, (t_hi - t_lo + kF3Parts - 1) / kF3Parts);
+  const int n_tiles = n_pre + t_hi - t_b;
+  const int n_mine = max(0, (n_tiles - part + kF3Parts - 1) / kF3Parts);
+  auto tile_k0 = [&](int i) {                // first key of my i-th tile
+    const int j = part + kF3Parts * i;
+    return (j < n_pre ? j : t_b + j - n_pre) * kF3BK;
+  };
 #pragma unroll
   for (int i = 0; i < kF3Stages - 1; ++i) {
-    if (i < n_mine) load_kv(i, (t_lo + kF3Parts * i) * kF3BK);
+    if (i < n_mine) load_kv(i, tile_k0(i));
     cp_async_commit();
   }
 
@@ -270,12 +283,11 @@ flash_attention_3xtf32_kernel(const float* __restrict__ q,
   for (int i = 0; i < n_mine; ++i) {
     const int st = i % kF3Stages;
     if (i + kF3Stages - 1 < n_mine)
-      load_kv((i + kF3Stages - 1) % kF3Stages,
-              (t_lo + kF3Parts * (i + kF3Stages - 1)) * kF3BK);
+      load_kv((i + kF3Stages - 1) % kF3Stages, tile_k0(i + kF3Stages - 1));
     cp_async_commit();
     cp_async_wait<kF3Stages - 1>();          // this tile landed
     part_sync();
-    const int k0 = (t_lo + kF3Parts * i) * kF3BK;
+    const int k0 = tile_k0(i);
     if (causal && k0 > q0 + rw + 15) {       // every key after this warp's rows
       part_sync();
       continue;
@@ -316,8 +328,8 @@ flash_attention_3xtf32_kernel(const float* __restrict__ q,
 
     // Scale into log2 units and mask; the online softmax of rows row0 and
     // row0 + 8, each row's 16 scores spread over the 4 threads of a quad.
-    const bool edge = k0 < start || k0 + kF3BK > S ||
-                      (causal && k0 + kF3BK - 1 > q0 + rw);
+    const bool edge = (k0 < prefix + start && k0 + kF3BK > prefix) ||
+                      k0 + kF3BK > S || (causal && k0 + kF3BK - 1 > q0 + rw);
     float mx[2] = {m_r[0], m_r[1]};
 #pragma unroll
     for (int n = 0; n < kF3NT; ++n)
@@ -327,7 +339,8 @@ flash_attention_3xtf32_kernel(const float* __restrict__ q,
         if (edge) {
           const int kp = k0 + 8 * n + 2 * t4 + (e & 1);
           const int qi = row0 + (e >> 1) * 8;
-          if (kp < start || kp >= S || (causal && kp > qi)) s = kNeg;
+          if ((kp >= prefix && kp < prefix + start) || kp >= S ||
+              (causal && kp > qi)) s = kNeg;
         }
         sc[n][e] = s;
         mx[e >> 1] = fmaxf(mx[e >> 1], s);
@@ -559,7 +572,7 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ v,
                           const int* __restrict__ starts,
                           __nv_bfloat16* __restrict__ out, int S, int H,
-                          int KV, int causal, float scale_log2) {
+                          int KV, int causal, int prefix, float scale_log2) {
   constexpr int CH = HD / 8;                 // 16-byte chunks of a row
   constexpr int ATOMS = (HD + 63) / 64;      // 64-column atoms of a tile
   constexpr int TILE = tc_tile_bytes<HD>();
@@ -584,7 +597,7 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
   __nv_bfloat16* ob = out + ((size_t)b * S * H + h) * HD;
   const int q_end = min(q0 + kTcBQ, S);
 
-  if (causal && q_end <= start) {            // every row in the pad
+  if (causal && prefix == 0 && q_end <= start) {   // every row in the pad
     for (int c = tid; c < (q_end - q0) * CH; c += kTcThreads)
       *reinterpret_cast<uint4*>(ob + (size_t)(q0 + c / CH) * q_stride +
                                 (c % CH) * 8) = make_uint4(0, 0, 0, 0);
@@ -604,12 +617,19 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
     }
   };
 
+  // Key tiles: the prefix's [0, n_pre), then [t_b, t_hi) from the tile
+  // that holds prefix + start on.
   const int kv_end = causal ? q_end : S;     // keys [.., kv_end)
-  const int t_lo = min(start, kv_end) / kTcBK;
+  const int n_pre = (min(prefix, kv_end) + kTcBK - 1) / kTcBK;
+  const int t_b = max(n_pre, min(prefix + start, kv_end) / kTcBK);
   const int t_hi = (kv_end + kTcBK - 1) / kTcBK;
+  const int n_tiles = n_pre + t_hi - t_b;
+  auto tile_k0 = [&](int i) {                // first key of the i-th tile
+    return (i < n_pre ? i : t_b + i - n_pre) * kTcBK;
+  };
   load_rows(qs, qb, q_stride, q0);
-  load_rows(ks, kb, kv_stride, t_lo * kTcBK);
-  load_rows(vs, vb, kv_stride, t_lo * kTcBK);
+  load_rows(ks, kb, kv_stride, tile_k0(0));
+  load_rows(vs, vb, kv_stride, tile_k0(0));
   cp_async_commit();
 
   const int g = lane / 4, cq = 2 * (lane % 4);
@@ -620,11 +640,11 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
   float m_r[2] = {kNeg, kNeg}, l_r[2] = {0.f, 0.f};
   const uint32_t qa = smem_u32(qs);
 
-  for (int t = t_lo; t < t_hi; ++t) {
-    const int st = (t - t_lo) & 1;
-    if (t + 1 < t_hi) {                      // next tile into the other stage
-      load_rows(ks + (st ^ 1) * TILE, kb, kv_stride, (t + 1) * kTcBK);
-      load_rows(vs + (st ^ 1) * TILE, vb, kv_stride, (t + 1) * kTcBK);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i & 1;
+    if (i + 1 < n_tiles) {                   // next tile into the other stage
+      load_rows(ks + (st ^ 1) * TILE, kb, kv_stride, tile_k0(i + 1));
+      load_rows(vs + (st ^ 1) * TILE, vb, kv_stride, tile_k0(i + 1));
     }
     cp_async_commit();
     cp_async_wait<1>();                      // this tile (and Q) landed
@@ -650,8 +670,9 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
 
     // Scale into log2 units and mask; the online softmax of rows row0 and
     // row0 + 8, each row's 64 scores spread over the 4 threads of a quad.
-    const int k0 = t * kTcBK;
-    const bool edge = k0 < start || k0 + kTcBK > S ||
+    const int k0 = tile_k0(i);
+    const bool edge = (k0 < prefix + start && k0 + kTcBK > prefix) ||
+                      k0 + kTcBK > S ||
                       (causal && k0 + kTcBK - 1 > q0 + 16 * warp);
     float mx[2] = {m_r[0], m_r[1]};
 #pragma unroll
@@ -662,7 +683,8 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
         if (edge) {
           const int kp = k0 + 8 * n + cq + (e & 1);
           const int qi = row0 + (e >> 1) * 8;
-          if (kp < start || kp >= S || (causal && kp > qi)) s = kNeg;
+          if ((kp >= prefix && kp < prefix + start) || kp >= S ||
+              (causal && kp > qi)) s = kNeg;
         }
         sc[4 * n + e] = s;
         mx[e >> 1] = fmaxf(mx[e >> 1], s);
@@ -707,7 +729,7 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
     fence_regs<HD / 2>(o);
     __syncthreads();                         // stage st free for reuse
   }
-  if (t_lo >= t_hi) cp_async_wait<0>();      // no key tile: drain Q's copy
+  if (n_tiles == 0) cp_async_wait<0>();      // no key tile: drain Q's copy
 
   // Normalise and write the rows (columns past HD are the zero padding).
 #pragma unroll
@@ -770,11 +792,24 @@ __device__ __forceinline__ void smem_f32(const unsigned char* p, float* o) {
   for (int i = 0; i < 4; ++i) unpack(u[i], o + i * (4 / sizeof(T)), T());
 }
 
-// The keys of row b's window [start, len) that split sp covers.
-__device__ __forceinline__ void split_range(int start, int len, int sp,
-                                            int chunk, int& lo, int& hi) {
-  lo = max(start, sp * chunk);
-  hi = min(len, (sp + 1) * chunk);
+// The keys of row b's window, [0, prefix) and [prefix + start, len), that
+// split sp covers: n_a keys from lo_a on, then the rest from lo_b on, n in
+// all.  Window key v (0 <= v < n) is at position pos(v).
+struct Window {
+  int lo_a, n_a, lo_b, n;
+  __device__ __forceinline__ int pos(int v) const {
+    return v < n_a ? lo_a + v : lo_b + v - n_a;
+  }
+};
+__device__ __forceinline__ Window split_window(int prefix, int start, int len,
+                                               int sp, int chunk) {
+  const int c0 = sp * chunk, c1 = c0 + chunk;
+  Window w;
+  w.lo_a = c0;
+  w.n_a = max(0, min(min(prefix, len), c1) - c0);
+  w.lo_b = max(prefix + start, c0);
+  w.n = w.n_a + max(0, min(len, c1) - w.lo_b);
+  return w;
 }
 
 // Contiguous cache: k/v (B, S, KV, HD), `seq` = S.
@@ -788,7 +823,8 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const int* __restrict__ starts,
                           const int* __restrict__ lengths, T* __restrict__ out,
                           float* __restrict__ part, int seq, int H, int KV,
-                          int max_blocks, int chunk, float scale_log2) {
+                          int max_blocks, int prefix, int chunk,
+                          float scale_log2) {
   using Sh = DecShape<T, HD>;
   constexpr int V = Sh::V, CH = Sh::CH, CPL = Sh::CPL, ROW = Sh::ROW;
   constexpr int D = CPL * V;                        // floats a lane holds
@@ -810,18 +846,18 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   const int start = starts ? max(starts[b], 0) : 0;
   const int len = min(lengths[b], PAGED ? max_blocks * seq : seq);
-  int lo, hi;
-  split_range(start, len, sp, chunk, lo, hi);
-  if (lo >= hi) {                                   // nothing of the window here
+  const Window w = split_window(prefix, start, len, sp, chunk);
+  if (w.n == 0) {                                   // nothing of the window here
     if (n_split == 1)                               // (the combine skips it)
       for (int i = tid; i < gn * HD; i += kDecThreads)
         out[((size_t)b * H + h0) * HD + i] = from_f<T>(0.f);
     return;
   }
 
-  // Tile i (keys lo + 32 i ..) into ring stage i % kDecStages: one 16-byte
-  // copy per chunk of a K and a V row; keys at or past hi are not read.
-  const int n_tiles = (hi - lo + kDecTK - 1) / kDecTK;
+  // Tile i (window keys 32 i ..) into ring stage i % kDecStages: one
+  // 16-byte copy per chunk of a K and a V row; keys past the window are not
+  // read.
+  const int n_tiles = (w.n + kDecTK - 1) / kDecTK;
   static_assert(kDecTK == 32, "a paged tile's keys are resolved one a lane");
   auto row_of = [&](int pos) -> size_t {             // element offset of a row
     if (PAGED) {
@@ -831,20 +867,20 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     return (((size_t)b * seq + pos) * KV + kvh) * HD;
   };
   auto load_tile = [&](int i) {
-    const int t0 = lo + i * kDecTK;
+    const int t0 = i * kDecTK;
     const uint32_t ks = smem_u32(dec_smem) + (i % kDecStages) * 2 * kDecTK * ROW;
     const uint32_t vs = ks + kDecTK * ROW;
     // The paged cache resolves each key's page once: lane l looks up key
     // t0 + l, and the copies of a row take its offset by a shuffle (a
     // warp's trip count below is uniform: kDecTK * CH is a multiple of 32).
     unsigned long long lane_row = 0;
-    if (PAGED && t0 + wl < hi) lane_row = row_of(t0 + wl);
+    if (PAGED && t0 + wl < w.n) lane_row = row_of(w.pos(t0 + wl));
     for (int c = tid; c < kDecTK * CH; c += kDecThreads) {
       const int r = c / CH, cc = c % CH;
       size_t row = 0;
       if (PAGED) row = __shfl_sync(0xffffffffu, lane_row, r);
-      if (t0 + r < hi) {
-        if (!PAGED) row = row_of(t0 + r);
+      if (t0 + r < w.n) {
+        if (!PAGED) row = row_of(w.pos(t0 + r));
         const size_t off = row + cc * V;
         cp_async16(ks + r * ROW + cc * 16, k + off, 16);
         cp_async16(vs + r * ROW + cc * 16, v + off, 16);
@@ -888,11 +924,11 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
     const unsigned char* ks = dec_smem + (i % kDecStages) * 2 * kDecTK * ROW;
     const unsigned char* vs = ks + kDecTK * ROW;
-    const int t0 = lo + i * kDecTK;
+    const int t0 = i * kDecTK;
 #pragma unroll
     for (int u = 0; u < kDecTK / kDecGroups; ++u) {
       const int r = grp + u * kDecGroups;
-      if (t0 + r >= hi) break;                      // uniform per group
+      if (t0 + r >= w.n) break;                     // uniform per group
       float kr[D], vr[D];
 #pragma unroll
       for (int i2 = 0; i2 < CPL; ++i2) {
@@ -1001,8 +1037,8 @@ __global__ void __launch_bounds__(HD)
 flash_decode_combine_kernel(const float* __restrict__ part,
                             const int* __restrict__ starts,
                             const int* __restrict__ lengths,
-                            T* __restrict__ out, int H, int n_split, int chunk,
-                            int cap) {
+                            T* __restrict__ out, int H, int n_split,
+                            int prefix, int chunk, int cap) {
   const int h = blockIdx.x, b = blockIdx.y, B = gridDim.y, d = threadIdx.x;
   const int start = starts ? max(starts[b], 0) : 0;
   const int len = min(lengths[b], cap);
@@ -1016,9 +1052,7 @@ flash_decode_combine_kernel(const float* __restrict__ part,
 #pragma unroll 4
   for (int sp = 0; sp < n_split; ++sp) {
     const float m = ml[2 * sp], l = ml[2 * sp + 1], a = acc[sp * HD + d];
-    int lo, hi;
-    split_range(start, len, sp, chunk, lo, hi);
-    if (lo >= hi) continue;
+    if (split_window(prefix, start, len, sp, chunk).n == 0) continue;
     const float mn = fmaxf(mx, m);
     const float f0 = exp2f(mx - mn), f1 = exp2f(m - mn);
     lsum = lsum * f0 + l * f1;
@@ -1078,8 +1112,8 @@ template <typename T, int HD, int GM, bool PAGED>
 int launch_decode(const void* q, const void* k, const void* v,
                   const void* tables, const void* starts, const void* lengths,
                   void* out, void* part, int B, int seq, int H, int KV,
-                  int max_blocks, int n_split, int chunk, float scale,
-                  cudaStream_t st) {
+                  int max_blocks, int prefix, int n_split, int chunk,
+                  float scale, cudaStream_t st) {
   constexpr int bytes = dec_smem_bytes<T, HD, GM>();
   REPRO_SMEM_ATTR((flash_decode_split_kernel<T, HD, GM, PAGED>), bytes);
   const int n_hg = (H / KV + GM - 1) / GM;
@@ -1087,7 +1121,7 @@ int launch_decode(const void* q, const void* k, const void* v,
   flash_decode_split_kernel<T, HD, GM, PAGED><<<grid, kDecThreads, bytes, st>>>(
       (const T*)q, (const T*)k, (const T*)v, (const int*)tables,
       (const int*)starts, (const int*)lengths, (T*)out, (float*)part, seq, H,
-      KV, max_blocks, chunk, scale * kLog2e);
+      KV, max_blocks, prefix, chunk, scale * kLog2e);
   if (n_split > 1) {
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
@@ -1102,8 +1136,8 @@ int launch_decode(const void* q, const void* k, const void* v,
     cfg.numAttrs = 1;
     return (int)cudaLaunchKernelEx(
         &cfg, flash_decode_combine_kernel<T, HD>, (const float*)part,
-        (const int*)starts, (const int*)lengths, (T*)out, H, n_split, chunk,
-        PAGED ? max_blocks * seq : seq);
+        (const int*)starts, (const int*)lengths, (T*)out, H, n_split, prefix,
+        chunk, PAGED ? max_blocks * seq : seq);
   }
   return (int)cudaGetLastError();
 }
@@ -1113,11 +1147,13 @@ int launch_decode(const void* q, const void* k, const void* v,
 extern "C" {
 
 // q (B,S,H,hd); k, v (B,S,KV,hd); starts (B,) int32 or NULL; out like q.
+// Key j of row b is valid iff j < prefix or j >= prefix + starts[b] (a
+// vision prefix in front of the left pad; prefix 0: j >= starts[b]).
 // bf16 runs through wgmma, fp32 as three-pass TF32 mma.sync.
 int flash_attention_fwd(const void* q, const void* k, const void* v,
                         const void* starts, void* out, int B, int S, int H,
-                        int KV, int hd, int dtype, int causal, float scale,
-                        void* stream) {
+                        int KV, int hd, int dtype, int causal, int prefix,
+                        float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float scale_log2 = scale * kLog2e;
   if (dtype == kBFloat16) {
@@ -1129,7 +1165,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
     flash_attention_tc_kernel<HD><<<grid, kTcThreads, bytes, st>>>(           \
         (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,                     \
         (const __nv_bfloat16*)v, (const int*)starts, (__nv_bfloat16*)out, S,  \
-        H, KV, causal, scale_log2);                                           \
+        H, KV, causal, prefix, scale_log2);                                   \
   } while (0)
     if (hd == 64) LAUNCH_TC(64);
     else if (hd == 80) LAUNCH_TC(80);
@@ -1146,7 +1182,8 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
     REPRO_SMEM_ATTR(flash_attention_3xtf32_kernel<HD>, bytes);                \
     flash_attention_3xtf32_kernel<HD><<<grid, kF3Threads, bytes, st>>>(       \
         (const float*)q, (const float*)k, (const float*)v,                    \
-        (const int*)starts, (float*)out, S, H, KV, causal, scale_log2);       \
+        (const int*)starts, (float*)out, S, H, KV, causal, prefix,            \
+        scale_log2);                                                          \
   } while (0)
   if (hd == 64) LAUNCH_F3(64);
   else if (hd == 80) LAUNCH_F3(80);
@@ -1159,16 +1196,18 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
 // q (B,H,hd); k, v (B,S,KV,hd); starts, lengths (B,) int32 (starts may be
 // NULL); out (B,H,hd); part fp32 scratch of B*H*n_split*(hd+2) floats (read
 // only with n_split > 1); keys [c * chunk, (c + 1) * chunk) are split c.
+// Keys [0, min(prefix, lengths[b])) and [prefix + starts[b], lengths[b])
+// attend.
 int flash_decode_fwd(const void* q, const void* k, const void* v,
                      const void* starts, const void* lengths, void* out,
                      void* part, int B, int S, int H, int KV, int hd,
-                     int dtype, int n_split, int chunk, float scale,
-                     void* stream) {
+                     int dtype, int prefix, int n_split, int chunk,
+                     float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define LAUNCH(T, HD, GM)                                                     \
   return launch_decode<T, HD, GM, false>(q, k, v, nullptr, starts, lengths,   \
-                                         out, part, B, S, H, KV, 0, n_split,  \
-                                         chunk, scale, st)
+                                         out, part, B, S, H, KV, 0, prefix,   \
+                                         n_split, chunk, scale, st)
   REPRO_DECODE_DISPATCH(dtype, hd, H / KV, LAUNCH);
 #undef LAUNCH
   return (int)cudaErrorInvalidValue;               // (not reached)
@@ -1187,7 +1226,7 @@ int paged_flash_decode_fwd(const void* q, const void* k_pool,
 #define LAUNCH(T, HD, GM)                                                     \
   return launch_decode<T, HD, GM, true>(q, k_pool, v_pool, block_tables,      \
                                         starts, lengths, out, part, B,        \
-                                        block_size, H, KV, max_blocks,        \
+                                        block_size, H, KV, max_blocks, 0,     \
                                         n_split, chunk, scale, st)
   REPRO_DECODE_DISPATCH(dtype, hd, H / KV, LAUNCH);
 #undef LAUNCH

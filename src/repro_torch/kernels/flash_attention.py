@@ -38,11 +38,12 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 _SIGNATURES = {
-    # q, k, v, starts, out, B, S, H, KV, hd, dtype, causal, scale, stream
-    "flash_attention_fwd": [_P] * 5 + [_I] * 7 + [_F, _P],
+    # q, k, v, starts, out, B, S, H, KV, hd, dtype, causal, prefix, scale,
+    # stream
+    "flash_attention_fwd": [_P] * 5 + [_I] * 8 + [_F, _P],
     # q, k, v, starts, lengths, out, part,
-    # B, S, H, KV, hd, dtype, n_split, chunk, scale, stream
-    "flash_decode_fwd": [_P] * 7 + [_I] * 8 + [_F, _P],
+    # B, S, H, KV, hd, dtype, prefix, n_split, chunk, scale, stream
+    "flash_decode_fwd": [_P] * 7 + [_I] * 9 + [_F, _P],
     # q, k_pool, v_pool, tables, starts, lengths, out, part,
     # B, H, KV, hd, block_size, max_blocks, dtype, n_split, chunk, scale, stream
     "paged_flash_decode_fwd": [_P] * 8 + [_I] * 9 + [_F, _P],
@@ -105,6 +106,13 @@ def _check_kernel(name: str, q, k, v, hd: int) -> None:
                          f"({_HEAD_DIMS})")
 
 
+def _check_prefix(name: str, prefix: int, s: int) -> int:
+    prefix = int(prefix)
+    if not 0 <= prefix <= s:
+        raise ValueError(f"{name}: prefix {prefix} outside [0, {s}]")
+    return prefix
+
+
 def _check_index(name: str, t: Optional[torch.Tensor], b: int) -> None:
     if t is not None and tuple(t.shape) != (b,):
         raise ValueError(f"{name}: expected ({b},) indices, got "
@@ -140,7 +148,8 @@ def _decode_launch(fn, fn_name: str, q, cap: int, kvh: int, ptrs: tuple,
     """Plans the splits, allocates the combine's scratch (fp32 acc, m and
     l of each split, head and row) and launches: the C entry takes
     ``ptrs`` (ending with out), the scratch, ``ints`` (ending with the
-    dtype code), n_split, chunk and the scale."""
+    dtype code, and the prefix for the contiguous cache), n_split, chunk
+    and the scale."""
     b, h, hd = q.shape
     n_split, chunk = split_plan(cap, b * kvh, _sm_count(q.device.index or 0))
     part = None
@@ -168,10 +177,12 @@ def _launch(name: str, fn_name: str, *args) -> None:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     starts: Optional[torch.Tensor] = None,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, prefix: int = 0) -> torch.Tensor:
     """Prefill attention.  q (B,S,H,hd); k/v (B,S,KV,hd) with KV | H;
-    starts (B,) int left-pad counts (keys before starts[b] are masked) or
-    None.  Returns (B,S,H,hd) in q's dtype."""
+    starts (B,) int left-pad counts or None; ``prefix``: the always-valid
+    keys in front of the pad (a vlm's vision tokens).  Key j of row b is
+    masked iff ``prefix <= j < prefix + starts[b]``.  Returns (B,S,H,hd)
+    in q's dtype."""
     plain = _plain("flash_attention", q)
     b, s, h, hd = q.shape
     if k.dim() != 4 or k.shape[:2] != (b, s) or k.shape[3] != hd:
@@ -180,8 +191,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kvh = k.shape[2]
     _fit("flash_attention", q, k, v, kvh)
     _check_index("flash_attention", starts, b)
+    prefix = _check_prefix("flash_attention", prefix, s)
     if plain:
-        return ref.flash_attention_ref(q, k, v, starts, causal)
+        return ref.flash_attention_ref(q, k, v, starts, causal, prefix)
     _check_kernel("flash_attention", q, k, v, hd)
     starts = _index(starts, q.device)
     out = torch.empty_like(q)
@@ -192,7 +204,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _launch("flash_attention", "flash_attention_fwd",
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(starts),
             out.data_ptr(), b, s, h, kvh, hd, _DTYPES[q.dtype], int(causal),
-            1.0 / math.sqrt(hd))
+            prefix, 1.0 / math.sqrt(hd))
     flash_attention.launches += 1
     if q.dtype == torch.bfloat16:
         flash_attention.launches_tc += 1
@@ -201,10 +213,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  lengths: torch.Tensor,
-                 starts: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 starts: Optional[torch.Tensor] = None,
+                 prefix: int = 0) -> torch.Tensor:
     """One query per row over a contiguous cache.  q (B,H,hd); k/v
-    (B,S,KV,hd); keys at positions [starts[b], lengths[b]) attend (lengths
-    above S are clipped to S on CUDA).  Returns (B,H,hd)."""
+    (B,S,KV,hd); keys at positions [0, prefix) and [prefix + starts[b],
+    lengths[b]) attend (lengths above S are clipped to S on CUDA).
+    Returns (B,H,hd)."""
     plain = _plain("flash_decode", q)
     b, h, hd = q.shape
     if k.dim() != 4 or k.shape[0] != b or k.shape[3] != hd:
@@ -214,8 +228,9 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _fit("flash_decode", q, k, v, kvh)
     _check_index("flash_decode", lengths, b)
     _check_index("flash_decode", starts, b)
+    prefix = _check_prefix("flash_decode", prefix, s)
     if plain:
-        return ref.flash_decode_ref(q, k, v, lengths, starts)
+        return ref.flash_decode_ref(q, k, v, lengths, starts, prefix)
     _check_kernel("flash_decode", q, k, v, hd)
     lengths, starts = _index(lengths, q.device), _index(starts, q.device)
     out = torch.empty_like(q)
@@ -225,7 +240,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _decode_launch(flash_decode, "flash_decode_fwd", q, s, kvh,
                    (q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(starts),
                     lengths.data_ptr(), out.data_ptr()),
-                   (b, s, h, kvh, hd, _DTYPES[q.dtype]))
+                   (b, s, h, kvh, hd, _DTYPES[q.dtype], prefix))
     return out
 
 

@@ -44,15 +44,25 @@ def _softmax_pv(sc: torch.Tensor, v: torch.Tensor, eq: str,
     return torch.einsum(eq, probs, v)
 
 
+def _valid_keys(pos: torch.Tensor, starts: torch.Tensor,
+                prefix: int) -> torch.Tensor:
+    """(B, S) key validity: ``j >= prefix + starts[b]``, or ``j < prefix``
+    (the always-valid prefix in front of the left pad; the vlm mask of
+    ``repro.models.transformer._pad_valid``)."""
+    valid = pos[None, :] >= starts.long()[:, None] + prefix
+    return valid | (pos[None, :] < prefix) if prefix else valid
+
+
 def flash_attention_ref(q, k, v, starts: Optional[torch.Tensor] = None,
-                        causal: bool = True) -> torch.Tensor:
+                        causal: bool = True, prefix: int = 0) -> torch.Tensor:
     """Prefill attention.  q (B,S,H,hd); k/v (B,S,KV,hd); starts (B,) int.
 
-    Key j is visible to query i iff ``j <= i`` (causal) and
-    ``j >= starts[b]`` (left pad) — the masking of
+    Key j is visible to query i iff ``j <= i`` (causal) and key j is valid
+    (``j >= prefix + starts[b]`` or ``j < prefix``: the left pad sits
+    behind a ``prefix`` of vision tokens) — the masking of
     ``repro.models.layers.chunked_causal_attention(..., k_valid=)``.
-    Rows at pad positions see no key and come out as finite garbage, as in
-    JAX; callers read valid rows only."""
+    Rows at pad positions may see no key and come out as finite garbage,
+    as in JAX; callers read valid rows only."""
     b, s, h, hd = q.shape
     n_rep = h // k.shape[2]
     kk, vv = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
@@ -63,18 +73,20 @@ def flash_attention_ref(q, k, v, starts: Optional[torch.Tensor] = None,
     if causal:
         valid = valid & (pos[None, :, None] >= pos[None, None, :])
     if starts is not None:
-        valid = valid & (pos[None, None, :] >= starts.long()[:, None, None])
+        valid = valid & _valid_keys(pos, starts, prefix)[:, None, :]
     sc = torch.where(valid[:, None], sc, torch.full_like(sc, NEG))
     return _softmax_pv(sc, vv, "bhqk,bkhd->bqhd", q.dtype)
 
 
 def flash_decode_ref(q, k, v, lengths: torch.Tensor,
-                     starts: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     starts: Optional[torch.Tensor] = None,
+                     prefix: int = 0) -> torch.Tensor:
     """One query per row against a contiguous cache.
 
-    q (B,H,hd); k/v (B,S,KV,hd); keys at positions ``[starts[b],
-    lengths[b])`` attend (``repro.models.layers.gqa_decode_attention``'s
-    softmax with starts = pad, lengths = position + 1)."""
+    q (B,H,hd); k/v (B,S,KV,hd); keys at positions ``[0, prefix)`` and
+    ``[prefix + starts[b], lengths[b])`` attend
+    (``repro.models.layers.gqa_decode_attention``'s softmax with starts =
+    pad, prefix = vision_tokens, lengths = position + 1)."""
     b, s, kvh, hd = k.shape
     n_rep = q.shape[1] // kvh
     kk, vv = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
@@ -83,7 +95,7 @@ def flash_decode_ref(q, k, v, lengths: torch.Tensor,
     pos = torch.arange(s, device=q.device)[None, :]
     valid = pos < lengths.long()[:, None]
     if starts is not None:
-        valid = valid & (pos >= starts.long()[:, None])
+        valid = valid & _valid_keys(pos[0], starts, prefix)
     sc = torch.where(valid[:, None, :], sc, torch.full_like(sc, NEG))
     return _softmax_pv(sc, vv, "bhk,bkhd->bhd", q.dtype)
 

@@ -10,7 +10,9 @@ distributed serving yet), plus ``--device`` (default ``cuda``) and
 (random, from ``--seed``), activations and caches are fp32, as in the JAX
 launcher; prompts come from numpy with the same seed.  ``--continuous``
 serves through the continuous-batching engine (paged KV cache + slot
-scheduler).
+scheduler; dense archs only, as in the reference).  The vlm family's
+prompts follow ``vision_tokens`` zero embeddings, which the cache length
+counts on top of ``--max-len``.
 """
 from __future__ import annotations
 
@@ -69,7 +71,8 @@ def main(argv=None):
               f"refills {stats.n_refills} | peak active {stats.peak_active}")
         return outs
 
-    engine = ServeEngine(cfg, params, max_len=args.max_len,
+    engine = ServeEngine(cfg, params,
+                         max_len=args.max_len + cfg.vision_tokens,
                          batch=args.requests, device=device)
     outs = engine.generate(prompts, max_new_tokens=args.max_new)
     for i, o in enumerate(outs):

@@ -12,6 +12,8 @@ hift_pipelined, lisa, fpft, fpft_streamed, mezo, lomo, adalomo).
     ... --fpft                             # = --strategy fpft (deprecated)
     PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-2.7b \\
         --smoke --steps 8 --device cpu [--strategy ...]   # hybrid family
+    ... --arch deepseek-moe-16b ...   # moe family (arctic-480b too)
+    ... --arch internvl2-26b ...      # vlm family
 
 The reference's flags for the ported surface (``--fpft`` its deprecated
 alias for ``--strategy fpft``), plus ``--device`` (default
@@ -21,6 +23,9 @@ same seed; the LR follows the reference's cosine schedule.  Prints the
 reference's ``step``/``loss``/``lr`` lines and ``done: final loss``.
 With ``--ckpt-dir`` it checkpoints every ``steps // 2`` steps and at the
 end; ``--resume auto`` restores the newest complete checkpoint there.
+For the vlm family each batch also carries ``vision_embeds``, standard
+normal from a ``torch.Generator`` seeded by ``--seed`` and the step
+(``data.synthetic.VisionStubLM``; the reference draws ``jax.random``).
 """
 from __future__ import annotations
 
@@ -34,7 +39,8 @@ from repro_torch.configs.registry import get_config
 from repro_torch.core import (AdaLomoConfig, HiFTConfig, LiSAConfig,
                               LOMOConfig, LRSchedule, MeZOConfig,
                               make_runner, registry)
-from repro_torch.data.synthetic import DataConfig, PrefetchIterator, SyntheticLM
+from repro_torch.data.synthetic import (DataConfig, PrefetchIterator,
+                                        SyntheticLM, VisionStubLM)
 from repro_torch.models import get_family
 from repro_torch.optim.mixed_precision import get_policy
 from repro_torch.train.loop import LoopConfig, train
@@ -127,9 +133,12 @@ def main(argv=None):
         print(f"{strategy} k={runner.k}, peak trainable "
               f"{peak/1e6:.2f}M ({100*peak/n:.2f}%)")
 
-    data = PrefetchIterator(SyntheticLM(DataConfig(
+    source = SyntheticLM(DataConfig(
         vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch,
-        seed=args.seed), device=device))
+        seed=args.seed), device=device)
+    if cfg.vision_tokens > 0:
+        source = VisionStubLM(source, cfg.vision_tokens, cfg.d_model)
+    data = PrefetchIterator(source)
     out = train(runner, data, LoopConfig(
         total_steps=args.steps, ckpt_every=max(args.steps // 2, 1),
         ckpt_dir=args.ckpt_dir, log_every=max(args.steps // 10, 1),

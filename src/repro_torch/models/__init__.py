@@ -1,14 +1,16 @@
 """Model-family registry (port of ``repro.models.get_family``).
 
-The dense family (serving and training) and the hybrid family (zamba2:
-serving and training) are ported; every other family raises.  (The vlm
-family reuses the dense module in JAX but needs ``vision_tokens`` on the
-serving path, which is not ported yet.)  The family-dispatching
+Ported: the dense family and the vlm family (its LM backbone, the same
+module, as in the reference), the hybrid family (zamba2) and the moe
+family (deepseek-moe-16b, arctic-480b), each for serving and training.
+The xlstm and encdec families raise.  The family-dispatching
 ``unit_first_depth`` lives in ``models.base``.
 """
 import importlib
 
 _FAMILIES = {"dense": "repro_torch.models.transformer",
+             "vlm": "repro_torch.models.transformer",
+             "moe": "repro_torch.models.moe",
              "hybrid": "repro_torch.models.zamba2"}
 
 

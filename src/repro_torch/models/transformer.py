@@ -1,7 +1,12 @@
-"""Dense decoder-only transformer LM (GQA + RoPE + SwiGLU).
+"""Dense decoder-only transformer LM (GQA + RoPE + SwiGLU), and the vlm
+family's LM backbone.
 
 Port of ``repro.models.transformer`` with the same param dict and cache
-layouts.  Training: ``unit_spec``, ``apply`` and ``loss_fn`` (the chunked
+layouts.  The vlm family (internvl2-26b) prepends ``vision_tokens`` stub
+patch embeddings (``batch["vision_embeds"]``, (B, vt, D)) to the token
+embeddings; the loss reads the text positions only, and serving keeps
+the vision prefix valid in front of each row's left pad (the kernels'
+``prefix``).  Training: ``unit_spec``, ``apply`` and ``loss_fn`` (the chunked
 plain-torch attention and cross-entropy, as the reference trains; the
 HiFT cut detaches below the active group), and ``lomo_pieces``, the same
 loss in segments for the fused-backward strategies.  Serving: ``init``,
@@ -52,10 +57,10 @@ def _mlp_fns(cfg: ArchConfig):
 
 
 def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family != "dense" or cfg.vision_tokens:
+    if cfg.family not in ("dense", "vlm"):
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet "
-            "(dense only)")
+            f"{cfg.name}: family {cfg.family!r} is not this module's "
+            "(dense and vlm)")
 
 
 # ------------------------------------------------------------------ init
@@ -120,6 +125,16 @@ def _qkv(cfg: ArchConfig, p, hn: torch.Tensor):
             v.reshape(b, s, cfg.kv_heads, cfg.head_dim))
 
 
+def _embed_in(cfg: ArchConfig, embed_p, batch) -> torch.Tensor:
+    """Token embeddings (B, S, D), with the vlm family's ``vision_embeds``
+    (B, vt, D) in front (cast to the table's dtype, as the reference)."""
+    h = L.embed_lookup(embed_p["tok"], batch["tokens"])
+    if cfg.vision_tokens > 0:
+        vis = batch["vision_embeds"].to(device=h.device, dtype=h.dtype)
+        h = torch.cat([vis, h], dim=1)
+    return h
+
+
 def _layer(params, i: int) -> PyTree:
     return tree_map(lambda x: x[i], params["layers"])
 
@@ -163,10 +178,10 @@ def apply(cfg: ArchConfig, params: PyTree, batch, cut: Optional[int] = None,
     layers are frozen — the embedding's output is detached whatever ``c``
     is, layers below ``c`` run without a graph, and the activation entering
     layer ``c`` is detached, so the backward never descends below the
-    active group."""
+    active group.  The vlm family's logits cover the vision positions too,
+    as the reference's; its loss reads the text positions only."""
     _check_family(cfg)
-    h = L.embed_lookup(params["embed"]["tok"],
-                       batch["tokens"]).to(compute_dtype)
+    h = _embed_in(cfg, params["embed"], batch).to(compute_dtype)
     cos, sin = _rope(cfg, h.shape[1], h.device)
     if cut is not None:
         h = h.detach()
@@ -180,10 +195,11 @@ def apply(cfg: ArchConfig, params: PyTree, batch, cut: Optional[int] = None,
 
 def loss_fn(cfg: ArchConfig, params: PyTree, batch, cut: Optional[int] = None,
             compute_dtype=torch.bfloat16):
-    """Next-token cross-entropy (chunked: never materializes (B, S, V))."""
+    """Next-token cross-entropy (chunked: never materializes (B, S, V)),
+    over the text positions (past the vlm family's vision prefix)."""
     from repro_torch.models.losses import chunked_next_token_xent
     h = apply(cfg, params, batch, cut=cut, compute_dtype=compute_dtype,
-              return_hidden=True)
+              return_hidden=True)[:, cfg.vision_tokens:]
     return chunked_next_token_xent(h, head_weight(cfg, params),
                                    batch["labels"], chunk=cfg.ce_chunk or None)
 
@@ -204,8 +220,7 @@ def lomo_pieces(cfg: ArchConfig, compute_dtype=torch.bfloat16):
     _, norm = _norm_fns(cfg)
 
     def embed_fn(embed_p, batch):
-        return L.embed_lookup(embed_p["tok"],
-                              batch["tokens"]).to(compute_dtype)
+        return _embed_in(cfg, embed_p, batch).to(compute_dtype)
 
     def block_fn(layer_p, h):
         cos, sin = _rope(cfg, h.shape[1], h.device)
@@ -213,7 +228,7 @@ def lomo_pieces(cfg: ArchConfig, compute_dtype=torch.bfloat16):
 
     def head_loss_fn(head_p, embed_p, h, batch):
         from repro_torch.models.losses import chunked_next_token_xent
-        h = norm(head_p["final_norm"], h)
+        h = norm(head_p["final_norm"], h)[:, cfg.vision_tokens:]
         w = head_weight(cfg, {"embed": embed_p, "head": head_p})
         return chunked_next_token_xent(h, w, batch["labels"],
                                        chunk=cfg.ce_chunk or None)
@@ -245,13 +260,14 @@ def prefill(cfg: ArchConfig, params: PyTree, batch, cache: PyTree,
     """Run the full prompt, fill the KV cache, return last-token logits.
 
     ``batch``: {"tokens": (B, S) int, optional "pad": (B,) int left-pad
-    counts}.  Pad keys are masked out of every attention (the kernel
-    starts each row at ``pad[b]``) and ``pad`` is stored in the cache for
-    decode.  Returns ``(logits (B, 1, V) float32, cache)``.
+    counts; for the vlm family "vision_embeds" (B, vt, D)}.  Pad keys are
+    masked out of every attention (the kernels skip keys ``[vt, vt +
+    pad[b])``: the vision prefix stays valid) and ``pad`` is stored in the
+    cache for decode.  The cache holds the vt + S positions.  Returns
+    ``(logits (B, 1, V) float32, cache)``.
     """
     _check_family(cfg)
-    tokens = batch["tokens"]
-    h = params["embed"]["tok"][tokens].to(compute_dtype)
+    h = _embed_in(cfg, params["embed"], batch).to(compute_dtype)
     b, s, _ = h.shape
     cos, sin = _rope(cfg, s, h.device)
     _, norm = _norm_fns(cfg)
@@ -266,7 +282,8 @@ def prefill(cfg: ArchConfig, params: PyTree, batch, cache: PyTree,
         k = L.apply_rope(k, cos, sin)
         cache["k"][i, :, :s] = k
         cache["v"][i, :, :s] = v
-        o = flash_attention(q, k, v, starts=pad, causal=True)
+        o = flash_attention(q, k, v, starts=pad, causal=True,
+                            prefix=cfg.vision_tokens)
         h = h + o.reshape(b, s, cfg.n_heads * cfg.head_dim) @ p["attn"]["wo"]
         h = h + mlp(p["mlp"], norm(p["ln2"], h))
     cache["pos"] = s
@@ -280,7 +297,8 @@ def decode_step(cfg: ArchConfig, params: PyTree, cache: PyTree, tokens,
     """One new token per sequence with a pre-filled contiguous cache.
 
     tokens: (B, 1) int.  Writes the new k/v at ``cache["pos"]`` in place
-    and attends over keys ``[pad[b], pos]``.  Returns
+    and attends over keys ``[0, vt)`` and ``[vt + pad[b], pos]`` (vt: the
+    vlm family's vision prefix, 0 otherwise).  Returns
     ``(logits (B, 1, V) float32, cache)`` with ``pos`` advanced."""
     _check_family(cfg)
     h = params["embed"]["tok"][tokens].to(compute_dtype)
@@ -303,7 +321,8 @@ def decode_step(cfg: ArchConfig, params: PyTree, cache: PyTree, tokens,
         cache["k"][i, :, pos] = k[:, 0]
         cache["v"][i, :, pos] = v[:, 0]
         o = flash_decode(q[:, 0], cache["k"][i].to(h.dtype),
-                         cache["v"][i].to(h.dtype), lengths, starts=pad)
+                         cache["v"][i].to(h.dtype), lengths, starts=pad,
+                         prefix=cfg.vision_tokens)
         h = h + o.reshape(b, 1, cfg.n_heads * cfg.head_dim) @ p["attn"]["wo"]
         h = h + mlp(p["mlp"], norm(p["ln2"], h))
     cache["pos"] = pos + 1
@@ -322,9 +341,15 @@ def paged_decode_step(cfg: ArchConfig, params: PyTree, k_pool, v_pool,
     tokens: (B, 1) int.  The new k/v row is written into each slot's
     current page in place; attention covers logical keys
     ``[pad[b], lengths[b]]``.  Returns ``(logits (B, 1, V), k_pool,
-    v_pool)``; lengths are not advanced (the engine owns them).
+    v_pool)``; lengths are not advanced (the engine owns them).  The vlm
+    family raises: the reference's continuous engine cannot serve it (its
+    ``_start`` builds no ``vision_embeds``), so no paged cache holds a
+    vision prefix.
     """
     _check_family(cfg)
+    if cfg.vision_tokens:
+        raise NotImplementedError(
+            f"{cfg.name}: the paged decode has no vision prefix")
     _, _, block_size, _, _ = k_pool.shape
     b, max_blocks = block_tables.shape
     h = params["embed"]["tok"][tokens].to(compute_dtype)

@@ -3,7 +3,7 @@
 Port of ``repro.serve.engine``:
 
 - :class:`ServeEngine` — fixed decode batch over a contiguous cache, for
-  the dense and hybrid families; the simple baseline and the
+  the dense, vlm, hybrid and moe families; the simple baseline and the
   token-for-token oracle of the continuous engine.
 - :class:`ContinuousServeEngine` — dense family only: slot-level
   continuous batching over the paged cache (``serve.kv_cache``) driven
@@ -13,10 +13,12 @@ Port of ``repro.serve.engine``:
 Both run on ``device="cuda"`` unless told otherwise, and raise if no card
 is present; ``device="cpu"`` serves through the kernels' plain versions.
 Params are cast once to the compute dtype and moved to the device at
-construction.  One deliberate difference from JAX: a request that could
+construction.  Deliberate differences from JAX: a request that could
 never be admitted (its budget is wider than a slot's table or the whole
-pool) raises ``ValueError`` instead of looping forever.  Distributed
-serving (``mesh=``) is not ported yet.
+pool) raises ``ValueError`` instead of looping forever; the continuous
+engine refuses the vlm family at construction, where the reference's
+admits it and then fails in its first prefill (its ``_start`` passes no
+``vision_embeds``).  Distributed serving (``mesh=``) is not ported yet.
 """
 from __future__ import annotations
 
@@ -36,7 +38,7 @@ from repro_torch.serve.scheduler import Scheduler, ServeRequest
 
 PyTree = Any
 
-_PAD_FAMILIES = ("dense",)   # families whose prefill masks left pad
+_PAD_FAMILIES = ("dense", "vlm")   # families whose prefill masks left pad
 
 
 def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
@@ -94,17 +96,21 @@ class ServeEngine:
 
     def generate(self, prompts, max_new_tokens: int = 16) -> list[list[int]]:
         """Batched greedy generation.  Prompts (1-D int sequences) are
-        left-padded to equal length; the pad families (dense) mask the pad
-        keys out of attention, the others run the pad tokens unmasked, as
-        the reference does.  Sampled tokens stay on the device and reach
-        the host in one copy at the end."""
+        left-padded to equal length; the pad families (dense, vlm) mask the
+        pad keys out of attention, the others run the pad tokens unmasked,
+        as the reference does.  The vlm family gets zero ``vision_embeds``
+        in front of the prompts, as in the reference; the cache's
+        ``max_len`` counts those positions.  Sampled tokens stay on the
+        device and reach the host in one copy at the end."""
         if len(prompts) > self.batch:
             raise ValueError(f"{len(prompts)} prompts for batch {self.batch}")
         prompts = [np.asarray(p, np.int64).reshape(-1) for p in prompts]
         plen = max(len(p) for p in prompts)
-        if plen + max_new_tokens - 1 > self.max_len:
-            raise ValueError(f"prompt {plen} + {max_new_tokens} new tokens "
-                             f"exceed max_len {self.max_len}")
+        vt = self.cfg.vision_tokens
+        if vt + plen + max_new_tokens - 1 > self.max_len:
+            raise ValueError(f"{vt} vision tokens + prompt {plen} + "
+                             f"{max_new_tokens} new tokens exceed max_len "
+                             f"{self.max_len}")
         pads = [plen - len(p) for p in prompts] + \
             [plen] * (self.batch - len(prompts))
         padded = np.zeros((self.batch, plen), np.int64)
@@ -115,6 +121,10 @@ class ServeEngine:
         if self.cfg.family in _PAD_FAMILIES:
             batch_in["pad"] = torch.tensor(pads, dtype=torch.int32,
                                            device=dev)
+        if self.cfg.family == "vlm":
+            batch_in["vision_embeds"] = torch.zeros(
+                (self.batch, vt, self.cfg.d_model), dtype=torch.float32,
+                device=dev)
         cdt = torch.float32 if self.compute_dtype == torch.float32 \
             else torch.bfloat16
         cache = self.model.init_cache(self.cfg, self.batch, self.max_len,
@@ -149,8 +159,12 @@ class ContinuousServeEngine:
                  prefill_bucket: int = 32, compute_dtype=torch.float32,
                  sample_fn: Callable = greedy_sample, device="cuda"):
         if cfg.family != "dense":
-            raise ValueError("continuous batching serves the dense family, "
-                             f"not {cfg.family!r}")
+            raise ValueError(
+                "continuous batching serves the dense family, not "
+                f"{cfg.family!r}" + (
+                    " (the reference's continuous engine builds no "
+                    "vision_embeds, so it cannot serve vlm either)"
+                    if cfg.family == "vlm" else ""))
         self.cfg = cfg
         self.model = get_family(cfg)
         self.device = resolve_device(device)

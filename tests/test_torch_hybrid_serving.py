@@ -176,8 +176,8 @@ def test_continuous_batching_and_training_raise():
     # still unported raises
     assert make_runner(CFG, "hift", params=tp, device="cpu").k == \
         CFG.n_layers + 3
-    with pytest.raises(NotImplementedError, match="'moe'"):
-        make_runner(dataclasses.replace(CFG, family="moe"), "hift",
+    with pytest.raises(NotImplementedError, match="'xlstm'"):
+        make_runner(dataclasses.replace(CFG, family="xlstm"), "hift",
                     params=tp, device="cpu")
     from repro_torch.launch import serve
     with pytest.raises(ValueError, match="dense"):

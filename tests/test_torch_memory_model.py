@@ -3,11 +3,13 @@ held against the reference's (``repro.core.memory_model``) on the CPU.
 
 - ``analyze`` on the port's meta-device shapes equals ``analyze`` on the
   reference's ``jax.eval_shape`` shapes, report for report, over the five
-  paper configs x the five optimizers x {fp32, mixed, mixed_hi} x {hift,
-  fpft, hift_pipelined, fpft_streamed, mezo, lomo, adalomo} x {no codec,
-  int8, nf4}; a combination the reference rejects raises the same
+  paper configs, zamba2-2.7b and the six archs of the moe, vlm and
+  remaining dense configs x the five optimizers x {fp32, mixed,
+  mixed_hi} x {hift, fpft, hift_pipelined, fpft_streamed, mezo, lomo,
+  adalomo} x {no codec, int8, nf4}; a combination the reference rejects raises the same
   ``ValueError`` in the port.  Integer arithmetic on the same shapes, so
-  equal to the last bit.
+  equal to the last bit.  deepseek-moe-16b's and internvl2-26b's
+  headline figures are pinned.
 - ``paper_equation_check`` and the cases of ``tests/test_memory_model.py``
   on the port's shapes.
 """
@@ -49,9 +51,12 @@ def _shapes(arch):
 
 
 HYBRID = "zamba2_2_7b"
+# the moe, vlm and remaining dense configs
+MORE = ["deepseek_7b", "internlm2_1_8b", "smollm_360m", "internvl2_26b",
+        "deepseek_moe_16b", "arctic_480b"]
 
 
-@pytest.mark.parametrize("arch", PAPER_IDS + [HYBRID])
+@pytest.mark.parametrize("arch", PAPER_IDS + [HYBRID] + MORE)
 def test_param_shapes_are_the_references_without_storage(arch):
     units, shapes = _shapes(arch)
     junits, jshapes = _jax_shapes(arch)
@@ -64,7 +69,7 @@ def test_param_shapes_are_the_references_without_storage(arch):
     assert [u.label() for u in units] == [u.label() for u in junits]
 
 
-@pytest.mark.parametrize("arch", PAPER_IDS + [HYBRID])
+@pytest.mark.parametrize("arch", PAPER_IDS + [HYBRID] + MORE)
 def test_analyze_matches_the_reference(arch):
     units, shapes = _shapes(arch)
     junits, jshapes = _jax_shapes(arch)
@@ -112,6 +117,31 @@ def test_zamba2_prices_as_the_reference():
         assert dataclasses.asdict(TM.analyze(shapes, units, mode=mode, m=m,
                                              **kw)) == \
             dataclasses.asdict(want), mode
+
+
+@pytest.mark.parametrize("arch,pgs", [
+    ("deepseek_moe_16b", {("hift", None): 69.45, ("fpft", None): 251.53,
+                          ("hift", "nf4"): 14.50}),
+    ("internvl2_26b", {("hift", None): 80.36, ("fpft", None): 295.98,
+                       ("hift", "nf4"): 15.71}),
+    ("deepseek_7b", {("hift", None): 30.43}),
+    ("internlm2_1_8b", {("hift", None): 9.16}),
+    ("smollm_360m", {("hift", None): 2.05})])
+def test_new_archs_price_as_the_reference(arch, pgs):
+    """AdamW, m=1, fp32 P+G+S in GiB (NF4 residency with bf16 moments
+    where the codec is named): deepseek-moe-16b's HiFT fits one 80 GB card
+    where FPFT needs more than three (a 72.4 % saving); internvl2-26b's
+    fp32 HiFT does not fit, its NF4 HiFT does."""
+    units, shapes = _shapes(arch)
+    for (mode, codec), want in pgs.items():
+        kw = dict(optimizer="adamw", precision="fp32", mode=mode, m=1,
+                  frozen_quant=codec,
+                  moment_dtype="bf16" if codec else "fp32")
+        got = TM.analyze(shapes, units, **kw)
+        assert round(got.pgs_gb, 2) == want, (mode, codec)
+    if arch == "deepseek_moe_16b":
+        h, f = (TM.analyze(shapes, units, mode=m) for m in ("hift", "fpft"))
+        assert round(100 * (1 - h.pgs_gb / f.pgs_gb), 1) == 72.4
 
 
 @pytest.mark.parametrize("kw", [

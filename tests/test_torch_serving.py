@@ -351,12 +351,12 @@ def test_registry_resolves_ported_archs_only():
     assert get_config("llama2-7b").n_layers == 32
     assert get_config("qwen2-0.5b", smoke=True).name == "qwen2-smoke"
     with pytest.raises(ValueError, match="not ported yet"):
-        get_config("deepseek-7b")
+        get_config("xlstm-1.3b")
     with pytest.raises(ValueError, match="not ported yet"):
         get_config("no-such-arch")
-    moe = _torch_cfg(jax_get_config("deepseek-moe-16b", smoke=True))
+    xlstm = _torch_cfg(jax_get_config("xlstm-1.3b", smoke=True))
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_family(moe)
+        get_family(xlstm)
 
 
 def test_launcher_serves_on_cpu(capsys):
@@ -385,7 +385,9 @@ def test_port_imports_neither_jax_nor_repro():
         "'repro_torch.configs.gpt2_large', "
         "'repro_torch.configs.gpt_neo_2_7b', "
         "'repro_torch.optim.adafactor', 'repro_torch.core.memory_model', "
-        "'repro_torch.train.checkpoint', 'repro_torch.optim.mezo']\n"
+        "'repro_torch.train.checkpoint', 'repro_torch.optim.mezo', "
+        "'repro_torch.models.moe', 'repro_torch.configs.deepseek_moe_16b', "
+        "'repro_torch.configs.internvl2_26b']\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('msgpack', 'zstandard'))\n"
         "assert not bad, bad\n"
