@@ -79,11 +79,11 @@ Phases, one JSON line each:
       ``mezo`` (the same z on both devices), losses and grad norms within
       1e-4, params within a tolerance per strategy; then ``lomo`` with
       ``stream=`` bit-equal to unstreamed on the card;
-   i. the same strategies at full size (``train_fused_full``): llama2-7b,
-      fp32, 4 x 512, ``lomo`` (2 steps, clip 1.0: a forward and two
-      reverse sweeps), ``adalomo`` (2) and ``mezo`` (3), then gpt-neo-2.7b
-      ``lomo`` (2): step time, loss, grad norm, peak allocated and
-      reserved memory beside the analytic P+G+S (a peak more than 6 GiB
+   i. the same strategies at full width (``train_fused_full``): llama2-7b
+      at 16 of its 32 layers, fp32, 4 x 512, ``lomo`` (2 steps, clip 1.0:
+      a forward and two reverse sweeps), ``adalomo`` (2) and ``mezo`` (3),
+      then gpt-neo-2.7b ``lomo`` (2): step time, loss, grad norm, peak
+      allocated and reserved memory beside the analytic P+G+S (a peak more than 6 GiB
       over it fails the run: no whole gradient tree may exist), and a
       profiled ``lomo`` step (GEMM and update shares);
 9. the dequant-matmul kernel against its plain version at llama2-7b's
@@ -99,10 +99,11 @@ Phases, one JSON line each:
    the head, both formats;
 11. quantized training, card against CPU: 4 HiFT steps of a 2-layer model
    at llama2-7b width with ``QuantConfig("nf4", "bf16")``;
-12. quantized training at full size: llama2-7b, HiFT m=1, AdamW, batch 4 x
-   512 — NF4 with bf16 moments (embed, layers 0 and 1 bottom2up, then the
-   head and layer 31 top2down), int8 with bf16 moments and Mixed^Hi with
-   NF4 (2 steps each) — with host time, peak memory beside the analytic
+12. quantized training at full width: llama2-7b at 16 of its 32 layers,
+   HiFT m=1, AdamW, batch 4 x 512 — NF4 with bf16 moments (embed, layers
+   0 and 1 bottom2up, then the head and the top layer top2down), int8
+   with bf16 moments and Mixed^Hi with NF4 (2 steps each) — with host
+   time, peak memory beside the analytic
    P+G+S and the dequant kernel's device time and launches per step (the
    Mixed^Hi steps' on the tensor cores), the kernels' launches counted
    over that run, and profiles of a deep NF4 step and a deep Mixed^Hi +
@@ -167,7 +168,29 @@ Phases, one JSON line each:
       tokens: prefill ms, decode-step ms, tokens/s, launches;
    f. ``serve_moe_vlm_card_vs_cpu``: 2 layers of deepseek-moe-16b and of
       internvl2-26b width at fp32, the same greedy tokens on both
-      devices, or a route flip behind a difference.
+      devices, or a route flip behind a difference;
+18. the encdec family (``phase_encdec``; ``--only encdec`` builds and runs
+   only this):
+   a. the prefill at seamless-m4t-large-v2's widths (16 heads over 16, hd
+      64) non-causal, 4 x 512 (the encoder), and over another key length,
+      4 x 64 over 512 keys and 4 x 37 over 300 (the cross attention; the
+      last q and key tiles partial), and the decode over 512 memory keys,
+      bf16 and fp32, each against its plain version;
+   b. ``train_encdec_card_vs_cpu``: 2 encoder and 2 decoder layers at
+      full width, fp32, 2 x 128 frames and 2 x 32 tokens, 4 HiFT steps
+      (embed, enc 0, enc 1, dec 0) and one step each of ``lomo``,
+      ``adalomo`` and ``mezo``, losses within 1e-4 (the CPU side in a
+      child process);
+   c. ``train_encdec_full``: seamless-m4t-large-v2 at its published
+      config, 4 x 512 frames and 4 x 128 tokens, fp32 HiFT m=1 (embed,
+      enc 0, dec 0, dec 23, head, head again), FPFT and the saving beside
+      the analytic one, ``lomo``/``adalomo``/``mezo`` (6 GiB gate), NF4
+      HiFT with the dequant kernel's ms and launches;
+   d. ``serve_encdec_full``: ``ServeEngine`` at full depth, batch 4, 512
+      source frames, in bf16 (32 new tokens) and fp32 (8): prefill and
+      decode-step ms, tokens/s, 72 prefill launches a generation and 48
+      decode launches a step; then served card against CPU at 2 + 2
+      layers, fp32, the same greedy tokens.
 
 Then the ``nvidia-smi`` line, the kernels line and, last, the result line.
 Any failure raises: the script exits non-zero and prints no result.  It
@@ -377,6 +400,10 @@ def make_inputs(torch, kernel, dt, sh, gen):
         return torch.tensor(vals, dtype=torch.int32, device=dev)
 
     extra = (sh["prefix"],) if "prefix" in sh else ()
+    if kernel == "flash_attention" and not sh.get("causal", True):
+        sk = sh["sk"]            # no pad: the encoder's or cross attention
+        return (rnd(b, sh["s"], h, hd), rnd(b, sk, kvh, hd),
+                rnd(b, sk, kvh, hd), None, False)
     if kernel == "flash_attention":
         s = sh["s"]
         return (rnd(b, s, h, hd), rnd(b, s, kvh, hd), rnd(b, s, kvh, hd),
@@ -401,6 +428,10 @@ def work(kernel, dtype, sh):
     e = 2 if dtype == "bfloat16" else 4
     h, kvh, hd = sh["h"], sh["kvh"], sh["hd"]
     pre = sh.get("prefix", 0)     # valid keys [0, pre) and [pre + start, ..)
+    if kernel == "flash_attention" and not sh.get("causal", True):
+        b, s, sk = sh["b"], sh["s"], sh["sk"]    # every query sees every key
+        nbytes = b * (2 * s * h + 2 * sk * kvh) * hd * e   # q, out, k, v
+        return 4 * hd * h * b * s * sk, nbytes
     if kernel == "flash_attention":
         s = sh["s"]
         valid = [s - pre - st for st in sh["starts"]]
@@ -436,6 +467,9 @@ def library_call(torch, kernel, args, h, kvh):
         gqa = {"enable_gqa": True}
     pre = args[-1] if isinstance(args[-1], int) and \
         not isinstance(args[-1], bool) else 0
+    if kernel == "flash_attention" and args[3] is None:     # non-causal
+        qt, kt, vt = (a.transpose(1, 2) for a in args[:3])
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt, **gqa)
     if kernel == "flash_attention":
         q, k, v, starts = args[:4]
         s = q.shape[1]
@@ -496,7 +530,9 @@ def phase_kernels(torch, cases=None):
         torch.cuda.synchronize()
         extra = {}
         pre = sh.get("prefix", 0)
-        if kernel == "flash_attention":       # pad rows: finite, else free
+        if kernel == "flash_attention" and args[3] is None:
+            pass                              # no pad: every row is valid
+        elif kernel == "flash_attention":     # pad rows: finite, else free
             pos = torch.arange(sh["s"], device="cuda")[None, :]
             keep = (pos >= args[3].long()[:, None] + pre) | (pos < pre)
             pad_finite = bool(torch.isfinite(got[~keep].float()).all())
@@ -592,8 +628,7 @@ def phase_card_vs_cpu(torch):
     from repro_torch.kernels import flash_attention as K
     from repro_torch.models import transformer as T
     cfg = dataclasses.replace(get_config("llama2-7b"), n_layers=2)
-    params = T.init(cfg, torch.Generator().manual_seed(0), device="cpu",
-                    dtype=torch.float32)
+    params = host_params(torch, cfg)
     rng = np.random.default_rng(3)
     prompts = [rng.integers(0, cfg.vocab, n) for n in (64, 37, 20)]
     out = {}
@@ -1036,6 +1071,26 @@ def fresh_params(torch, cfg, seed: int = 0, dtype=None):
                   device="cuda", dtype=dtype or torch.float32)
 
 
+def host_params(torch, cfg, on_card: bool = True, seed: int = 0):
+    """The family's random fp32 init of ``cfg`` from ``seed`` for a phase
+    that runs it on the CPU and on the card: drawn on the card and copied
+    to the host (a CPU draw of a 2-layer model at full width takes from
+    seconds to half a minute), or drawn on the CPU where ``on_card`` is
+    False (a phase rehearsed on the CPU alone)."""
+    from repro_torch.common.pytree import tree_map
+    from repro_torch.models import get_family
+    dev = "cuda" if on_card else "cpu"
+    params = get_family(cfg).init(
+        cfg, torch.Generator(device=dev).manual_seed(seed), device=dev,
+        dtype=torch.float32)
+    if not on_card:
+        return params
+    out = tree_map(lambda t: t.cpu(), params)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_train_card_vs_cpu(torch, arch: str = "llama2-7b"):
     """4 HiFT steps with AdamW (embed, layer 0, layer 1, head) of a 2-layer
     model at ``arch``'s width, fp32, batch 1 x 64, from the same params on
@@ -1048,10 +1103,8 @@ def phase_train_card_vs_cpu(torch, arch: str = "llama2-7b"):
     from repro_torch.configs.registry import get_config
     from repro_torch.core import LRSchedule, make_runner
     from repro_torch.kernels import fused_update as FU
-    from repro_torch.models import transformer as T
     cfg = dataclasses.replace(get_config(arch), n_layers=2)
-    params = T.init(cfg, torch.Generator().manual_seed(0), device="cpu",
-                    dtype=torch.float32)
+    params = host_params(torch, cfg)
     batches = train_batches(cfg, 64, 1, 4, "cpu")
     out, final = {}, {}
     for dev in ("cpu", "cuda"):
@@ -2028,7 +2081,6 @@ def phase_train_fused_card_vs_cpu(torch):
     from repro_torch.configs.registry import get_config
     from repro_torch.core import (AdaLomoConfig, LOMOConfig, LRSchedule,
                                   StreamConfig, make_runner)
-    from repro_torch.models import transformer as T
 
     def run(cfg, params, dev, strategy, batches, **kw):
         runner = make_runner(cfg, strategy, params=params, device=dev,
@@ -2050,8 +2102,7 @@ def phase_train_fused_card_vs_cpu(torch):
 
     for arch in ("llama2-7b", "gpt-neo-2.7b"):
         cfg = dataclasses.replace(get_config(arch), n_layers=FUSED_LAYERS)
-        params = T.init(cfg, torch.Generator().manual_seed(0), device="cpu",
-                        dtype=torch.float32)
+        params = host_params(torch, cfg)
         shapes = {p: tuple(t.shape)
                   for p, t in flatten_with_paths(params).items()}
         batches = train_batches(cfg, FUSED_SEQ, 2, FUSED_STEPS, "cpu")
@@ -2183,10 +2234,17 @@ def fused_profile(torch, runner, batch) -> dict:
     return out
 
 
+# Depth of the llama2-7b runs of ``train_fused_full`` and
+# ``train_quant_full`` (32 until PR 23: the whole script took 1077.8 s of
+# its 1200 s limit with the encdec phase; the phases took 49.4 and 45.2 s).
+LLAMA_CUT_LAYERS = 16
+
+
 def phase_train_fused_full(torch):
-    """The fused-backward and zeroth-order strategies at full size, fp32,
+    """The fused-backward and zeroth-order strategies at full width, fp32,
     batch 4 x 512, random weights from seed 0 trained in place: llama2-7b
-    (32 layers, untied head) under ``lomo`` (clip 1.0: a forward and two
+    (``LLAMA_CUT_LAYERS`` of its 32 layers, untied head) under ``lomo``
+    (clip 1.0: a forward and two
     reverse sweeps) for 2 steps, ``adalomo`` (defaults) for 2 and ``mezo``
     for 3, then gpt-neo-2.7b at full depth (tied head) under ``lomo`` for
     2.  Per step: host ms, loss, grad norm, peak allocated (above what was
@@ -2202,6 +2260,8 @@ def phase_train_fused_full(torch):
                                       ("mezo", 3))),
                        ("gpt-neo-2.7b", (("lomo", 2),))):
         cfg = get_config(arch)
+        if arch == "llama2-7b":
+            cfg = dataclasses.replace(cfg, n_layers=LLAMA_CUT_LAYERS)
         gc.collect()
         torch.cuda.empty_cache()
         base = torch.cuda.memory_allocated()
@@ -2234,7 +2294,8 @@ def phase_train_fused_full(torch):
                      **fused_profile(torch, runner, batches[2]))
             del runner
         del params, batches
-    cfg = get_config("llama2-7b")
+    cfg = dataclasses.replace(get_config("llama2-7b"),
+                              n_layers=LLAMA_CUT_LAYERS)
     emit("train_fused_memory", arch=cfg.name, dtype="float32", batch=4,
          seq=512, allowance_gib=FUSED_ALLOWANCE_GIB, runs=summary,
          hift_analytic_gib=analytic(cfg, "hift").pgs_gb,
@@ -2274,10 +2335,8 @@ def phase_train_hybrid_card_vs_cpu(torch, cfg=None, devices=("cpu", "cuda")):
                                   make_runner)
     from repro_torch.kernels import fused_update as FU
     from repro_torch.kernels import ssm_scan as S
-    from repro_torch.models import zamba2 as Z
     cfg = cfg or dataclasses.replace(get_config("zamba2-2.7b"), n_layers=12)
-    params = Z.init(cfg, torch.Generator().manual_seed(0), device="cpu",
-                    dtype=torch.float32)
+    params = host_params(torch, cfg, "cuda" in devices)
     slow_decay(torch, params)
     shapes = {p: tuple(t.shape) for p, t in flatten_with_paths(params).items()}
     batches = train_batches(cfg, HYBRID_SEQ, 2, 4, "cpu")
@@ -2668,10 +2727,8 @@ def phase_train_quant_card_vs_cpu(torch):
     from repro_torch.configs.registry import get_config
     from repro_torch.core import LRSchedule, QuantConfig, make_runner
     from repro_torch.kernels import dequant_matmul as DM
-    from repro_torch.models import transformer as T
     cfg = dataclasses.replace(get_config("llama2-7b"), n_layers=2)
-    params = T.init(cfg, torch.Generator().manual_seed(0), device="cpu",
-                    dtype=torch.float32)
+    params = host_params(torch, cfg)
     batches = train_batches(cfg, 64, 1, 4, "cpu")
     out, codes = {}, {}
     for dev in ("cpu", "cuda"):
@@ -2706,9 +2763,10 @@ def phase_train_quant_card_vs_cpu(torch):
 
 
 def phase_train_quant_full(torch):
-    """llama2-7b at full depth and width, HiFT m=1, AdamW, batch 4 x 512,
+    """llama2-7b at full width and ``LLAMA_CUT_LAYERS`` of its 32 layers,
+    HiFT m=1, AdamW, batch 4 x 512,
     quantized residency: NF4 + bf16 moments at fp32 (embed, layers 0 and 1
-    bottom2up; head and layer 31 top2down), int8 + bf16 moments at fp32
+    bottom2up; head and the top layer top2down), int8 + bf16 moments at fp32
     and NF4 + bf16 moments under Mixed^Hi (embed and layer 0 each).  Each
     runner encodes fresh random params from seed 0, which are then freed,
     so a step's peak holds the encoded tree.  Per step: host clock, peak
@@ -2726,7 +2784,8 @@ def phase_train_quant_full(torch):
     from repro_torch.kernels import fused_update as FU
     from repro_torch.models import transformer as T
     from repro_torch.optim.mixed_precision import get_policy
-    cfg = get_config("llama2-7b")
+    cfg = dataclasses.replace(get_config("llama2-7b"),
+                              n_layers=LLAMA_CUT_LAYERS)
     batches = train_batches(cfg, 512, 4, 4, "cuda")
     plan = [("nf4", "fp32", "bottom2up", 3), ("nf4", "fp32", "top2down", 2),
             ("int8", "fp32", "bottom2up", 2),
@@ -2766,7 +2825,7 @@ def phase_train_quant_full(torch):
                 host_ms = 1e3 * (time.perf_counter() - t0)
                 label = runner.last_metrics["group"]
                 peak = torch.cuda.max_memory_allocated()
-                key = (32, "hift", policy, fmt, "bf16")
+                key = (cfg.n_layers, "hift", policy, fmt, "bf16")
                 dequant_ms, dequant_n = dq.take()
                 steps.append(dict(
                     quant=f"{fmt}/bf16", policy=policy, order=order,
@@ -2811,8 +2870,8 @@ def phase_train_quant_full(torch):
 def phase_train_quant_profile(torch, cfg, runner, batch, quant, policy):
     """Where a deep quantized step's time goes: a runner's next step (the
     NF4 fp32 runner's layer 2, the Mixed^Hi runner's layer 1: a backward
-    through 30 or 31 layers) under ``torch.profiler``, with the dequant
-    kernel's share of the device's busy time."""
+    through all but two or one of the layers) under ``torch.profiler``,
+    with the dequant kernel's share of the device's busy time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -3018,8 +3077,7 @@ def phase_hybrid_card_vs_cpu(torch):
     from repro_torch.models import zamba2 as Z
     from repro_torch.serve.engine import ServeEngine
     cfg = dataclasses.replace(get_config("zamba2-2.7b"), n_layers=12)
-    params = Z.init(cfg, torch.Generator().manual_seed(0), device="cpu",
-                    dtype=torch.float32)
+    params = host_params(torch, cfg)
     slow_decay(torch, params)
     rng = np.random.default_rng(5)
     plens = [64, 37, 20, 50]
@@ -3370,14 +3428,32 @@ def _grad_above(torch, cfg, params, batch, dev, floor: float = 1e-4):
     """Where FPFT's starting gradient (on ``dev``) exceeds ``floor``, on
     the params' sample."""
     from repro_torch.common.pytree import unflatten_from_paths
-    from repro_torch.models import moe as M
+    from repro_torch.models import get_family
     flat = {k: t.detach().to(dev).requires_grad_(True)
             for k, t in _flat(params).items()}
-    loss = M.loss_fn(cfg, unflatten_from_paths(flat),
+    loss = get_family(cfg).loss_fn(cfg, unflatten_from_paths(flat),
                      {k: v.to(dev) for k, v in batch.items()},
                      compute_dtype=torch.float32)
     grads = torch.autograd.grad(loss, list(flat.values()))
     return {k: np.abs(_sample(g)) > floor for k, g in zip(flat, grads)}
+
+
+def train_gaps(x: dict, y: dict):
+    """Two devices' sides of one card-against-CPU run: the largest
+    relative loss and grad-norm gaps, the params' sample gap (where the
+    starting gradient exceeds 1e-4 when a side carries that ``mask``), the
+    same unmasked, and the leaf with the largest gap."""
+    rel = max(abs(p - q) / abs(p) for p, q in zip(x["losses"], y["losses"]))
+    nrel = (max(abs(p - q) / abs(p) for p, q in zip(x["norms"], y["norms"]))
+            if x["norms"][0] is not None else 0.0)
+    diff = {k: np.abs(x["params"][k] - y["params"][k]) for k in x["params"]}
+    gap_all = max(float(d.max()) for d in diff.values())
+    worst = max(diff, key=lambda k: float(diff[k].max()))
+    mask = y.get("mask") or x.get("mask")
+    gap = gap_all if mask is None else max(
+        float(d[mask[k]].max()) if mask[k].any() else 0.0
+        for k, d in diff.items())
+    return rel, nrel, gap, gap_all, worst
 
 
 def compare_moe_train(torch, runs, sides: dict, devices) -> None:
@@ -3391,19 +3467,7 @@ def compare_moe_train(torch, runs, sides: dict, devices) -> None:
     a, b = (sides[d] for d in devices)
     for cfg, label, strategy, _, n, param_tol in runs:
         x, y = a[label], b[label]
-        rel = max(abs(p - q) / abs(p) for p, q in zip(x["losses"],
-                                                       y["losses"]))
-        nrel = (max(abs(p - q) / abs(p) for p, q in zip(x["norms"],
-                                                        y["norms"]))
-                if x["norms"][0] is not None else 0.0)
-        diff = {k: np.abs(x["params"][k] - y["params"][k])
-                for k in x["params"]}
-        gap_all = max(float(d.max()) for d in diff.values())
-        worst = max(diff, key=lambda k: float(diff[k].max()))
-        mask = y.get("mask") or x.get("mask")
-        gap = gap_all if mask is None else max(
-            float(d[mask[k]].max()) if mask[k].any() else 0.0
-            for k, d in diff.items())
+        rel, nrel, gap, gap_all, worst = train_gaps(x, y)
         flips = route_flips(x["routes"], y["routes"])
         emit("train_moe_card_vs_cpu", arch=cfg.name, run=label,
              n_layers=cfg.n_layers, d_model=cfg.d_model,
@@ -3755,15 +3819,13 @@ def moe_vlm_serve_sides(torch, devices, smoke: bool = False) -> dict:
     once for both) the greedy tokens of 4 prompts of mixed length (8 new
     tokens), the routes and the seconds."""
     from repro_torch.configs.registry import get_config
-    from repro_torch.models import get_family
     from repro_torch.models import moe as M
     from repro_torch.serve.engine import ServeEngine
     rng = np.random.default_rng(6)
     out = {dev: {} for dev in devices}
     for arch in ("deepseek-moe-16b", "internvl2-26b"):
         cfg = dataclasses.replace(get_config(arch, smoke=smoke), n_layers=2)
-        params = get_family(cfg).init(cfg, torch.Generator().manual_seed(0),
-                                      device="cpu", dtype=torch.float32)
+        params = host_params(torch, cfg, "cuda" in devices)
         plens = [64, 37, 20, 50]
         prompts = [rng.integers(0, cfg.vocab, n) for n in plens]
         for dev in out:
@@ -3813,33 +3875,472 @@ def phase_serve_moe_vlm_card_vs_cpu(torch, smoke=False,
                                f"{y['tokens']}")
 
 
-def cpu_side(path: str) -> int:
-    """The CPU side of the moe card-against-CPU training, pickled to
-    ``path``: ``phase_moe_vlm`` runs this in a child process on 6 of the
-    host's threads beside the card's phases."""
+# ------------------------------------------------------------ encdec
+
+ENCDEC_LR = 1e-4           # card against CPU
+ENCDEC_FRAMES = 128        # batch 2 x 128 source frames
+ENCDEC_SEQ = 32            # and 2 x 32 target tokens
+ENCDEC_RTOL = 1e-4         # card against CPU: losses and grad norms
+
+
+def encdec_attention_cases():
+    """seamless-m4t-large-v2's attention (16 heads over 16, head dim 64)
+    in bf16 and fp32: the encoder's non-causal prefill (4 x 512, Sk = S),
+    the prompt's cross attention (4 x 64 queries over 512 memory keys), a
+    ragged cross case (4 x 37 over 300: the last q tile and the last key
+    tile both partial) and the decode step's cross attention (4 queries
+    over 512 memory keys)."""
+    sm = dict(h=16, kvh=16, hd=64)
+    cases = []
+    for dt, tag in (("bfloat16", ""), ("float32", " fp32")):
+        cases += [
+            ("flash_attention", f"seamless encoder prefill{tag} (non-causal, "
+             "4 x 512)", dt, dict(b=4, s=512, sk=512, causal=False, **sm)),
+            ("flash_attention", f"seamless cross attention{tag} (4 x 64 over "
+             "512 keys)", dt, dict(b=4, s=64, sk=512, causal=False, **sm)),
+            ("flash_attention", f"seamless cross attention{tag}, ragged (4 x "
+             "37 over 300 keys)", dt, dict(b=4, s=37, sk=300, causal=False,
+                                          **sm)),
+            ("flash_decode", f"seamless cross decode{tag} (4 over 512 memory "
+             "keys)", dt, dict(b=4, s=512, starts=[0] * 4, lengths=[512] * 4,
+                               **sm)),
+        ]
+    return cases
+
+
+def encdec_batches(torch, cfg, frames, seq, batch, n, device):
+    """Token batches (``train_batches``) with ``src_embeds`` (batch,
+    frames, d_model), standard normal from a generator on ``device``
+    seeded by the step."""
+    out = train_batches(cfg, seq, batch, n, device)
+    for s, b in enumerate(out):
+        gen = torch.Generator(device=device).manual_seed(1000 + s)
+        b["src_embeds"] = torch.randn((batch, frames, cfg.d_model),
+                                      generator=gen, device=device)
+    return out
+
+
+def encdec_train_runs(torch, cfg=None):
+    """The runs of the encdec card-against-CPU phase: (cfg, label,
+    strategy, runner kwargs, steps, param tolerance) at 2 encoder and 2
+    decoder layers of seamless-m4t-large-v2's width: ``hift`` (m = 1,
+    AdamW, bottom2up: embed, enc 0, enc 1, dec 0), ``lomo`` (clip 1.0),
+    ``adalomo``, ``mezo`` (``cpu_noise``: the same z on both devices)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import HiFTConfig, LOMOConfig
+    from repro_torch.models import encdec as E
+    cfg = cfg or dataclasses.replace(get_config("seamless-m4t-large-v2"),
+                                     n_layers=4, enc_layers=2, dec_layers=2)
+    shapes = {p: tuple(t.shape) for p, t in
+              _flat(E.init(cfg, torch.Generator(), device="meta")).items()}
+    return [(cfg, "hift", "hift", dict(hift=HiFTConfig(m=1),
+                                       optimizer="adamw"), 4,
+             2 * ENCDEC_LR + 1e-6),
+            (cfg, "lomo", "lomo", dict(lomo=LOMOConfig(grad_clip=1.0)), 1,
+             FUSED_PARAM_TOL["lomo"]),
+            (cfg, "adalomo", "adalomo", {}, 1, 2 * ENCDEC_LR),
+            (cfg, "mezo", "mezo", dict(noise=cpu_noise(torch, shapes)), 1,
+             6 * ENCDEC_LR)]
+
+
+def encdec_train_side(torch, runs, dev: str) -> dict:
+    """One device's side of the encdec card-against-CPU runs, from the
+    params of seed 0 drawn on the CPU and the same batches: per run the
+    losses, grad norms, groups, seconds and a sample of the final params;
+    for ``adalomo`` on the card also where the starting gradient exceeds
+    1e-4 on that sample."""
+    from repro_torch.core import LRSchedule, make_runner
+    from repro_torch.models import encdec as E
+    out = {}
+    cfg = runs[0][0]
+    p0 = E.init(cfg, torch.Generator().manual_seed(0), device="cpu",
+                dtype=torch.float32)
+    for _, label, strategy, kw, n, _ in runs:
+        batches = encdec_batches(torch, cfg, ENCDEC_FRAMES, ENCDEC_SEQ, 2, n,
+                                 "cpu")
+        runner = make_runner(cfg, strategy, params=p0, device=dev,
+                             schedule=LRSchedule(base_lr=ENCDEC_LR), **kw)
+        t0 = time.perf_counter()
+        losses, norms, groups = [], [], []
+        for b in batches:
+            losses.append(float(runner.train_step(b)))
+            g = runner.last_metrics.get("grad_norm")
+            norms.append(None if g is None else float(g))
+            groups.append(runner.last_metrics.get("group"))
+        row = dict(losses=losses, norms=norms, groups=groups,
+                   seconds=time.perf_counter() - t0,
+                   params={k: _sample(t) for k, t in
+                           _flat(runner.params).items()})
+        del runner
+        if strategy == "adalomo" and dev != "cpu":
+            row["mask"] = _grad_above(torch, cfg, p0, batches[0], dev)
+        out[label] = row
+    return out
+
+
+def compare_encdec_train(torch, runs, sides: dict, devices) -> None:
+    """Emits a ``train_encdec_card_vs_cpu`` line a run; raises where the
+    devices differ: losses and grad norms beyond ``ENCDEC_RTOL`` relative,
+    the params' sample beyond the run's tolerance (``adalomo``'s where the
+    starting gradient exceeds 1e-4, as ``compare_moe_train``)."""
+    a, b = (sides[d] for d in devices)
+    for cfg, label, strategy, _, n, param_tol in runs:
+        x, y = a[label], b[label]
+        rel, nrel, gap, gap_all, worst = train_gaps(x, y)
+        emit("train_encdec_card_vs_cpu", arch=cfg.name, run=label,
+             enc_layers=cfg.enc_layers, dec_layers=cfg.dec_layers,
+             d_model=cfg.d_model, batch=2, frames=ENCDEC_FRAMES,
+             seq=ENCDEC_SEQ, lr=ENCDEC_LR, groups=x["groups"],
+             cpu_losses=x["losses"], cuda_losses=y["losses"],
+             cpu_grad_norms=x["norms"], cuda_grad_norms=y["norms"],
+             max_rel_loss_gap=rel, max_rel_grad_norm_gap=nrel,
+             rtol=ENCDEC_RTOL, max_param_gap=gap,
+             max_param_gap_unmasked=gap_all, worst_leaf=worst,
+             param_sample=f"every {MOE_SAMPLE}th element",
+             param_tol=param_tol, cpu_seconds=x["seconds"],
+             cuda_seconds=y["seconds"])
+        if (not all(math.isfinite(v) for v in y["losses"])
+                or rel > ENCDEC_RTOL or nrel > ENCDEC_RTOL
+                or gap > param_tol):
+            raise RuntimeError(f"{cfg.name} {label}: card and CPU differ: "
+                               f"losses {x['losses']} {y['losses']}, norms "
+                               f"{x['norms']} {y['norms']}, param gap {gap} "
+                               f"({worst})")
+
+
+def phase_train_encdec_card_vs_cpu(torch, cfg=None, devices=("cpu", "cuda")):
+    """encdec training, card against CPU, from the same fp32 params and
+    batches (``encdec_train_runs``), ``compare_encdec_train``'s gates.
+    ``phase_encdec`` runs the CPU's side in a child process beside the
+    card's phases; here each device's side runs in turn, and ``cfg`` /
+    ``devices`` let the phase run small on the CPU alone."""
+    runs = encdec_train_runs(torch, cfg)
+    sides = {dev: encdec_train_side(torch, runs, dev) for dev in set(devices)}
+    compare_encdec_train(torch, runs, sides, devices)
+    gc.collect()
+
+
+def _visit_first(runner, labels) -> None:
+    """Puts the HiFT groups named ``labels`` first in the runner's visit
+    order (the order is state; a label may come again, a revisit), the
+    others after them in their order."""
+    first = [next(g.index for g in runner.groups if g.label().endswith(
+        f"({lab})")) for lab in labels]
+    rest = [gi for gi in runner.strategy.order if gi not in first]
+    runner.state.extra["order"] = np.asarray(first + rest, np.int64)
+
+
+def phase_train_encdec_full(torch):
+    """seamless-m4t-large-v2 at its published config (24 + 24 layers,
+    1.63 B params), random weights from seed 0, batch 4 x 512 source frames
+    and 4 x 128 target tokens (the reference's encdec training shape):
+
+    - fp32 HiFT m=1, AdamW (fused, trained in place): the embed step (a
+      backward through both stacks), enc 0, dec 0, dec 23 and the head,
+      then the head again (a revisit: its 2.1 GB bundle comes back from
+      pinned host memory): host ms, peak allocated and reserved beside
+      the analytic P+G+S, the update kernel's device ms;
+    - one FPFT step (AdamW, fused) at full depth from fresh params: its
+      peak beside the analytic, and the saving measured and analytic;
+    - ``lomo`` (clip 1.0), ``adalomo`` and ``mezo``, one step each: a peak
+      more than ``FUSED_ALLOWANCE_GIB`` over the analytic P+G+S fails the
+      run;
+    - NF4 HiFT (bf16 moments) from a tree encoded leaf by leaf: the embed
+      step and enc 0, with the dequant kernel's device ms and launches.
+
+    Returns the kernels' launches over the HiFT runs."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import (HiFTConfig, LOMOConfig, LRSchedule,
+                                  QuantConfig, make_runner)
+    from repro_torch.kernels import dequant_matmul as DM
+    from repro_torch.models import encdec as E
+    cfg = get_config("seamless-m4t-large-v2")
+    batches = encdec_batches(torch, cfg, 512, 128, 4, 2, "cuda")
+    sched = LRSchedule(base_lr=1e-5)
+
+    def fresh():
+        gc.collect()
+        torch.cuda.empty_cache()
+        return E.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                      device="cuda", dtype=torch.float32)
+
+    base = torch.cuda.memory_allocated()
+    params = fresh()
+    hift_pgs = analytic(cfg).pgs_gb
+    rows = []
+    with UpdateTimer(torch) as timer:   # counts the main path's run only
+        runner = make_runner(cfg, "hift", params=params, optimizer="adamw",
+                             hift=HiFTConfig(m=1), schedule=sched,
+                             device="cuda")
+        _visit_first(runner, ("embed", "enc[0:1]", "dec[0:1]", "dec[23:24]",
+                              "head", "head"))
+        for i in range(6):
+            row = fused_step(torch, runner, batches[i % 2], base, timer=timer)
+            row["visit"] = sum(r["group"] == row["group"] for r in rows) + 1
+            rows.append(row)
+            emit("train_encdec_step", arch=cfg.name, strategy="hift",
+                 analytic_pgs_gib=hift_pgs,
+                 over_analytic_gib=row["peak_allocated_gib"] - hift_pgs,
+                 **row)
+        launches = timer.launches()
+        del runner
+    del params
+    with UpdateTimer(torch) as timer:
+        params = fresh()
+        runner = make_runner(cfg, "fpft", params=params, optimizer="adamw",
+                             fused_update=True, schedule=sched,
+                             device="cuda")
+        del params
+        fpft = fused_step(torch, runner, batches[0], base, timer=timer)
+        launches["fused_adamw"] += timer.launches()["fused_adamw"]
+        del runner
+    fpft_pgs = analytic(cfg, "fpft").pgs_gb
+    emit("train_encdec_step", arch=cfg.name, strategy="fpft",
+         analytic_pgs_gib=fpft_pgs,
+         over_analytic_gib=fpft["peak_allocated_gib"] - fpft_pgs, **fpft)
+    hift_peak = max(r["peak_allocated_gib"] for r in rows)
+    emit("train_encdec_memory", arch=cfg.name, dtype="float32", batch=4,
+         frames=512, seq=128, n_params=analytic(cfg).n_params,
+         hift_peak_gib=hift_peak, fpft_peak_gib=fpft["peak_allocated_gib"],
+         hift_analytic_gib=hift_pgs, fpft_analytic_gib=fpft_pgs,
+         saving=1 - hift_peak / fpft["peak_allocated_gib"],
+         analytic_saving=1 - hift_pgs / fpft_pgs,
+         host_ms=[[r["group"], r["host_ms"]] for r in rows],
+         fpft_host_ms=fpft["host_ms"])
+    params = fresh()
+    for strategy, kw in (("lomo", {"lomo": LOMOConfig(grad_clip=1.0)}),
+                         ("adalomo", {}), ("mezo", {})):
+        runner = make_runner(cfg, strategy, params=params, schedule=sched,
+                             device="cuda", **kw)
+        st = runner.strategy
+        pgs = analytic(cfg, st.memory_mode, m=st.memory_m).pgs_gb
+        row = fused_step(torch, runner, batches[0], base)
+        emit("train_encdec_step", arch=cfg.name, strategy=strategy,
+             m=st.memory_m, analytic_pgs_gib=pgs,
+             over_analytic_gib=row["peak_allocated_gib"] - pgs, **row)
+        if row["peak_allocated_gib"] - pgs > FUSED_ALLOWANCE_GIB:
+            raise RuntimeError(f"{cfg.name} {strategy}: peak "
+                               f"{row['peak_allocated_gib']:.2f} GiB exceeds "
+                               f"the analytic {pgs:.2f} GiB by more than "
+                               f"{FUSED_ALLOWANCE_GIB} GiB")
+        del runner
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params
+    quant = QuantConfig("nf4", "bf16")
+    params = encoded_init(torch, cfg, "nf4")
+    with UpdateTimer(torch) as timer, UpdateTimer(torch, DM) as dq:
+        _nf4_steps(torch, cfg, params, batches, timer, dq, quant,
+                   "train_encdec_quant_step")
+        launches["fused_adamw"] += timer.launches()["fused_adamw"]
+    del params
+    launches["dequant_matmul"] = DM.dequant_matmul.launches - \
+        DM.dequant_matmul.launches_tc
+    if not launches["dequant_matmul"] or not launches["fused_adamw"]:
+        raise RuntimeError(f"encdec training never launched a kernel: "
+                           f"{launches}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("train_encdec_launches", launches=launches)
+    return launches
+
+
+def phase_serve_encdec_full(torch, dtype: str = "bfloat16",
+                            max_new: int = 32):
+    """``ServeEngine`` over seamless-m4t-large-v2 at full depth, random
+    weights from seed 0, batch 4, 512 source frames (standard normal,
+    seeded 99, as the launcher's), 4 prompts of 8-64 tokens, ``max_new``
+    new tokens, one warm-up call first: host-clock prefill ms (a 1-token
+    generation), decode-step ms ((the run - prefill) / (max_new - 1)) and
+    tokens/s, and the attention kernels' launches over the timed runs,
+    which must be 72 prefill launches a generation (24 encoder, 24 causal,
+    24 cross) and 48 decode launches a step (24 self, 24 cross).  Returns
+    those launches by instantiation."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as K
+    from repro_torch.models import encdec as E
+    from repro_torch.serve.engine import ServeEngine
+    cfg = get_config("seamless-m4t-large-v2")
+    dt = getattr(torch, dtype)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = E.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                    device="cuda", dtype=dt)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(13)
+    plens = [int(n) for n in rng.integers(8, 65, 4)]
+    prompts = [rng.integers(0, cfg.vocab, n) for n in plens]
+    src = torch.randn((4, 512, cfg.d_model),
+                      generator=torch.Generator(device="cuda").manual_seed(99),
+                      device="cuda")
+    eng = ServeEngine(cfg, params, batch=4, max_len=max(plens) + max_new,
+                      compute_dtype=dt, device="cuda")
+    eng.generate(prompts, max_new_tokens=2, src_embeds=src)     # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()                 # count the timed runs only
+    t0 = time.perf_counter()
+    eng.generate(prompts, max_new_tokens=1, src_embeds=src)
+    prefill_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = eng.generate(prompts, max_new_tokens=max_new, src_embeds=src)
+    run_s = time.perf_counter() - t0
+    prefill = instance("flash_attention", dtype)
+    launches = {prefill: K.flash_attention.launches_tc
+                if dtype == "bfloat16" else
+                K.flash_attention.launches - K.flash_attention.launches_tc,
+                "flash_decode": K.flash_decode.launches}
+    want = {prefill: 2 * 3 * 24, "flash_decode": (max_new - 1) * 2 * 24}
+    if launches != want or K.flash_attention.launches != launches[prefill]:
+        raise RuntimeError(f"seamless {dtype} serving launched {launches} "
+                           f"({K.flash_attention.launches} prefills), not "
+                           f"{want}")
+    for toks in out:
+        if len(toks) != max_new or not all(0 <= t < cfg.vocab_padded
+                                           for t in toks):
+            raise RuntimeError(f"seamless: bad generation {toks}")
+    leaves = list(_flat(params).values())
+    emit("serve_encdec_full", arch=cfg.name, dtype=dtype, init_s=init_s,
+         prompt_lens=plens, src_frames=512, new_tokens=max_new,
+         prefill_ms=1e3 * prefill_s,
+         decode_step_ms=1e3 * (run_s - prefill_s) / (max_new - 1),
+         tokens_per_s=len(prompts) * max_new / run_s,
+         weights_gb=sum(t.numel() * t.element_size() for t in leaves) / 1e9,
+         peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+         launches=launches,
+         decode_launches_split=K.flash_decode.launches_split)
+    del eng, params, leaves, src
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def encdec_serve_sides(torch, devices, cfg=None) -> dict:
+    """Each device's side of the encdec card-against-CPU serving: 2
+    encoder and 2 decoder layers at seamless-m4t-large-v2's width (or
+    ``cfg``), fp32, the params of seed 0 drawn on the CPU once for both,
+    4 prompts of mixed length in one padded batch (the left pad attends,
+    as in the reference) over 128 source frames, 8 new tokens."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.serve.engine import ServeEngine
+    cfg = cfg or dataclasses.replace(get_config("seamless-m4t-large-v2"),
+                                     n_layers=4, enc_layers=2, dec_layers=2)
+    params = host_params(torch, cfg, "cuda" in devices)
+    rng = np.random.default_rng(7)
+    plens = [64, 37, 20, 50]
+    prompts = [rng.integers(0, cfg.vocab, n) for n in plens]
+    src = torch.randn((4, 128, cfg.d_model),
+                      generator=torch.Generator().manual_seed(99))
+    out = {}
+    for dev in devices:
+        eng = ServeEngine(cfg, params, batch=4, max_len=72,
+                          compute_dtype=torch.float32, device=dev)
+        t0 = time.perf_counter()
+        out[dev] = dict(name=cfg.name, prompts=plens,
+                        tokens=eng.generate(prompts, max_new_tokens=8,
+                                            src_embeds=src),
+                        seconds=time.perf_counter() - t0)
+        del eng
+    return out
+
+
+def phase_serve_encdec_card_vs_cpu(torch, cfg=None, devices=("cpu", "cuda")):
+    """The same fp32 weights served on the CPU (plain versions) and the
+    card (kernels), ``encdec_serve_sides``: the greedy tokens must be
+    equal.  ``cfg`` / ``devices`` let the phase run small on the CPU."""
+    sides = encdec_serve_sides(torch, devices, cfg)
+    x, y = (sides[d] for d in devices)
+    same = x["tokens"] == y["tokens"]
+    emit("serve_encdec_card_vs_cpu", arch=x["name"], prompts=x["prompts"],
+         src_frames=128, new_tokens=8, tokens_equal=same,
+         seconds={d: s["seconds"] for d, s in sides.items()},
+         cpu_tokens=x["tokens"], cuda_tokens=y["tokens"])
+    if not same:
+        raise RuntimeError(f"seamless: card and CPU greedy tokens differ: "
+                           f"{x['tokens']} {y['tokens']}")
+
+
+def phase_encdec(torch) -> dict:
+    """The encdec family (seamless-m4t-large-v2): the attention kernels at
+    its widths (non-causal, cross, the cross decode), the card's side of
+    the training card against CPU, the full-size training and serving, and
+    serving card against CPU.  The CPU side of the training runs in a
+    child process (``CpuSide``) beside the rest; its comparison comes
+    last.  Each part's seconds in a line; returns the kernels' launches
+    over the main-path runs."""
+    launches, secs = {}, {}
+    cpu = CpuSide("encdec")
+    try:
+        t0 = time.perf_counter()
+        phase_kernels(torch, encdec_attention_cases())
+        secs["kernels_encdec"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        runs = encdec_train_runs(torch)
+        card = encdec_train_side(torch, runs, "cuda")
+        runs = [r[:3] + (None,) + r[4:] for r in runs]
+        gc.collect()
+        torch.cuda.empty_cache()
+        secs["train_encdec_card_side"] = time.perf_counter() - t0
+        for name, fn in (("train_encdec_full", phase_train_encdec_full),
+                         ("serve_encdec_full", phase_serve_encdec_full),
+                         ("serve_encdec_full_fp32",
+                          lambda t: phase_serve_encdec_full(t, "float32", 8))):
+            t0 = time.perf_counter()
+            for kernel, n in fn(torch).items():
+                launches[kernel] = launches.get(kernel, 0) + n
+            secs[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        phase_serve_encdec_card_vs_cpu(torch)
+        torch.cuda.empty_cache()
+        secs["serve_encdec_card_vs_cpu"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sides = cpu.result()
+        secs["cpu_side_wait"] = time.perf_counter() - t0
+        secs["cpu_side"] = sides["seconds"]
+        compare_encdec_train(torch, runs, {"cpu": sides["train"],
+                                           "cuda": card}, ("cpu", "cuda"))
+    finally:
+        cpu.close()
+    emit("encdec_seconds", seconds=secs,
+         total=sum(v for k, v in secs.items() if k != "cpu_side"))
+    return launches
+
+
+def cpu_side(path: str, family: str) -> int:
+    """The CPU side of the moe or encdec card-against-CPU training,
+    pickled to ``path``: ``phase_moe_vlm`` and ``phase_encdec`` run this
+    in a child process on 6 of the host's threads beside the card's
+    phases."""
     import pickle
 
     import torch
     torch.set_num_threads(6)
-    out = {"train": moe_train_side(torch, moe_train_runs(torch), "cpu")}
+    if family == "moe":
+        out = {"train": moe_train_side(torch, moe_train_runs(torch), "cpu")}
+    else:
+        out = {"train": encdec_train_side(torch, encdec_train_runs(torch),
+                                          "cpu")}
     with open(path, "wb") as f:
         pickle.dump(out, f)
     return 0
 
 
 class CpuSide:
-    """``cpu_side`` in a child process, started on construction: joined
-    and read with ``result`` (which raises if the child failed), killed
-    by ``close`` if still running."""
+    """``cpu_side`` of ``family`` in a child process, started on
+    construction: joined and read with ``result`` (which raises if the
+    child failed), killed by ``close`` if still running."""
 
-    def __init__(self):
+    def __init__(self, family: str = "moe"):
         import tempfile
         self.dir = tempfile.TemporaryDirectory(prefix="chip_smoke_")
         self.path = os.path.join(self.dir.name, "cpu_side.pkl")
         self.err = open(os.path.join(self.dir.name, "stderr"), "w+")
         self.proc = subprocess.Popen(
             [sys.executable, str(Path(__file__).resolve()), "--cpu-side",
-             self.path], stdout=subprocess.DEVNULL, stderr=self.err)
+             self.path, "--cpu-side-family", family],
+            stdout=subprocess.DEVNULL, stderr=self.err)
         self.t0 = time.perf_counter()
 
     def result(self) -> dict:
@@ -3966,13 +4467,15 @@ def main(argv=None) -> int:
 
     import torch
     ap = argparse.ArgumentParser(description="Drive the port on one card.")
-    ap.add_argument("--only", choices=["moe_vlm"],
-                    help="build, then run only the moe/vlm phase (no "
-                    "result line)")
+    ap.add_argument("--only", choices=["moe_vlm", "encdec"],
+                    help="build, then run only the moe/vlm or the encdec "
+                    "phase (no result line)")
     ap.add_argument("--cpu-side", metavar="PATH", help=argparse.SUPPRESS)
+    ap.add_argument("--cpu-side-family", default="moe",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
-    if args.cpu_side:                  # phase_moe_vlm's child process
-        return cpu_side(args.cpu_side)
+    if args.cpu_side:                  # phase_moe_vlm's, phase_encdec's child
+        return cpu_side(args.cpu_side, args.cpu_side_family)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -4005,7 +4508,7 @@ def main(argv=None) -> int:
             raise RuntimeError(f"{name}: no tensor-core instruction in its "
                                f"SASS: {inst}")
     if args.only:
-        phase_moe_vlm(torch)
+        {"moe_vlm": phase_moe_vlm, "encdec": phase_encdec}[args.only](torch)
         emit("done", seconds=time.perf_counter() - start)
         return 0
 
@@ -4095,6 +4598,11 @@ def main(argv=None) -> int:
     for name, n in phase_moe_vlm(torch).items():
         launches[name] = launches.get(name, 0) + n
     lap("moe_vlm")
+    # the encdec family: the prefill non-causal and over the memory's keys,
+    # the decode over the memory, the fused AdamW, the dequant kernel
+    for name, n in phase_encdec(torch).items():
+        launches[name] = launches.get(name, 0) + n
+    lap("encdec")
     emit("seconds", laps=laps)
     emit("done", seconds=time.perf_counter() - start)
 

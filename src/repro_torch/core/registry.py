@@ -8,10 +8,11 @@
 
 It runs on the card (``device="cuda"``, raising when there is none)
 unless the caller passes ``device="cpu"``, for the dense, hybrid
-(zamba2), vlm (internvl2-26b's backbone) and moe (deepseek-moe-16b,
-arctic-480b) families.  Every strategy of the
-reference is ported: ``hift``, ``hift_pipelined``, ``lisa``, ``fpft``,
-``fpft_streamed``, ``mezo``, ``lomo`` and ``adalomo``.
+(zamba2), vlm (internvl2-26b's backbone), moe (deepseek-moe-16b,
+arctic-480b) and encdec (seamless-m4t-large-v2) families.  Every
+strategy of the reference is ported: ``hift``, ``hift_pipelined``,
+``lisa``, ``fpft``, ``fpft_streamed``, ``mezo``, ``lomo`` and
+``adalomo``.
 """
 from __future__ import annotations
 
@@ -23,8 +24,8 @@ _REGISTRY: dict[str, type] = {}
 # optimizers with a fused update kernel (kernels/csrc/fused_update.cu)
 FUSED_OPTIMIZERS = ("adamw", "sgdm", "adagrad")
 # model families with a ported training path (models/transformer.py,
-# models/zamba2.py, models/moe.py)
-TRAINED_FAMILIES = ("dense", "hybrid", "vlm", "moe")
+# models/zamba2.py, models/moe.py, models/encdec.py)
+TRAINED_FAMILIES = ("dense", "hybrid", "vlm", "moe", "encdec")
 
 
 def register_strategy(name: str):
@@ -92,7 +93,7 @@ def make_runner(cfg, strategy: str = "hift", *, params: Any = None,
     (``StreamConfig.chunk_bytes``).
 
     ``mesh``, ``cross_pod`` and the families outside
-    ``TRAINED_FAMILIES`` (xlstm, encdec) are not ported yet and raise.
+    ``TRAINED_FAMILIES`` (xlstm) are not ported yet and raise.
     Remaining kwargs go to the strategy (``schedule``, ``policy``,
     ``loss_fn``, ``hift=``, ``lisa=``, ``stream=``, ``mezo=``, ``lomo=``,
     ``adalomo=``)."""

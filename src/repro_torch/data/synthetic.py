@@ -76,25 +76,44 @@ class PrefetchIterator:
         return out
 
 
-class VisionStubLM:
-    """The vlm family's stub frontend over a token source (the
-    reference's launcher wraps its stream the same way): each batch gains
-    ``vision_embeds`` (B, vision_tokens, d_model), standard normal.  The
-    reference draws ``jax.random.normal(PRNGKey(step + 1))``; the port
-    cannot draw ``jax.random``, so it draws from a ``torch.Generator``
-    seeded by (seed, step) on the source's device: the same law, other
-    numbers."""
+class _StubFrontend:
+    """A stub modality frontend over a token source (the reference's
+    launcher wraps its stream the same way): each batch gains ``key``, a
+    standard-normal tensor of ``shape``.  The reference draws
+    ``jax.random.normal(PRNGKey(step + 1))``; the port cannot draw
+    ``jax.random``, so it draws from a ``torch.Generator`` seeded by
+    (seed, step) on the source's device: the same law, other numbers."""
 
-    def __init__(self, source: SyntheticLM, vision_tokens: int,
-                 d_model: int):
+    def __init__(self, source: SyntheticLM, key: str, shape: tuple):
         self.source = source
         self.device = source.device
-        self.shape = (source.per_host, vision_tokens, d_model)
+        self.key = key
+        self.shape = shape
 
     def batch_at(self, step: int) -> dict:
         out = self.source.batch_at(step)
         gen = torch.Generator(device=self.device).manual_seed(
             (self.source.cfg.seed * 1_000_003 + step) % (2**63 - 1))
-        out["vision_embeds"] = torch.randn(self.shape, generator=gen,
-                                           device=self.device)
+        out[self.key] = torch.randn(self.shape, generator=gen,
+                                    device=self.device)
         return out
+
+
+class VisionStubLM(_StubFrontend):
+    """The vlm family's stub frontend: ``vision_embeds`` (B,
+    vision_tokens, d_model)."""
+
+    def __init__(self, source: SyntheticLM, vision_tokens: int,
+                 d_model: int):
+        super().__init__(source, "vision_embeds",
+                         (source.per_host, vision_tokens, d_model))
+
+
+class SourceStubLM(_StubFrontend):
+    """The encdec family's stub frontend: ``src_embeds`` (B, seq_len,
+    d_model), frame embeddings as long as the token rows, as the
+    reference's launcher draws them."""
+
+    def __init__(self, source: SyntheticLM, d_model: int):
+        super().__init__(source, "src_embeds",
+                         (source.per_host, source.cfg.seq_len, d_model))

@@ -20,7 +20,7 @@
 //   launch this small is held back by latency (one K/V tile after another,
 //   up to 8 on the diagonal) more than by either roof.  Design: one
 //   warpgroup per (head, batch row, 64-row q tile).  Q and two stages of
-//   K/V tiles of 64 keys come in by cp.async (keys past S zero-filled), the
+//   K/V tiles of 64 keys come in by cp.async (keys past Sk zero-filled), the
 //   next tile's copy overlapping this tile's products, into the 128-byte
 //   swizzled layout wgmma reads (head dims past a multiple of 64, as 80, in
 //   a zero-filled second atom).  S = Q K^T is one chain of wgmma.m64n64k16
@@ -66,11 +66,15 @@
 // behind the prefix.  The kv loop visits the prefix's tiles, then starts
 // again at the tile that holds prefix + starts[b] and stops at the
 // diagonal; the pad's and the ragged edge's keys are masked, so S need not
-// divide the tile.  With prefix 0 the loop is the plain left-pad one.  q
-// tiles are launched longest first (the diagonal tiles do the most work), a
-// warp whose rows all precede a key tile skips its products, and with no
-// prefix a causal q tile wholly inside the left pad is written as zeros
-// without reading a key (with one, pad rows see the prefix).  A q row that
+// divide the tile.  k and v hold Sk rows a batch row (Sk == S when
+// causal; a non-causal call may attend over another length, as an
+// encoder-decoder's cross attention over its encoder's memory): the kv
+// loop ends at Sk and the last key tile masks keys at or past Sk.  With
+// prefix 0 the loop is the plain left-pad one.  q tiles are launched
+// longest first (the diagonal tiles do the most work), a warp whose rows
+// all precede a key tile skips its products, and with no prefix a causal
+// q tile wholly inside the left pad is written as zeros without reading a
+// key (with one, pad rows see the prefix).  A q row that
 // sees no key comes out finite (the mean of the visited values).
 //
 // Decode (replaces flash_decode_pallas, :141, _decode_kernel :109, and
@@ -180,8 +184,9 @@ flash_attention_3xtf32_kernel(const float* __restrict__ q,
                               const float* __restrict__ k,
                               const float* __restrict__ v,
                               const int* __restrict__ starts,
-                              float* __restrict__ out, int S, int H, int KV,
-                              int causal, int prefix, float scale_log2) {
+                              float* __restrict__ out, int S, int Sk, int H,
+                              int KV, int causal, int prefix,
+                              float scale_log2) {
   constexpr int LD = HD + 4;                 // padded row, in floats
   constexpr int C4 = HD / 4;                 // 16-byte chunks of a row
   constexpr int TILE = kF3BK * LD;
@@ -207,8 +212,8 @@ flash_attention_3xtf32_kernel(const float* __restrict__ q,
   const int start = starts ? max(starts[b], 0) : 0;
   const size_t q_stride = (size_t)H * HD, kv_stride = (size_t)KV * HD;
   const float* qb = q + ((size_t)b * S * H + h) * HD;
-  const float* kb = k + ((size_t)b * S * KV + kvh) * HD;
-  const float* vb = v + ((size_t)b * S * KV + kvh) * HD;
+  const float* kb = k + ((size_t)b * Sk * KV + kvh) * HD;
+  const float* vb = v + ((size_t)b * Sk * KV + kvh) * HD;
   float* ob = out + ((size_t)b * S * H + h) * HD;
   const int q_end = min(q0 + kF3BQ, S);
 
@@ -219,12 +224,12 @@ flash_attention_3xtf32_kernel(const float* __restrict__ q,
     return;
   }
 
-  // The part's K and V rows from position k0 on into stage st; rows past S
-  // are zero-filled.
+  // The part's K and V rows from position k0 on into stage st; rows past
+  // Sk are zero-filled.
   auto load_kv = [&](int st, int k0) {
     for (int c = pt; c < kF3BK * C4; c += 64) {
       const int r = c / C4, cc = c % C4, pos = k0 + r;
-      const bool ok = pos < S;
+      const bool ok = pos < Sk;
       const size_t off = ok ? (size_t)pos * kv_stride + cc * 4 : 0;
       const uint32_t dst = (st * TILE + r * LD + cc * 4) * 4;
       cp_async16(smem_u32(ks) + dst, kb + off, ok ? 16 : 0);
@@ -235,7 +240,7 @@ flash_attention_3xtf32_kernel(const float* __restrict__ q,
   // Key tiles: the prefix's [0, n_pre), then [t_b, t_hi) from the tile
   // that holds prefix + start on; part p takes the tiles p, p + parts, ..
   // of that list.
-  const int kv_end = causal ? q_end : S;     // keys [.., kv_end)
+  const int kv_end = causal ? q_end : Sk;    // keys [.., kv_end)
   const int n_pre = (min(prefix, kv_end) + kF3BK - 1) / kF3BK;
   const int t_b = max(n_pre, min(prefix + start, kv_end) / kF3BK);
   const int t_hi = (kv_end + kF3BK - 1) / kF3BK;
@@ -329,7 +334,7 @@ flash_attention_3xtf32_kernel(const float* __restrict__ q,
     // Scale into log2 units and mask; the online softmax of rows row0 and
     // row0 + 8, each row's 16 scores spread over the 4 threads of a quad.
     const bool edge = (k0 < prefix + start && k0 + kF3BK > prefix) ||
-                      k0 + kF3BK > S || (causal && k0 + kF3BK - 1 > q0 + rw);
+                      k0 + kF3BK > Sk || (causal && k0 + kF3BK - 1 > q0 + rw);
     float mx[2] = {m_r[0], m_r[1]};
 #pragma unroll
     for (int n = 0; n < kF3NT; ++n)
@@ -339,7 +344,7 @@ flash_attention_3xtf32_kernel(const float* __restrict__ q,
         if (edge) {
           const int kp = k0 + 8 * n + 2 * t4 + (e & 1);
           const int qi = row0 + (e >> 1) * 8;
-          if ((kp >= prefix && kp < prefix + start) || kp >= S ||
+          if ((kp >= prefix && kp < prefix + start) || kp >= Sk ||
               (causal && kp > qi)) s = kNeg;
         }
         sc[n][e] = s;
@@ -571,8 +576,9 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v,
                           const int* __restrict__ starts,
-                          __nv_bfloat16* __restrict__ out, int S, int H,
-                          int KV, int causal, int prefix, float scale_log2) {
+                          __nv_bfloat16* __restrict__ out, int S, int Sk,
+                          int H, int KV, int causal, int prefix,
+                          float scale_log2) {
   constexpr int CH = HD / 8;                 // 16-byte chunks of a row
   constexpr int ATOMS = (HD + 63) / 64;      // 64-column atoms of a tile
   constexpr int TILE = tc_tile_bytes<HD>();
@@ -592,8 +598,8 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const int start = starts ? max(starts[b], 0) : 0;
   const size_t q_stride = (size_t)H * HD, kv_stride = (size_t)KV * HD;
   const __nv_bfloat16* qb = q + ((size_t)b * S * H + h) * HD;
-  const __nv_bfloat16* kb = k + ((size_t)b * S * KV + kvh) * HD;
-  const __nv_bfloat16* vb = v + ((size_t)b * S * KV + kvh) * HD;
+  const __nv_bfloat16* kb = k + ((size_t)b * Sk * KV + kvh) * HD;
+  const __nv_bfloat16* vb = v + ((size_t)b * Sk * KV + kvh) * HD;
   __nv_bfloat16* ob = out + ((size_t)b * S * H + h) * HD;
   const int q_end = min(q0 + kTcBQ, S);
 
@@ -604,13 +610,14 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
     return;
   }
 
-  // 64 rows from position r0 on into a swizzled tile: rows past S and the
-  // columns past HD of the last atom (head dim 80) are zero-filled.
+  // 64 rows from position r0 on into a swizzled tile: rows at or past n
+  // (S for Q, Sk for K and V) and the columns past HD of the last atom
+  // (head dim 80) are zero-filled.
   auto load_rows = [&](unsigned char* dst, const __nv_bfloat16* src,
-                       size_t stride, int r0) {
+                       size_t stride, int r0, int n) {
     for (int c = tid; c < 64 * ATOMS * 8; c += kTcThreads) {
       const int r = c / (ATOMS * 8), cc = c % (ATOMS * 8), pos = r0 + r;
-      const bool ok = pos < S && cc < CH;
+      const bool ok = pos < n && cc < CH;
       cp_async16(smem_u32(dst + (cc / 8) * 8192 + r * 128 +
                           (((cc % 8) ^ (r & 7)) << 4)),
                  ok ? src + (size_t)pos * stride + cc * 8 : src, ok ? 16 : 0);
@@ -619,7 +626,7 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
 
   // Key tiles: the prefix's [0, n_pre), then [t_b, t_hi) from the tile
   // that holds prefix + start on.
-  const int kv_end = causal ? q_end : S;     // keys [.., kv_end)
+  const int kv_end = causal ? q_end : Sk;    // keys [.., kv_end)
   const int n_pre = (min(prefix, kv_end) + kTcBK - 1) / kTcBK;
   const int t_b = max(n_pre, min(prefix + start, kv_end) / kTcBK);
   const int t_hi = (kv_end + kTcBK - 1) / kTcBK;
@@ -627,9 +634,9 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
   auto tile_k0 = [&](int i) {                // first key of the i-th tile
     return (i < n_pre ? i : t_b + i - n_pre) * kTcBK;
   };
-  load_rows(qs, qb, q_stride, q0);
-  load_rows(ks, kb, kv_stride, tile_k0(0));
-  load_rows(vs, vb, kv_stride, tile_k0(0));
+  load_rows(qs, qb, q_stride, q0, S);
+  load_rows(ks, kb, kv_stride, tile_k0(0), Sk);
+  load_rows(vs, vb, kv_stride, tile_k0(0), Sk);
   cp_async_commit();
 
   const int g = lane / 4, cq = 2 * (lane % 4);
@@ -643,8 +650,8 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
   for (int i = 0; i < n_tiles; ++i) {
     const int st = i & 1;
     if (i + 1 < n_tiles) {                   // next tile into the other stage
-      load_rows(ks + (st ^ 1) * TILE, kb, kv_stride, tile_k0(i + 1));
-      load_rows(vs + (st ^ 1) * TILE, vb, kv_stride, tile_k0(i + 1));
+      load_rows(ks + (st ^ 1) * TILE, kb, kv_stride, tile_k0(i + 1), Sk);
+      load_rows(vs + (st ^ 1) * TILE, vb, kv_stride, tile_k0(i + 1), Sk);
     }
     cp_async_commit();
     cp_async_wait<1>();                      // this tile (and Q) landed
@@ -672,7 +679,7 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
     // row0 + 8, each row's 64 scores spread over the 4 threads of a quad.
     const int k0 = tile_k0(i);
     const bool edge = (k0 < prefix + start && k0 + kTcBK > prefix) ||
-                      k0 + kTcBK > S ||
+                      k0 + kTcBK > Sk ||
                       (causal && k0 + kTcBK - 1 > q0 + 16 * warp);
     float mx[2] = {m_r[0], m_r[1]};
 #pragma unroll
@@ -683,7 +690,7 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
         if (edge) {
           const int kp = k0 + 8 * n + cq + (e & 1);
           const int qi = row0 + (e >> 1) * 8;
-          if ((kp >= prefix && kp < prefix + start) || kp >= S ||
+          if ((kp >= prefix && kp < prefix + start) || kp >= Sk ||
               (causal && kp > qi)) s = kNeg;
         }
         sc[4 * n + e] = s;
@@ -1146,14 +1153,15 @@ int launch_decode(const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// q (B,S,H,hd); k, v (B,S,KV,hd); starts (B,) int32 or NULL; out like q.
-// Key j of row b is valid iff j < prefix or j >= prefix + starts[b] (a
-// vision prefix in front of the left pad; prefix 0: j >= starts[b]).
+// q (B,S,H,hd); k, v (B,Sk,KV,hd) (Sk == S when causal); starts (B,) int32
+// or NULL; out like q.  Key j of row b is valid iff j < Sk and (j < prefix
+// or j >= prefix + starts[b]) (a vision prefix in front of the left pad;
+// prefix 0: j >= starts[b]).
 // bf16 runs through wgmma, fp32 as three-pass TF32 mma.sync.
 int flash_attention_fwd(const void* q, const void* k, const void* v,
-                        const void* starts, void* out, int B, int S, int H,
-                        int KV, int hd, int dtype, int causal, int prefix,
-                        float scale, void* stream) {
+                        const void* starts, void* out, int B, int S, int Sk,
+                        int H, int KV, int hd, int dtype, int causal,
+                        int prefix, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float scale_log2 = scale * kLog2e;
   if (dtype == kBFloat16) {
@@ -1165,7 +1173,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
     flash_attention_tc_kernel<HD><<<grid, kTcThreads, bytes, st>>>(           \
         (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,                     \
         (const __nv_bfloat16*)v, (const int*)starts, (__nv_bfloat16*)out, S,  \
-        H, KV, causal, prefix, scale_log2);                                   \
+        Sk, H, KV, causal, prefix, scale_log2);                               \
   } while (0)
     if (hd == 64) LAUNCH_TC(64);
     else if (hd == 80) LAUNCH_TC(80);
@@ -1182,7 +1190,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
     REPRO_SMEM_ATTR(flash_attention_3xtf32_kernel<HD>, bytes);                \
     flash_attention_3xtf32_kernel<HD><<<grid, kF3Threads, bytes, st>>>(       \
         (const float*)q, (const float*)k, (const float*)v,                    \
-        (const int*)starts, (float*)out, S, H, KV, causal, prefix,            \
+        (const int*)starts, (float*)out, S, Sk, H, KV, causal, prefix,        \
         scale_log2);                                                          \
   } while (0)
   if (hd == 64) LAUNCH_F3(64);

@@ -38,9 +38,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 _SIGNATURES = {
-    # q, k, v, starts, out, B, S, H, KV, hd, dtype, causal, prefix, scale,
-    # stream
-    "flash_attention_fwd": [_P] * 5 + [_I] * 8 + [_F, _P],
+    # q, k, v, starts, out, B, S, Sk, H, KV, hd, dtype, causal, prefix,
+    # scale, stream
+    "flash_attention_fwd": [_P] * 5 + [_I] * 9 + [_F, _P],
     # q, k, v, starts, lengths, out, part,
     # B, S, H, KV, hd, dtype, prefix, n_split, chunk, scale, stream
     "flash_decode_fwd": [_P] * 7 + [_I] * 9 + [_F, _P],
@@ -178,17 +178,30 @@ def _launch(name: str, fn_name: str, *args) -> None:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     starts: Optional[torch.Tensor] = None,
                     causal: bool = True, prefix: int = 0) -> torch.Tensor:
-    """Prefill attention.  q (B,S,H,hd); k/v (B,S,KV,hd) with KV | H;
+    """Prefill attention.  q (B,S,H,hd); k/v (B,Sk,KV,hd) with KV | H;
     starts (B,) int left-pad counts or None; ``prefix``: the always-valid
     keys in front of the pad (a vlm's vision tokens).  Key j of row b is
-    masked iff ``prefix <= j < prefix + starts[b]``.  Returns (B,S,H,hd)
-    in q's dtype."""
+    masked iff ``prefix <= j < prefix + starts[b]``.  ``causal=True``
+    needs ``Sk == S``; a non-causal call attends over any ``Sk >= 1`` keys
+    (an encoder-decoder's cross attention over its encoder's memory), with
+    no ``starts`` or ``prefix`` where ``Sk != S``.  Returns (B,S,H,hd) in
+    q's dtype."""
     plain = _plain("flash_attention", q)
     b, s, h, hd = q.shape
-    if k.dim() != 4 or k.shape[:2] != (b, s) or k.shape[3] != hd:
+    if k.dim() != 4 or k.shape[0] != b or k.shape[3] != hd or \
+            k.shape[1] < 1:
         raise ValueError(f"flash_attention: k {tuple(k.shape)} does not fit "
                          f"q {tuple(q.shape)}")
-    kvh = k.shape[2]
+    sk, kvh = k.shape[1], k.shape[2]
+    if sk != s:
+        if causal:
+            raise ValueError(f"flash_attention: k {tuple(k.shape)} does not "
+                             f"fit q {tuple(q.shape)}: causal attention "
+                             "needs as many keys as queries")
+        if starts is not None or prefix:
+            raise ValueError("flash_attention: starts and prefix index the "
+                             "queries' own keys; a call over another key "
+                             f"length ({sk} keys for {s}) takes neither")
     _fit("flash_attention", q, k, v, kvh)
     _check_index("flash_attention", starts, b)
     prefix = _check_prefix("flash_attention", prefix, s)
@@ -203,8 +216,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
     _launch("flash_attention", "flash_attention_fwd",
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(starts),
-            out.data_ptr(), b, s, h, kvh, hd, _DTYPES[q.dtype], int(causal),
-            prefix, 1.0 / math.sqrt(hd))
+            out.data_ptr(), b, s, sk, h, kvh, hd, _DTYPES[q.dtype],
+            int(causal), prefix, 1.0 / math.sqrt(hd))
     flash_attention.launches += 1
     if q.dtype == torch.bfloat16:
         flash_attention.launches_tc += 1

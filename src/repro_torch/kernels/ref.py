@@ -55,23 +55,25 @@ def _valid_keys(pos: torch.Tensor, starts: torch.Tensor,
 
 def flash_attention_ref(q, k, v, starts: Optional[torch.Tensor] = None,
                         causal: bool = True, prefix: int = 0) -> torch.Tensor:
-    """Prefill attention.  q (B,S,H,hd); k/v (B,S,KV,hd); starts (B,) int.
+    """Prefill attention.  q (B,S,H,hd); k/v (B,Sk,KV,hd); starts (B,) int.
 
-    Key j is visible to query i iff ``j <= i`` (causal) and key j is valid
-    (``j >= prefix + starts[b]`` or ``j < prefix``: the left pad sits
-    behind a ``prefix`` of vision tokens) — the masking of
-    ``repro.models.layers.chunked_causal_attention(..., k_valid=)``.
+    Key j is visible to query i iff ``j <= i`` (causal, where Sk == S) and
+    key j is valid (``j >= prefix + starts[b]`` or ``j < prefix``: the left
+    pad sits behind a ``prefix`` of vision tokens) — the masking of
+    ``repro.models.layers.chunked_causal_attention(..., k_valid=)``; a
+    non-causal call with Sk != S (cross attention) sees every key.
     Rows at pad positions may see no key and come out as finite garbage,
     as in JAX; callers read valid rows only."""
     b, s, h, hd = q.shape
+    sk = k.shape[1]
     n_rep = h // k.shape[2]
     kk, vv = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
     scale = 1.0 / math.sqrt(hd)
     sc = torch.einsum("bqhd,bkhd->bhqk", q, kk).float() * scale
-    pos = torch.arange(s, device=q.device)
-    valid = torch.ones((b, s, s), dtype=torch.bool, device=q.device)
+    pos = torch.arange(sk, device=q.device)
+    valid = torch.ones((b, s, sk), dtype=torch.bool, device=q.device)
     if causal:
-        valid = valid & (pos[None, :, None] >= pos[None, None, :])
+        valid = valid & (pos[None, :s, None] >= pos[None, None, :])
     if starts is not None:
         valid = valid & _valid_keys(pos, starts, prefix)[:, None, :]
     sc = torch.where(valid[:, None], sc, torch.full_like(sc, NEG))

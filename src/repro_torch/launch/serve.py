@@ -12,7 +12,10 @@ launcher; prompts come from numpy with the same seed.  ``--continuous``
 serves through the continuous-batching engine (paged KV cache + slot
 scheduler; dense archs only, as in the reference).  The vlm family's
 prompts follow ``vision_tokens`` zero embeddings, which the cache length
-counts on top of ``--max-len``.
+counts on top of ``--max-len``.  The encdec family's decoder attends to
+``src_embeds`` of shape (requests, --max-len, d_model), standard normal
+from a ``torch.Generator`` seeded 99 (the reference draws
+``jax.random.normal(PRNGKey(99))``).
 """
 from __future__ import annotations
 
@@ -57,6 +60,9 @@ def main(argv=None):
     prompts = [rng.integers(0, cfg.vocab, 16) for _ in range(args.requests)]
 
     if args.continuous:
+        if cfg.family != "dense":
+            raise ValueError(f"--continuous serves the dense family, not "
+                             f"{cfg.family!r} ({cfg.name})")
         engine = ContinuousServeEngine(cfg, params, slots=args.slots,
                                        block_size=args.block_size,
                                        device=device)
@@ -74,7 +80,13 @@ def main(argv=None):
     engine = ServeEngine(cfg, params,
                          max_len=args.max_len + cfg.vision_tokens,
                          batch=args.requests, device=device)
-    outs = engine.generate(prompts, max_new_tokens=args.max_new)
+    kw = {}
+    if cfg.family == "encdec":
+        gen = torch.Generator(device=device).manual_seed(99)
+        kw["src_embeds"] = torch.randn(
+            (args.requests, args.max_len, cfg.d_model), generator=gen,
+            device=device)
+    outs = engine.generate(prompts, max_new_tokens=args.max_new, **kw)
     for i, o in enumerate(outs):
         print(f"request {i}: {o}")
     print(f"served {len(outs)} requests x {args.max_new} tokens")

@@ -14,6 +14,7 @@ hift_pipelined, lisa, fpft, fpft_streamed, mezo, lomo, adalomo).
         --smoke --steps 8 --device cpu [--strategy ...]   # hybrid family
     ... --arch deepseek-moe-16b ...   # moe family (arctic-480b too)
     ... --arch internvl2-26b ...      # vlm family
+    ... --arch seamless-m4t-large-v2 ...   # encdec family
 
 The reference's flags for the ported surface (``--fpft`` its deprecated
 alias for ``--strategy fpft``), plus ``--device`` (default
@@ -23,9 +24,11 @@ same seed; the LR follows the reference's cosine schedule.  Prints the
 reference's ``step``/``loss``/``lr`` lines and ``done: final loss``.
 With ``--ckpt-dir`` it checkpoints every ``steps // 2`` steps and at the
 end; ``--resume auto`` restores the newest complete checkpoint there.
-For the vlm family each batch also carries ``vision_embeds``, standard
-normal from a ``torch.Generator`` seeded by ``--seed`` and the step
-(``data.synthetic.VisionStubLM``; the reference draws ``jax.random``).
+For the vlm family each batch also carries ``vision_embeds``, for the
+encdec family ``src_embeds`` (B, --seq, d_model), standard normal from a
+``torch.Generator`` seeded by ``--seed`` and the step
+(``data.synthetic.VisionStubLM``, ``SourceStubLM``; the reference draws
+``jax.random``).
 """
 from __future__ import annotations
 
@@ -40,7 +43,8 @@ from repro_torch.core import (AdaLomoConfig, HiFTConfig, LiSAConfig,
                               LOMOConfig, LRSchedule, MeZOConfig,
                               make_runner, registry)
 from repro_torch.data.synthetic import (DataConfig, PrefetchIterator,
-                                        SyntheticLM, VisionStubLM)
+                                        SourceStubLM, SyntheticLM,
+                                        VisionStubLM)
 from repro_torch.models import get_family
 from repro_torch.optim.mixed_precision import get_policy
 from repro_torch.train.loop import LoopConfig, train
@@ -138,6 +142,8 @@ def main(argv=None):
         seed=args.seed), device=device)
     if cfg.vision_tokens > 0:
         source = VisionStubLM(source, cfg.vision_tokens, cfg.d_model)
+    elif cfg.family == "encdec":
+        source = SourceStubLM(source, cfg.d_model)
     data = PrefetchIterator(source)
     out = train(runner, data, LoopConfig(
         total_steps=args.steps, ckpt_every=max(args.steps // 2, 1),

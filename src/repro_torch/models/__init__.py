@@ -1,17 +1,19 @@
 """Model-family registry (port of ``repro.models.get_family``).
 
 Ported: the dense family and the vlm family (its LM backbone, the same
-module, as in the reference), the hybrid family (zamba2) and the moe
-family (deepseek-moe-16b, arctic-480b), each for serving and training.
-The xlstm and encdec families raise.  The family-dispatching
-``unit_first_depth`` lives in ``models.base``.
+module, as in the reference), the hybrid family (zamba2), the moe family
+(deepseek-moe-16b, arctic-480b) and the encdec family
+(seamless-m4t-large-v2), each for serving and training.  The xlstm
+family raises.  The family-dispatching ``unit_first_depth`` lives in
+``models.base``.
 """
 import importlib
 
 _FAMILIES = {"dense": "repro_torch.models.transformer",
              "vlm": "repro_torch.models.transformer",
              "moe": "repro_torch.models.moe",
-             "hybrid": "repro_torch.models.zamba2"}
+             "hybrid": "repro_torch.models.zamba2",
+             "encdec": "repro_torch.models.encdec"}
 
 
 def get_family(cfg):

@@ -193,8 +193,9 @@ def full_causal_attention(q, k, v):
 
 
 def _q_block_attention(q_block, k, v, qi: int, block_q: int, block_k: int,
-                       nk: int, scale: float):
-    """Online softmax of one query block over the kv blocks it can see.
+                       nk: int, scale: float, causal: bool = True):
+    """Online softmax of one query block over the kv blocks it can see
+    (every one of the ``nk`` blocks when not ``causal``).
 
     Kv blocks wholly in its future are skipped: in the reference they
     contribute exact zeros (``exp(-1e30 - m) == 0``, ``corr == 1``), so
@@ -205,14 +206,16 @@ def _q_block_attention(q_block, k, v, qi: int, block_q: int, block_k: int,
     acc = torch.zeros((b, h, bq, hd), dtype=torch.float32,
                       device=q_block.device)
     q_pos = qi * block_q + torch.arange(block_q, device=q_block.device)
-    last = (qi * block_q + block_q - 1) // block_k
+    last = (qi * block_q + block_q - 1) // block_k if causal else nk - 1
     for kj in range(min(nk, last + 1)):
         k_block = k[:, kj * block_k:(kj + 1) * block_k]
         v_block = v[:, kj * block_k:(kj + 1) * block_k]
         sc = torch.einsum("bqhd,bkhd->bhqk", q_block, k_block).float() * scale
-        k_pos = kj * block_k + torch.arange(block_k, device=q_block.device)
-        causal = q_pos[:, None] >= k_pos[None, :]
-        sc = torch.where(causal[None, None], sc, torch.full_like(sc, NEG))
+        if causal:
+            k_pos = kj * block_k + torch.arange(block_k,
+                                                device=q_block.device)
+            seen = q_pos[:, None] >= k_pos[None, :]
+            sc = torch.where(seen[None, None], sc, torch.full_like(sc, NEG))
         m_new = torch.maximum(m, sc.amax(dim=-1))
         p = torch.exp(sc - m_new[..., None])
         corr = torch.exp(m - m_new)
@@ -264,6 +267,42 @@ def chunked_causal_attention(q, k, v, block_q: int = 512, block_k: int = 512,
         outs.append(o)                                   # (B, H, bq, hd)
     out = torch.cat(outs, dim=2)                         # (B, H, S, hd)
     return out.transpose(1, 2).reshape(b, s, h, hd)
+
+
+def _divisor_at_most(n: int, block: int) -> int:
+    """The largest divisor of ``n`` not above ``block``."""
+    return next(c for c in range(min(block, n), 0, -1) if n % c == 0)
+
+
+def chunked_attention(q, k, v, block_q: int = 512, block_k: int = 512,
+                      causal: bool = True, balanced: bool = False):
+    """The reference's ``chunked_attention``: ``causal=True`` is
+    :func:`chunked_causal_attention`; ``causal=False`` the same online
+    softmax over every key, unmasked (an encoder's self attention, or a
+    decoder's cross attention over ``Sk`` memory keys, Sk != S allowed).
+    q (B, S, H, hd), k/v (B, Sk, H, hd), kv heads already repeated.
+
+    The non-causal blocks are the reference's: the largest divisor of S
+    (of Sk) not above ``block_q`` (``block_k``).  Each query block runs
+    under ``torch.utils.checkpoint``, as ``jax.checkpoint`` wraps the
+    reference's ``per_q``."""
+    if causal:
+        return chunked_causal_attention(q, k, v, block_q, block_k, balanced)
+    b, s, h, hd = q.shape
+    sk = k.shape[1]
+    bq, bk = _divisor_at_most(s, block_q), _divisor_at_most(sk, block_k)
+    scale = 1.0 / math.sqrt(hd)
+    outs = []
+    for qi in range(s // bq):
+        args = (q[:, qi * bq:(qi + 1) * bq], k, v, qi, bq, bk, sk // bk,
+                scale, False)
+        if torch.is_grad_enabled():
+            o = checkpoint(_q_block_attention, *args, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            o = _q_block_attention(*args)
+        outs.append(o)                                   # (B, H, bq, hd)
+    return torch.cat(outs, dim=2).transpose(1, 2).reshape(b, s, h, hd)
 
 
 def gqa_attention(p, x: torch.Tensor, cfg, cos, sin, impl: str = "chunked",

@@ -3,8 +3,8 @@
 Port of ``repro.serve.engine``:
 
 - :class:`ServeEngine` — fixed decode batch over a contiguous cache, for
-  the dense, vlm, hybrid and moe families; the simple baseline and the
-  token-for-token oracle of the continuous engine.
+  the dense, vlm, hybrid, moe and encdec families; the simple baseline and
+  the token-for-token oracle of the continuous engine.
 - :class:`ContinuousServeEngine` — dense family only: slot-level
   continuous batching over the paged cache (``serve.kv_cache``) driven
   by ``serve.scheduler``: per-slot admission with full-budget
@@ -94,16 +94,26 @@ class ServeEngine:
         params, and stand up an engine."""
         return cls(cfg, _extract_params(state), **kw)
 
-    def generate(self, prompts, max_new_tokens: int = 16) -> list[list[int]]:
+    def generate(self, prompts, max_new_tokens: int = 16,
+                 src_embeds: Optional[torch.Tensor] = None
+                 ) -> list[list[int]]:
         """Batched greedy generation.  Prompts (1-D int sequences) are
         left-padded to equal length; the pad families (dense, vlm) mask the
         pad keys out of attention, the others run the pad tokens unmasked,
         as the reference does.  The vlm family gets zero ``vision_embeds``
         in front of the prompts, as in the reference; the cache's
-        ``max_len`` counts those positions.  Sampled tokens stay on the
-        device and reach the host in one copy at the end."""
+        ``max_len`` counts those positions.  The encdec family needs
+        ``src_embeds`` (batch, S_enc, d_model), the source its decoder
+        attends to, and raises ``ValueError`` without them.  Sampled
+        tokens stay on the device and reach the host in one copy at the
+        end."""
         if len(prompts) > self.batch:
             raise ValueError(f"{len(prompts)} prompts for batch {self.batch}")
+        encdec = self.cfg.family == "encdec"
+        if encdec and (src_embeds is None or
+                       src_embeds.shape[0] != self.batch):
+            raise ValueError(f"encdec serving needs src_embeds with "
+                             f"{self.batch} rows (one a batch slot)")
         prompts = [np.asarray(p, np.int64).reshape(-1) for p in prompts]
         plen = max(len(p) for p in prompts)
         vt = self.cfg.vision_tokens
@@ -127,8 +137,12 @@ class ServeEngine:
                 device=dev)
         cdt = torch.float32 if self.compute_dtype == torch.float32 \
             else torch.bfloat16
+        kw = {}
+        if encdec:
+            batch_in["src_embeds"] = torch.as_tensor(src_embeds).to(dev)
+            kw["enc_len"] = src_embeds.shape[1]
         cache = self.model.init_cache(self.cfg, self.batch, self.max_len,
-                                      dtype=cdt, device=dev)
+                                      dtype=cdt, device=dev, **kw)
         logits, cache = self.model.prefill(self.cfg, self.params, batch_in,
                                            cache, self.compute_dtype)
         tok = self.sample_fn(logits[:, -1])

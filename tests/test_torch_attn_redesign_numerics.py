@@ -81,10 +81,12 @@ def product(eq: str, a: torch.Tensor, b: torch.Tensor, passes: int = 3):
     return out
 
 
-def prefill_model(q, k, v, starts, passes: int = 3):
-    """The fp32 prefill kernel's arithmetic (causal).  q (B,S,H,hd), k/v
-    (B,S,KV,hd) fp32; starts (B,) ints.  Returns (B,S,H,hd) fp32."""
+def prefill_model(q, k, v, starts, passes: int = 3, causal: bool = True):
+    """The fp32 prefill kernel's arithmetic.  q (B,S,H,hd), k/v
+    (B,Sk,KV,hd) fp32 (Sk == S when causal); starts (B,) ints.  Returns
+    (B,S,H,hd) fp32."""
     b, s, h, hd = q.shape
+    sk = k.shape[1]
     rep = h // k.shape[2]
     scale_log2 = (torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32)
                   * torch.tensor(LOG2E, dtype=torch.float32))
@@ -95,10 +97,11 @@ def prefill_model(q, k, v, starts, passes: int = 3):
         vv = v[bi].repeat_interleave(rep, dim=1)
         for q0 in range(0, s, BQ):
             q_end = min(q0 + BQ, s)
-            if q_end <= st:                       # the kernel writes zeros
+            if causal and q_end <= st:            # the kernel writes zeros
                 continue
             qi = torch.arange(q0, q_end)
-            t_lo, t_hi = min(st, q_end) // BK, -(-q_end // BK)
+            kv_end = q_end if causal else sk
+            t_lo, t_hi = min(st, kv_end) // BK, -(-kv_end // BK)
             states = []
             for part in range(PARTS):
                 m = torch.full((h, q_end - q0), NEG)
@@ -107,14 +110,14 @@ def prefill_model(q, k, v, starts, passes: int = 3):
                 for t in range(t_lo + part, t_hi, PARTS):
                     k0 = t * BK
                     kp = torch.arange(k0, k0 + BK)
-                    kt = torch.zeros((BK, h, hd))  # keys past S zero-filled
+                    kt = torch.zeros((BK, h, hd))  # keys past Sk zero-filled
                     vt = torch.zeros((BK, h, hd))
-                    n = min(k0 + BK, s) - k0
+                    n = min(k0 + BK, sk) - k0
                     kt[:n], vt[:n] = kk[k0:k0 + n], vv[k0:k0 + n]
                     sc = product("rhd,khd->hrk", q[bi, q0:q_end], kt)
                     sc = sc * scale_log2
-                    ok = (kp[None] >= st) & (kp[None] < s) & \
-                        (kp[None] <= qi[:, None])
+                    ok = (kp[None] >= st) & (kp[None] < sk) & \
+                        ((kp[None] <= qi[:, None]) | (not causal))
                     sc = torch.where(ok[None], sc, torch.full_like(sc, NEG))
                     mx = torch.maximum(m, sc.amax(-1))
                     corr = torch.exp2(m - mx)
@@ -194,6 +197,43 @@ def test_3xtf32_prefill_within_tol_of_jax_and_fp64(case):
         assert ok, f"row {bi}: max |err| {err} from fp64 over {tol}"
         full_pad = (st // BQ) * BQ                  # q tiles wholly in the pad
         assert (got[bi, :full_pad] == 0).all()
+
+
+CROSS_CASES = {
+    # seamless's head dim; an encoder's self attention (Sk == S)
+    "encoder-hd64": (2, 96, 2, 2, 64, 96),
+    # cross attention, q and k tiles both partial (37 over 300)
+    "cross-ragged-hd64": (2, 37, 2, 2, 64, 300),
+    # fewer keys than one key tile
+    "cross-short-hd80": (1, 40, 2, 2, 80, 9),
+}
+
+
+@pytest.mark.parametrize("case", list(CROSS_CASES))
+def test_3xtf32_prefill_non_causal_over_another_key_length(case):
+    """The non-causal prefill over Sk keys (the kv loop to Sk, the last
+    key tile masked at Sk): within ``TOL["float32"]`` of the reference's
+    ``chunked_attention(causal=False)`` and of fp64."""
+    from repro.models.layers import chunked_attention
+    b, s, h, kvh, hd, sk = CROSS_CASES[case]
+    rng = np.random.default_rng(23)
+    q, k, v = _f32(rng, b, s, h, hd), _f32(rng, b, sk, kvh, hd), \
+        _f32(rng, b, sk, kvh, hd)
+    got = prefill_model(torch.from_numpy(q), torch.from_numpy(k),
+                        torch.from_numpy(v), [0] * b, causal=False).numpy()
+    rep = h // kvh
+    kk, vv = np.repeat(k, rep, axis=2), np.repeat(v, rep, axis=2)
+    want = np.asarray(chunked_attention(jnp.asarray(q), jnp.asarray(kk),
+                                        jnp.asarray(vv), 16, 16,
+                                        causal=False))
+    tol = TOL["float32"]
+    err, ok = _within(got, want, tol)
+    assert ok, f"max |err| {err} from JAX over {tol}"
+    sc = np.einsum("bqhd,bkhd->bhqk", q.astype(np.float64), kk) / math.sqrt(hd)
+    p = np.exp(sc - sc.max(-1, keepdims=True))
+    exact = np.einsum("bhqk,bkhd->bqhd", p / p.sum(-1, keepdims=True), vv)
+    err, ok = _within(got, exact, tol)
+    assert ok, f"max |err| {err} from fp64 over {tol}"
 
 
 def test_one_tf32_pass_misses_the_fp32_tolerance():
@@ -404,6 +444,81 @@ def test_wrappers_check_shapes_and_devices_on_every_path():
     got = K.paged_flash_decode(q[:1], pools, pools, tables,
                                torch.tensor([7999]), torch.tensor([7990]))
     assert torch.isfinite(got).all()
+
+
+def test_prefill_takes_another_key_length_when_not_causal():
+    """Non-causal, k and v may hold Sk != S rows (cross attention): on the
+    CPU the plain version equals the reference's ``chunked_attention(...,
+    causal=False)`` (fp32, within 1e-6).  Causal attention over another
+    key length raises, and so do ``starts`` and ``prefix`` with Sk != S
+    (they index the queries' own keys); an empty key axis raises."""
+    from repro.models.layers import chunked_attention
+    rng = np.random.default_rng(31)
+    q, k, v = _f32(rng, 2, 37, 4, 64), _f32(rng, 2, 300, 2, 64), \
+        _f32(rng, 2, 300, 2, 64)
+    got = K.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                            torch.from_numpy(v), causal=False)
+    assert got.shape == (2, 37, 4, 64)
+    want = chunked_attention(jnp.asarray(q),
+                             jnp.asarray(np.repeat(k, 2, axis=2)),
+                             jnp.asarray(np.repeat(v, 2, axis=2)), 512, 512,
+                             causal=False)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-6)
+    tq, tk = torch.from_numpy(q), torch.from_numpy(k)
+    with pytest.raises(ValueError, match="causal attention needs"):
+        K.flash_attention(tq, tk, tk)
+    with pytest.raises(ValueError, match="takes neither"):
+        K.flash_attention(tq, tk, tk, starts=torch.zeros(2), causal=False)
+    with pytest.raises(ValueError, match="takes neither"):
+        K.flash_attention(tq, tk, tk, causal=False, prefix=4)
+    with pytest.raises(ValueError, match="does not fit"):
+        K.flash_attention(tq, tk[:, :0], tk[:, :0], causal=False)
+
+
+def test_prefill_wrapper_hands_the_entry_point_the_key_length(monkeypatch):
+    """With the kernel path forced on CPU tensors and the C entry point
+    replaced by a check of its ctypes signature: every argument is passed,
+    S and Sk in their places (Sk = S for the causal and the encoder's
+    calls, the memory's length for cross attention), the causal flag and
+    one launch a call (``launches_tc`` for bf16 only)."""
+    calls = []
+    sig = K._SIGNATURES["flash_attention_fwd"]
+
+    def entry(*args):
+        assert len(args) == len(sig)
+        for a, t in zip(args, sig):
+            if t is ctypes.c_int:
+                assert isinstance(a, int)
+            elif t is ctypes.c_float:
+                assert isinstance(a, float)
+            else:
+                assert a is None or isinstance(a, int)
+        calls.append(args)
+        return 0
+
+    class Stream:
+        cuda_stream = 0
+
+    monkeypatch.setattr(K, "_fn", lambda name: entry)
+    monkeypatch.setattr(K, "_plain", lambda name, q: False)
+    monkeypatch.setattr(K.torch.cuda, "current_stream", lambda: Stream())
+    K.reset_launches()
+    q = torch.zeros(4, 64, 16, 64, dtype=torch.bfloat16)
+    mem = torch.zeros(4, 512, 16, 64, dtype=torch.bfloat16)
+    K.flash_attention(q, q, q)
+    K.flash_attention(mem, mem, mem, causal=False)
+    K.flash_attention(q, mem, mem, causal=False)
+    K.flash_attention(q.float(), mem.float(), mem.float(), causal=False)
+    # B, S, Sk, H, KV, hd, dtype, causal, prefix follow the 5 pointers
+    assert [c[5:14] for c in calls] == [
+        (4, 64, 64, 16, 16, 64, 1, 1, 0),
+        (4, 512, 512, 16, 16, 64, 1, 0, 0),
+        (4, 64, 512, 16, 16, 64, 1, 0, 0),
+        (4, 64, 512, 16, 16, 64, 0, 0, 0)]
+    assert (K.flash_attention.launches, K.flash_attention.launches_tc) == \
+        (4, 3)
+    K.reset_launches()
 
 
 def test_decode_wrappers_hand_the_entry_points_their_arguments(monkeypatch):

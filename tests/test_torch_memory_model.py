@@ -3,13 +3,13 @@ held against the reference's (``repro.core.memory_model``) on the CPU.
 
 - ``analyze`` on the port's meta-device shapes equals ``analyze`` on the
   reference's ``jax.eval_shape`` shapes, report for report, over the five
-  paper configs, zamba2-2.7b and the six archs of the moe, vlm and
-  remaining dense configs x the five optimizers x {fp32, mixed,
+  paper configs, zamba2-2.7b, the six archs of the moe, vlm and
+  remaining dense configs and seamless-m4t-large-v2 (encdec) x the five optimizers x {fp32, mixed,
   mixed_hi} x {hift, fpft, hift_pipelined, fpft_streamed, mezo, lomo,
   adalomo} x {no codec, int8, nf4}; a combination the reference rejects raises the same
   ``ValueError`` in the port.  Integer arithmetic on the same shapes, so
-  equal to the last bit.  deepseek-moe-16b's and internvl2-26b's
-  headline figures are pinned.
+  equal to the last bit.  deepseek-moe-16b's, internvl2-26b's and
+  seamless-m4t-large-v2's headline figures are pinned.
 - ``paper_equation_check`` and the cases of ``tests/test_memory_model.py``
   on the port's shapes.
 """
@@ -51,9 +51,9 @@ def _shapes(arch):
 
 
 HYBRID = "zamba2_2_7b"
-# the moe, vlm and remaining dense configs
+# the moe, vlm and remaining dense configs, and the encdec one
 MORE = ["deepseek_7b", "internlm2_1_8b", "smollm_360m", "internvl2_26b",
-        "deepseek_moe_16b", "arctic_480b"]
+        "deepseek_moe_16b", "arctic_480b", "seamless_m4t_large_v2"]
 
 
 @pytest.mark.parametrize("arch", PAPER_IDS + [HYBRID] + MORE)
@@ -126,7 +126,9 @@ def test_zamba2_prices_as_the_reference():
                        ("hift", "nf4"): 15.71}),
     ("deepseek_7b", {("hift", None): 30.43}),
     ("internlm2_1_8b", {("hift", None): 9.16}),
-    ("smollm_360m", {("hift", None): 2.05})])
+    ("smollm_360m", {("hift", None): 2.05}),
+    ("seamless_m4t_large_v2", {("hift", None): 9.03, ("fpft", None): 24.35,
+                               ("hift", "nf4"): 3.72})])
 def test_new_archs_price_as_the_reference(arch, pgs):
     """AdamW, m=1, fp32 P+G+S in GiB (NF4 residency with bf16 moments
     where the codec is named): deepseek-moe-16b's HiFT fits one 80 GB card
@@ -139,9 +141,21 @@ def test_new_archs_price_as_the_reference(arch, pgs):
                   moment_dtype="bf16" if codec else "fp32")
         got = TM.analyze(shapes, units, **kw)
         assert round(got.pgs_gb, 2) == want, (mode, codec)
-    if arch == "deepseek_moe_16b":
+    saving = {"deepseek_moe_16b": 72.4, "seamless_m4t_large_v2": 62.9}
+    if arch in saving:
         h, f = (TM.analyze(shapes, units, mode=m) for m in ("hift", "fpft"))
-        assert round(100 * (1 - h.pgs_gb / f.pgs_gb), 1) == 72.4
+        assert round(100 * (1 - h.pgs_gb / f.pgs_gb), 1) == saving[arch]
+    if arch == "seamless_m4t_large_v2":
+        # the largest group is the embed (the token table and src_proj),
+        # 1 M above the untied head
+        assert h.n_params == 1_633_847_296
+        assert h.peak_trainable == 256_256 * 1024 + 1024 * 1024
+        for mode, want in (("lomo", 7.07), ("adalomo", 7.08),
+                           ("mezo", 6.09)):
+            got = TM.analyze(shapes, units, mode=mode,
+                             optimizer="adafactor" if mode == "adalomo"
+                             else "adamw")
+            assert round(got.pgs_gb, 2) == want, mode
 
 
 @pytest.mark.parametrize("kw", [

@@ -104,7 +104,10 @@ def _batches(cfg, n, seed=0, b=2, s=32):
 
 
 def _tb(batch):
-    return {k: torch.from_numpy(v).long() for k, v in batch.items()}
+    """Integer arrays as int64 tensors, float arrays (an encdec batch's
+    ``src_embeds``) as they are."""
+    return {k: torch.from_numpy(v).long() if v.dtype.kind in "iu"
+            else torch.from_numpy(v) for k, v in batch.items()}
 
 
 def _jb(batch):
@@ -300,7 +303,7 @@ def _jax(jcfg, npp, strategy, **kw):
 
 
 def run_both(jcfg, cfg, npp, strategy, steps, pkw=None, jkw=None,
-             update="linear", start_grads=None):
+             update="linear", start_grads=None, batches=None):
     """``steps`` steps of both runners on the same batches, held as
     ``test_torch_hybrid_training._run_both`` holds them: "linear" losses
     and params within 1e-5; "adam" losses within 1e-5 (2e-4 from the third
@@ -311,10 +314,12 @@ def run_both(jcfg, cfg, npp, strategy, steps, pkw=None, jkw=None,
     gradients of ~1e-10 only through the softmax (seen: 46 of the 1024
     elements of a HiFT m = 2 run, each gradient below 4e-10; 12.5 % of
     layer 1's under 1e-7), so a router may hold one expert's columns
-    (1/E of the leaf) of such elements."""
+    (1/E of the leaf) of such elements.  ``batches(n, seed=)``: the
+    family's batches (default: tokens and labels of ``cfg``)."""
     tr = _port(cfg, npp, strategy, **(pkw or {}))
     jr = _jax(jcfg, npp, strategy, **(jkw or {}))
-    for i, b in enumerate(_batches(cfg, steps, seed=1)):
+    bs = batches(steps, seed=1) if batches else _batches(cfg, steps, seed=1)
+    for i, b in enumerate(bs):
         atol = 2e-4 if update == "adam" and i >= 2 else 1e-5
         np.testing.assert_allclose(float(tr.train_step(_tb(b))),
                                    float(jr.train_step(_jb(b))), rtol=0,

@@ -387,7 +387,9 @@ def test_port_imports_neither_jax_nor_repro():
         "'repro_torch.optim.adafactor', 'repro_torch.core.memory_model', "
         "'repro_torch.train.checkpoint', 'repro_torch.optim.mezo', "
         "'repro_torch.models.moe', 'repro_torch.configs.deepseek_moe_16b', "
-        "'repro_torch.configs.internvl2_26b']\n"
+        "'repro_torch.configs.internvl2_26b', "
+        "'repro_torch.models.encdec', "
+        "'repro_torch.configs.seamless_m4t_large_v2']\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('msgpack', 'zstandard'))\n"
         "assert not bad, bad\n"

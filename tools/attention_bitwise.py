@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
 """Check that two checkouts' attention kernels give the same bits on the
 cases both can run: the prefill and both decodes at every case of
-NEW_DIR's ``chip_smoke.kernel_cases`` and ``hybrid_attention_cases``.
+NEW_DIR's ``chip_smoke.kernel_cases``, ``hybrid_attention_cases``,
+``vlm_attention_cases`` and ``encdec_attention_cases`` whose keys are the
+queries' own (a cross-attention case, over another key length, runs on
+NEW_DIR only and is left out).
 
     python3 tools/attention_bitwise.py OLD_DIR NEW_DIR > bitwise.jsonl
 
 Each checkout runs in a fresh process that builds its own kernels, draws
-each case's inputs on the card from one seed (``chip_smoke.make_inputs``)
-and prints the SHA-256 of each output's bytes; the last line says which
-cases differ.  Exits non-zero if any does, or if no card is present.
+each case's inputs on the card from one seed (NEW_DIR's
+``chip_smoke.make_inputs``, so both get the same arguments) and prints
+the SHA-256 of each output's bytes; the last line says which cases
+differ.  Exits non-zero if any does, or if no card is present.
 """
 from __future__ import annotations
 
@@ -19,9 +23,10 @@ from pathlib import Path
 
 TURN = """
 import hashlib, json, sys
-sys.path.insert(0, ".")
+sys.path.insert(0, sys.argv[2])
+import chip_smoke as C              # NEW_DIR's: the cases' inputs
+sys.path.insert(0, "src")           # this checkout's kernels
 import torch
-import chip_smoke as C
 if not torch.cuda.is_available():
     sys.exit("attention_bitwise: no CUDA device")
 from repro_torch.kernels import flash_attention as K
@@ -43,7 +48,10 @@ import json, sys
 sys.path.insert(0, ".")
 import torch
 import chip_smoke as C
-print(json.dumps(C.kernel_cases(torch) + C.hybrid_attention_cases()))
+cases = (C.kernel_cases(torch) + C.hybrid_attention_cases()
+         + C.vlm_attention_cases() + C.encdec_attention_cases())
+print(json.dumps([c for c in cases if c[3].get("sk", c[3].get("s"))
+                  == c[3].get("s")]))
 """
 
 
@@ -60,7 +68,8 @@ def main() -> int:
     cases = run(new, CASES).strip().splitlines()[-1]
     hashes = {}
     for tag, root in (("old", old), ("new", new)):
-        lines = [json.loads(x) for x in run(root, TURN, cases).splitlines()
+        lines = [json.loads(x) for x in
+                 run(root, TURN, cases, str(new)).splitlines()
                  if x.startswith("{")]
         for line in lines:
             print(json.dumps({"checkout": tag, **line}), flush=True)
