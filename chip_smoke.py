@@ -9,8 +9,8 @@ Phases, one JSON line each:
 1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
    per source, all at once), with ptxas's registers and spills per kernel
    and the tensor-core instructions (HMMA, HGMMA) in the SASS of the two
-   prefill kernels, the bf16 dequant kernel and the SSM scan, beside each
-   instantiation's registers and spill bytes;
+   prefill kernels, the bf16 dequant kernel and the two SSM scans, beside
+   each instantiation's registers and spill bytes;
 2. each attention kernel against its plain PyTorch version at the serving
    shapes (llama2-7b width in bf16 and fp32, batched and ragged; qwen2-0.5b's
    GQA widths; one long chat session, 1 x 4096 keys; windows that are
@@ -191,6 +191,29 @@ Phases, one JSON line each:
       decode-step ms, tokens/s, 72 prefill launches a generation and 48
       decode launches a step; then served card against CPU at 2 + 2
       layers, fp32, the same greedy tokens.
+19. the xlstm family (``phase_xlstm``; ``--only xlstm`` builds and runs
+   only this):
+   a. the wide scan kernel ((P, N) = (1025, 1024), ``ssm_scan_wide`` and
+      ``ssm_scan_wide_bf16``) against its plain version (the fp64 chunked
+      scan) at 16 x 512 (4 prompts x 4 heads), 4 x 2048 (one long
+      prompt) and 16 x 301 (a ragged last chunk), fp32 and bf16, at the
+      mLSTM's own decays and at ``ssm_inputs``' fast decays, with ms, the
+      plain version's ms and the bound;
+   b. ``serve_xlstm_full``: xlstm-1.3b at its published config (48
+      layers), ``ServeEngine`` at batch 4, ragged prompts of up to 512
+      tokens, bf16 (32 new tokens) and fp32 (8): prefill and decode-step
+      ms, tokens/s, 42 wide-scan launches a prefill and none in decode,
+      peak memory beside the weights and the 2.82 GB decode state, the
+      scan's and the sLSTM loop's shares of a prefill and a decode step;
+   c. ``serve_xlstm_card_vs_cpu``: one super-block (8 layers) at full
+      width, fp32, the CPU side in a child process: the same greedy
+      tokens, prefill logits within ``XLSTM_LOGIT_TOL``.
+
+The CPU halves of the in-process card-against-CPU training phases (6, 8a,
+the fused, quantized and hybrid ones) run one after another in a thread
+of their own from the start (``CpuHalves``), beside the card's phases;
+each draws its params on the CPU, and its phase takes them for the card's
+half and compares.
 
 Then the ``nvidia-smi`` line, the kernels line and, last, the result line.
 Any failure raises: the script exits non-zero and prints no result.  It
@@ -233,6 +256,8 @@ KERNEL_ROWS = {   # instantiations by name: the bf16 ones run on tensor cores
     "dequant_matmul_bf16": "src/repro/kernels/fused_dequant_matmul.py:64",
     "ssm_scan": "src/repro/kernels/ssm_scan.py:57",
     "ssm_scan_bf16": "src/repro/kernels/ssm_scan.py:57",
+    "ssm_scan_wide": "src/repro/kernels/ssm_scan.py:57",
+    "ssm_scan_wide_bf16": "src/repro/kernels/ssm_scan.py:57",
 }
 SOURCES = {
     **dict.fromkeys(("flash_attention", "flash_attention_fp32",
@@ -244,6 +269,8 @@ SOURCES = {
                     "src/repro_torch/kernels/csrc/dequant_matmul.cu"),
     **dict.fromkeys(("ssm_scan", "ssm_scan_bf16"),
                     "src/repro_torch/kernels/csrc/ssm_scan.cu"),
+    **dict.fromkeys(("ssm_scan_wide", "ssm_scan_wide_bf16"),
+                    "src/repro_torch/kernels/csrc/ssm_scan_wide.cu"),
 }
 
 
@@ -498,10 +525,13 @@ def instance(kernel: str, dtype: str) -> str:
     in bf16 through ``wgmma`` (``flash_attention``); the dequant matmul
     with bf16 x runs on the tensor cores (``dequant_matmul_bf16``), with
     fp32 x on the CUDA cores (``dequant_matmul``); the SSM scan in bf16 is
-    ``ssm_scan_bf16``, in fp32 (three-pass TF32) ``ssm_scan``."""
+    ``ssm_scan_bf16``, in fp32 (three-pass TF32) ``ssm_scan``; the wide
+    scan (P, N) = (1025, 1024), fp32 on the CUDA cores, ``ssm_scan_wide``
+    and ``ssm_scan_wide_bf16``."""
     if kernel == "flash_attention" and dtype == "float32":
         return "flash_attention_fp32"
-    if kernel in ("dequant_matmul", "ssm_scan") and dtype == "bfloat16":
+    if kernel in ("dequant_matmul", "ssm_scan", "ssm_scan_wide") and \
+            dtype == "bfloat16":
         return kernel + "_bf16"
     return kernel
 
@@ -1091,49 +1121,69 @@ def host_params(torch, cfg, on_card: bool = True, seed: int = 0):
     return out
 
 
-def phase_train_card_vs_cpu(torch, arch: str = "llama2-7b"):
-    """4 HiFT steps with AdamW (embed, layer 0, layer 1, head) of a 2-layer
-    model at ``arch``'s width, fp32, batch 1 x 64, from the same params on
-    the CPU (plain versions) and the card (fused kernel).  Losses within
-    rtol 1e-4: the same fp32 arithmetic summed in other orders by cuBLAS
-    and the CPU's BLAS, where AdamW's first step moves every element by
-    about lr times the sign of its gradient, so near-zero gradients may
-    flip."""
+def train_card_vs_cpu_side(torch, cfg, params, dev: str) -> dict:
+    """One device's side of ``phase_train_card_vs_cpu``: 4 HiFT steps with
+    AdamW from ``params``; the losses, the final params (on the CPU), the
+    seconds and the groups."""
     from repro_torch.common.pytree import flatten_with_paths
-    from repro_torch.configs.registry import get_config
     from repro_torch.core import LRSchedule, make_runner
     from repro_torch.kernels import fused_update as FU
-    cfg = dataclasses.replace(get_config(arch), n_layers=2)
-    params = host_params(torch, cfg)
     batches = train_batches(cfg, 64, 1, 4, "cpu")
-    out, final = {}, {}
-    for dev in ("cpu", "cuda"):
-        runner = make_runner(cfg, "hift", params=params, optimizer="adamw",
-                             schedule=LRSchedule(base_lr=1e-4), device=dev)
-        before = FU.fused_adamw_update.launches
-        t0 = time.perf_counter()
-        out[dev] = [float(runner.train_step(b)) for b in batches]
-        secs = time.perf_counter() - t0
-        groups = [g.label() for g in runner.groups]
-        if dev == "cuda" and FU.fused_adamw_update.launches - before != 4:
-            raise RuntimeError("the card's HiFT steps did not run the fused "
-                               "AdamW kernel once each")
-        final[dev] = {k: t.detach().cpu() for k, t in
-                      flatten_with_paths(runner.params).items()}
+    runner = make_runner(cfg, "hift", params=params, optimizer="adamw",
+                         schedule=LRSchedule(base_lr=1e-4), device=dev)
+    before = FU.fused_adamw_update.launches
+    t0 = time.perf_counter()
+    losses = [float(runner.train_step(b)) for b in batches]
+    secs = time.perf_counter() - t0
+    if dev == "cuda" and FU.fused_adamw_update.launches - before != 4:
+        raise RuntimeError("the card's HiFT steps did not run the fused "
+                           "AdamW kernel once each")
+    return dict(losses=losses, seconds=secs,
+                groups=[g.label() for g in runner.groups],
+                final={k: t.detach().cpu() for k, t in
+                       flatten_with_paths(runner.params).items()})
+
+
+def train_card_vs_cpu_cpu(torch, arch: str):
+    """The CPU half of ``phase_train_card_vs_cpu`` (``CpuHalves`` runs it
+    beside the card's phases): 2 layers of ``arch``'s width, the fp32
+    params of seed 0 drawn on the CPU, and the CPU's side."""
+    from repro_torch.configs.registry import get_config
+    cfg = dataclasses.replace(get_config(arch), n_layers=2)
+    params = host_params(torch, cfg, on_card=False)
+    return params, train_card_vs_cpu_side(torch, cfg, params, "cpu")
+
+
+def phase_train_card_vs_cpu(torch, arch: str = "llama2-7b", cpu=None):
+    """4 HiFT steps with AdamW (embed, layer 0, layer 1, head) of a 2-layer
+    model at ``arch``'s width, fp32, batch 1 x 64, from the same params on
+    the CPU (plain versions) and the card (fused kernel); ``cpu`` is the
+    CPU half (``train_card_vs_cpu_cpu``), run here when None.  Losses
+    within rtol 1e-4: the same fp32 arithmetic summed in other orders by
+    cuBLAS and the CPU's BLAS, where AdamW's first step moves every element
+    by about lr times the sign of its gradient, so near-zero gradients may
+    flip."""
+    from repro_torch.configs.registry import get_config
+    cfg = dataclasses.replace(get_config(arch), n_layers=2)
+    params, host = cpu or train_card_vs_cpu_cpu(torch, arch)
+    sides = {"cpu": host,
+             "cuda": train_card_vs_cpu_side(torch, cfg, params, "cuda")}
+    for dev, side in sides.items():
         emit("train_card_vs_cpu_run", arch=cfg.name, device=dev,
-             seconds=secs)
-        del runner
+             seconds=side["seconds"])
+    out = {dev: side["losses"] for dev, side in sides.items()}
+    final = {dev: side["final"] for dev, side in sides.items()}
     gap = max(float((final["cpu"][k] - final["cuda"][k]).abs().max())
               for k in final["cpu"])
     rel = max(abs(a - b) / abs(a) for a, b in zip(out["cpu"], out["cuda"]))
     emit("train_card_vs_cpu", arch=cfg.name, n_layers=cfg.n_layers,
          d_model=cfg.d_model,
-         batch=1, seq=64, groups=groups, cpu_losses=out["cpu"],
-         cuda_losses=out["cuda"], max_rel_loss_gap=rel, rtol=1e-4,
-         max_param_gap=gap)
+         batch=1, seq=64, groups=sides["cuda"]["groups"],
+         cpu_losses=out["cpu"], cuda_losses=out["cuda"],
+         max_rel_loss_gap=rel, rtol=1e-4, max_param_gap=gap)
     if not all(math.isfinite(x) for x in out["cuda"]) or rel > 1e-4:
         raise RuntimeError(f"card and CPU training losses differ: {out}")
-    del final, params
+    del final, params, sides
     gc.collect()
 
 
@@ -1344,7 +1394,7 @@ def _model_row(report) -> dict:
                 analytic_state_mb=report.state_mb)
 
 
-def phase_train_paper_configs(torch):
+def phase_train_paper_configs(torch, cpu=None):
     """The paper's other models at published widths and full depth:
     roberta-large, gpt2-large and gpt-neo-2.7b, fp32, HiFT m=1, AdamW
     (fused), batch 4 x 512, random params from seed 0.  Each takes the
@@ -1353,10 +1403,10 @@ def phase_train_paper_configs(torch):
     Per step: host clock, peak memory beside the port's analytic P+G+S,
     the fused update's device time and launches (counted over this run).
     First, card against CPU: 4 steps of 2 layers at gpt-neo-2.7b's width
-    (``phase_train_card_vs_cpu``)."""
+    (``phase_train_card_vs_cpu``; ``cpu`` its CPU half)."""
     from repro_torch.common.pytree import tree_bytes, tree_size
     from repro_torch.configs.registry import get_config
-    phase_train_card_vs_cpu(torch, "gpt-neo-2.7b")
+    phase_train_card_vs_cpu(torch, "gpt-neo-2.7b", cpu)
     with UpdateTimer(torch) as timer:
         for arch in PAPER_NEW:
             cfg = get_config(arch)
@@ -2047,81 +2097,88 @@ FUSED_PARAM_TOL = {"lomo": 1e-5, "adalomo": 2 * FUSED_LR * FUSED_STEPS,
 FUSED_ALLOWANCE_GIB = 6.0
 
 
-def card_noise(torch, shapes: dict):
-    """MeZO's seam for the card-against-CPU runs: each slice's z drawn on
-    the card from the port's own seed of (key, step, path, index), the
-    same tensor handed to both devices (the CPU run copies it over)."""
-    from repro_torch.optim.mezo import noise_seed
-
-    def at(rng, step):
-        key = (*(int(w) for w in rng), step)
-
-        def z(path, index):
-            shape = shapes[path][1:] if index is not None else shapes[path]
-            gen = torch.Generator(device="cuda")
-            gen.manual_seed(noise_seed(key, path, index))
-            return torch.randn(shape, generator=gen, device="cuda")
-        return z
-    return at
+FUSED_ARCHS = ("llama2-7b", "gpt-neo-2.7b")    # untied and tied heads
 
 
-def phase_train_fused_card_vs_cpu(torch):
-    """``lomo`` (clip 1.0, weight decay 0.01), ``adalomo`` (defaults, then
-    clip 1.0) and ``mezo`` (the same z on both devices, ``card_noise``),
-    3 steps each, from the same params on the CPU and the card: one layer
-    (``FUSED_LAYERS``) at llama2-7b's width (untied head) and at
-    gpt-neo-2.7b's (tied), fp32,
-    batch 2 x 32 (the CPU's side sets the phase's time; at 2 x 128 its
-    steps take minutes), the clipped ``adalomo`` at the tied width only.
-    Losses and grad norms within ``FUSED_RTOL``, params
-    within ``FUSED_PARAM_TOL``.  Then ``lomo`` with ``stream=`` on the
-    card (params offloaded to pinned host memory between steps) against
-    the unstreamed card run: losses and params bit-equal."""
+def fused_train_side(torch, cfg, params, dev, strategy, batches, **kw):
+    """One device's run of ``phase_train_fused_card_vs_cpu``: (losses, grad
+    norms, final params on the CPU, seconds)."""
+    from repro_torch.common.pytree import flatten_with_paths
+    from repro_torch.core import LRSchedule, make_runner
+    runner = make_runner(cfg, strategy, params=params, device=dev,
+                         schedule=LRSchedule(base_lr=FUSED_LR), **kw)
+    t0 = time.perf_counter()
+    losses, norms = [], []
+    for b in batches:
+        losses.append(float(runner.train_step(b)))
+        g = runner.last_metrics.get("grad_norm")
+        norms.append(None if g is None else float(g))
+    secs = time.perf_counter() - t0
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    final = {k: t.detach().cpu() for k, t in
+             flatten_with_paths(runner.params).items()}
+    return losses, norms, final, secs
+
+
+def fused_train_cpu(torch) -> list:
+    """The CPU half of ``phase_train_fused_card_vs_cpu`` (``CpuHalves``
+    runs it beside the card's phases): per arch of ``FUSED_ARCHS`` the
+    config, the fp32 params of seed 0 drawn on the CPU, the batches, the
+    runs (label, strategy, runner kwargs; MeZO's z from ``cpu_noise``, kept
+    for the card's run) and the CPU's side of each run."""
     from repro_torch.common.pytree import flatten_with_paths
     from repro_torch.configs.registry import get_config
-    from repro_torch.core import (AdaLomoConfig, LOMOConfig, LRSchedule,
-                                  StreamConfig, make_runner)
+    from repro_torch.core import AdaLomoConfig, LOMOConfig
+    out = []
+    for arch in FUSED_ARCHS:
+        cfg = dataclasses.replace(get_config(arch), n_layers=FUSED_LAYERS)
+        params = host_params(torch, cfg, on_card=False)
+        shapes = {p: tuple(t.shape)
+                  for p, t in flatten_with_paths(params).items()}
+        batches = train_batches(cfg, FUSED_SEQ, 2, FUSED_STEPS, "cpu")
+        runs = [("lomo", "lomo", dict(lomo=LOMOConfig(grad_clip=1.0,
+                                                      weight_decay=0.01))),
+                ("adalomo", "adalomo", {}),
+                ("adalomo_clip", "adalomo",
+                 dict(adalomo=AdaLomoConfig(grad_clip=1.0))),
+                ("mezo", "mezo", dict(noise=cpu_noise(torch, shapes)))]
+        if not cfg.tie_embeddings:
+            # the CPU's side of a run at llama2-7b's width costs tens of
+            # seconds; the clipped sweep's intricate case is the tied
+            # head's (its embedding gradient live beside one layer's), and
+            # lomo covers the untied head's two sweeps
+            runs = [r for r in runs if r[0] != "adalomo_clip"]
+        host = {label: fused_train_side(torch, cfg, params, "cpu", strategy,
+                                        batches, **kw)
+                for label, strategy, kw in runs}
+        out.append((cfg, params, batches, runs, host))
+    return out
 
-    def run(cfg, params, dev, strategy, batches, **kw):
-        runner = make_runner(cfg, strategy, params=params, device=dev,
-                             schedule=LRSchedule(base_lr=FUSED_LR), **kw)
-        t0 = time.perf_counter()
-        losses, norms = [], []
-        for b in batches:
-            losses.append(float(runner.train_step(b)))
-            g = runner.last_metrics.get("grad_norm")
-            norms.append(None if g is None else float(g))
-        secs = time.perf_counter() - t0
-        torch.cuda.synchronize()
-        final = {k: t.detach().cpu() for k, t in
-                 flatten_with_paths(runner.params).items()}
-        return losses, norms, final, secs
+
+def phase_train_fused_card_vs_cpu(torch, cpu=None):
+    """``lomo`` (clip 1.0, weight decay 0.01), ``adalomo`` (defaults, then
+    clip 1.0) and ``mezo`` (the same z on both devices, ``cpu_noise``), 3
+    steps each, from the same params on the CPU and the card: one layer
+    (``FUSED_LAYERS``) at llama2-7b's width (untied head) and at
+    gpt-neo-2.7b's (tied), fp32, batch 2 x 32 (the CPU's side sets the
+    phase's time; at 2 x 128 its steps take minutes), the clipped
+    ``adalomo`` at the tied width only; ``cpu`` is the CPU half
+    (``fused_train_cpu``), run here when None.  Losses and grad norms
+    within ``FUSED_RTOL``, params within ``FUSED_PARAM_TOL``.  Then
+    ``lomo`` with ``stream=`` on the card (params offloaded to pinned host
+    memory between steps) against the unstreamed card run: losses and
+    params bit-equal."""
+    from repro_torch.core import StreamConfig
 
     def rel_gap(a, b):
         return max(abs(x - y) / abs(x) for x, y in zip(a, b))
 
-    for arch in ("llama2-7b", "gpt-neo-2.7b"):
-        cfg = dataclasses.replace(get_config(arch), n_layers=FUSED_LAYERS)
-        params = host_params(torch, cfg)
-        shapes = {p: tuple(t.shape)
-                  for p, t in flatten_with_paths(params).items()}
-        batches = train_batches(cfg, FUSED_SEQ, 2, FUSED_STEPS, "cpu")
-        runs = (("lomo", "lomo", dict(lomo=LOMOConfig(grad_clip=1.0,
-                                                       weight_decay=0.01))),
-                ("adalomo", "adalomo", {}),
-                ("adalomo_clip", "adalomo",
-                 dict(adalomo=AdaLomoConfig(grad_clip=1.0))),
-                ("mezo", "mezo", dict(noise=card_noise(torch, shapes))))
+    for cfg, params, batches, runs, host in cpu or fused_train_cpu(torch):
         for label, strategy, kw in runs:
-            if label == "adalomo_clip" and not cfg.tie_embeddings:
-                # the CPU's side of a run at llama2-7b's width costs tens
-                # of seconds; the clipped sweep's intricate case is the
-                # tied head's (its embedding gradient live beside one
-                # layer's), and lomo covers the untied head's two sweeps
-                continue
-            out = {dev: run(cfg, params, dev, strategy, batches, **kw)
-                   for dev in ("cpu", "cuda")}
-            (cl, cn, cp, cs), (gl, gn, gp, gs) = out["cpu"], out["cuda"]
+            cl, cn, cp, cs = host.pop(label)
+            gl, gn, gp, gs = fused_train_side(torch, cfg, params, "cuda",
+                                              strategy, batches, **kw)
             rel = rel_gap(cl, gl)
             nrel = rel_gap(cn, gn) if cn[0] is not None else 0.0
             gap = max(float((cp[k] - gp[k]).abs().max()) for k in cp)
@@ -2141,16 +2198,17 @@ def phase_train_fused_card_vs_cpu(torch):
                 raise RuntimeError(f"{cfg.name} {label}: card and CPU "
                                    f"differ: losses {cl} {gl}, norms {cn} "
                                    f"{gn}, param gap {gap}")
-            if label == "lomo" and arch == "llama2-7b":
-                sl, _, sp, _ = run(cfg, params, "cuda", strategy, batches,
-                                   stream=StreamConfig(depth=2), **kw)
+            if label == "lomo" and not cfg.tie_embeddings:
+                sl, _, sp, _ = fused_train_side(
+                    torch, cfg, params, "cuda", strategy, batches,
+                    stream=StreamConfig(depth=2), **kw)
                 bad = [k for k in gp if not torch.equal(gp[k], sp[k])]
                 emit("train_fused_streamed", arch=cfg.name, run=label,
                      losses=sl, bit_equal=not bad and sl == gl)
                 if bad or sl != gl:
                     raise RuntimeError(f"lomo with stream= left lomo: "
                                        f"{sl} {gl}, leaves {bad[:5]}")
-            del out
+            del cp, gp
         del params
         gc.collect()
 
@@ -2311,7 +2369,74 @@ HYBRID_SEQ = 128           # batch 2 x HYBRID_SEQ
 HYBRID_RTOL = 1e-4         # card against CPU: losses and grad norms
 
 
-def phase_train_hybrid_card_vs_cpu(torch, cfg=None, devices=("cpu", "cuda")):
+def hybrid_train_side(torch, cfg, params, runs, dev: str) -> dict:
+    """One device's side of ``phase_train_hybrid_card_vs_cpu``: per run its
+    (losses, grad norms, final params on the CPU, seconds, groups).  On
+    the card the training forward must launch no scan kernel and the HiFT
+    steps the fused AdamW once each."""
+    from repro_torch.common.pytree import flatten_with_paths
+    from repro_torch.core import LRSchedule, make_runner
+    from repro_torch.kernels import fused_update as FU
+    from repro_torch.kernels import ssm_scan as S
+    batches = train_batches(cfg, HYBRID_SEQ, 2, 4, "cpu")
+    out = {}
+    for strategy, kw, n, _ in runs:
+        runner = make_runner(cfg, strategy, params=params, device=dev,
+                             schedule=LRSchedule(base_lr=HYBRID_LR), **kw)
+        if dev == "cuda":
+            S.reset_launches()
+        fu = FU.fused_adamw_update.launches
+        t0 = time.perf_counter()
+        losses, norms, groups = [], [], []
+        for b in batches[:n]:
+            losses.append(float(runner.train_step(b)))
+            g = runner.last_metrics.get("grad_norm")
+            norms.append(None if g is None else float(g))
+            groups.append(runner.last_metrics.get("group"))
+        secs = time.perf_counter() - t0
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            if S.ssm_scan.launches:
+                raise RuntimeError("hybrid training launched the SSM "
+                                   "scan kernel, which has no backward")
+            if strategy == "hift" and \
+                    FU.fused_adamw_update.launches - fu != n:
+                raise RuntimeError("the card's hybrid HiFT steps did "
+                                   "not run the fused AdamW once each")
+        final = {k: t.detach().cpu() for k, t in
+                 flatten_with_paths(runner.params).items()}
+        out[strategy] = (losses, norms, final, secs, groups)
+        del runner
+    return out
+
+
+def hybrid_train_cpu(torch, cfg=None):
+    """The CPU half of ``phase_train_hybrid_card_vs_cpu`` (``CpuHalves``
+    runs it beside the card's phases): the config (12 layers of
+    zamba2-2.7b unless given), the fp32 params of seed 0 drawn on the CPU
+    with slow-decay SSM scalars, the runs (strategy, runner kwargs, steps,
+    param tolerance; MeZO's z from ``cpu_noise``, kept for the other
+    side) and the CPU's side."""
+    from repro_torch.common.pytree import flatten_with_paths
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import HiFTConfig, LOMOConfig
+    cfg = cfg or dataclasses.replace(get_config("zamba2-2.7b"), n_layers=12)
+    params = host_params(torch, cfg, on_card=False)
+    slow_decay(torch, params)
+    shapes = {p: tuple(t.shape) for p, t in flatten_with_paths(params).items()}
+    runs = (("hift", dict(hift=HiFTConfig(m=4, strategy="top2down"),
+                          optimizer="adamw"), 4, 2 * HYBRID_LR + 1e-6),
+            ("lomo", dict(lomo=LOMOConfig(grad_clip=0.0)), 1,
+             FUSED_PARAM_TOL["lomo"]),
+            ("adalomo", {}, 1, 2 * HYBRID_LR),
+            ("mezo", dict(noise=cpu_noise(torch, shapes)), 1,
+             6 * HYBRID_LR))
+    return cfg, params, runs, hybrid_train_side(torch, cfg, params, runs,
+                                                "cpu")
+
+
+def phase_train_hybrid_card_vs_cpu(torch, cfg=None, devices=("cpu", "cuda"),
+                                   cpu=None):
     """Hybrid training, card against CPU, from the same fp32 params: 12
     layers (2 super-blocks) of zamba2-2.7b at full width with slow-decay
     SSM scalars, batch 2 x 128.  ``hift`` (m = 4, top2down, AdamW: layer
@@ -2327,57 +2452,15 @@ def phase_train_hybrid_card_vs_cpu(torch, cfg=None, devices=("cpu", "cuda")):
     the subtraction's rounding, 1e-6).  The card's training
     forward runs the plain chunked scan, never the scan kernel (its
     launches stay 0), and the kernel refuses inputs that require grad
-    under grad mode.  ``cfg``/``devices`` let the phase run small on the
-    CPU alone."""
-    from repro_torch.common.pytree import flatten_with_paths
-    from repro_torch.configs.registry import get_config
-    from repro_torch.core import (HiFTConfig, LOMOConfig, LRSchedule,
-                                  make_runner)
-    from repro_torch.kernels import fused_update as FU
+    under grad mode.  ``cpu`` is the CPU half (``hybrid_train_cpu``), run
+    here when None; ``cfg``/``devices`` let the phase run small on the CPU
+    alone (its second side on ``devices[1]``)."""
     from repro_torch.kernels import ssm_scan as S
-    cfg = cfg or dataclasses.replace(get_config("zamba2-2.7b"), n_layers=12)
-    params = host_params(torch, cfg, "cuda" in devices)
-    slow_decay(torch, params)
-    shapes = {p: tuple(t.shape) for p, t in flatten_with_paths(params).items()}
-    batches = train_batches(cfg, HYBRID_SEQ, 2, 4, "cpu")
-    runs = (("hift", dict(hift=HiFTConfig(m=4, strategy="top2down"),
-                          optimizer="adamw"), 4, 2 * HYBRID_LR + 1e-6),
-            ("lomo", dict(lomo=LOMOConfig(grad_clip=0.0)), 1,
-             FUSED_PARAM_TOL["lomo"]),
-            ("adalomo", {}, 1, 2 * HYBRID_LR),
-            ("mezo", dict(noise=card_noise(torch, shapes)
-                          if "cuda" in devices else None), 1,
-             6 * HYBRID_LR))
-    for strategy, kw, n, param_tol in runs:
-        out = {}
-        for dev in devices:
-            runner = make_runner(cfg, strategy, params=params, device=dev,
-                                 schedule=LRSchedule(base_lr=HYBRID_LR), **kw)
-            S.reset_launches()
-            fu = FU.fused_adamw_update.launches
-            t0 = time.perf_counter()
-            losses, norms, groups = [], [], []
-            for b in batches[:n]:
-                losses.append(float(runner.train_step(b)))
-                g = runner.last_metrics.get("grad_norm")
-                norms.append(None if g is None else float(g))
-                groups.append(runner.last_metrics.get("group"))
-            secs = time.perf_counter() - t0
-            if dev == "cuda":
-                torch.cuda.synchronize()
-                if S.ssm_scan.launches:
-                    raise RuntimeError("hybrid training launched the SSM "
-                                       "scan kernel, which has no backward")
-                if strategy == "hift" and \
-                        FU.fused_adamw_update.launches - fu != n:
-                    raise RuntimeError("the card's hybrid HiFT steps did "
-                                       "not run the fused AdamW once each")
-            final = {k: t.detach().cpu() for k, t in
-                     flatten_with_paths(runner.params).items()}
-            out[dev] = (losses, norms, final, secs, groups)
-            del runner
-        (cl, cn, cp, cs, groups), (gl, gn, gp, gs, _) = (out[devices[0]],
-                                                          out[devices[1]])
+    cfg, params, runs, first = cpu or hybrid_train_cpu(torch, cfg)
+    second = hybrid_train_side(torch, cfg, params, runs, devices[1])
+    for strategy, _, _, param_tol in runs:
+        (cl, cn, cp, cs, groups), (gl, gn, gp, gs, _) = (first.pop(strategy),
+                                                          second.pop(strategy))
         rel = max(abs(x - y) / abs(x) for x, y in zip(cl, gl))
         nrel = (max(abs(x - y) / abs(x) for x, y in zip(cn, gn))
                 if cn[0] is not None else 0.0)
@@ -2395,7 +2478,7 @@ def phase_train_hybrid_card_vs_cpu(torch, cfg=None, devices=("cpu", "cuda")):
             raise RuntimeError(f"{cfg.name} {strategy}: card and CPU differ: "
                                f"losses {cl} {gl}, norms {cn} {gn}, param "
                                f"gap {gap}")
-        del out
+        del cp, gp
     if "cuda" in devices:
         x = torch.zeros((1, 64, 2, 64), device="cuda", requires_grad=True)
         a = torch.zeros((1, 64, 2), device="cuda")
@@ -2717,36 +2800,56 @@ def phase_quant_codes(torch):
          seconds=time.perf_counter() - t0)
 
 
-def phase_train_quant_card_vs_cpu(torch):
+def quant_train_side(torch, cfg, params, dev: str) -> dict:
+    """One device's side of ``phase_train_quant_card_vs_cpu``: the
+    runner's resident codes (on the CPU), 4 quantized HiFT steps' losses,
+    seconds and dequant launches."""
+    from repro_torch.common.pytree import flatten_with_paths
+    from repro_torch.core import LRSchedule, QuantConfig, make_runner
+    from repro_torch.kernels import dequant_matmul as DM
+    batches = train_batches(cfg, 64, 1, 4, "cpu")
+    runner = make_runner(cfg, "hift", params=params, optimizer="adamw",
+                         schedule=LRSchedule(base_lr=1e-4),
+                         quant=QuantConfig("nf4", "bf16"), device=dev)
+    codes = {k: t.cpu() for k, t in flatten_with_paths(runner.params).items()}
+    before = DM.dequant_matmul.launches
+    t0 = time.perf_counter()
+    losses = [float(runner.train_step(b)) for b in batches]
+    secs = time.perf_counter() - t0
+    if dev == "cuda" and DM.dequant_matmul.launches == before:
+        raise RuntimeError("the card's quantized HiFT steps did not run the "
+                           "dequant-matmul kernel")
+    return dict(codes=codes, losses=losses, seconds=secs,
+                launches=DM.dequant_matmul.launches - before)
+
+
+def quant_train_cpu(torch):
+    """The CPU half of ``phase_train_quant_card_vs_cpu`` (``CpuHalves``
+    runs it beside the card's phases): the fp32 params of seed 0 drawn on
+    the CPU and the CPU's side."""
+    from repro_torch.configs.registry import get_config
+    cfg = dataclasses.replace(get_config("llama2-7b"), n_layers=2)
+    params = host_params(torch, cfg, on_card=False)
+    return params, quant_train_side(torch, cfg, params, "cpu")
+
+
+def phase_train_quant_card_vs_cpu(torch, cpu=None):
     """4 HiFT steps with AdamW and ``QuantConfig("nf4", "bf16")`` (embed,
     layer 0, layer 1, head) of a 2-layer model at llama2-7b width, fp32,
     batch 1 x 64, from the same params on the CPU (plain versions) and the
-    card (kernels).  The resident codes of both runners are equal; losses
+    card (kernels); ``cpu`` is the CPU half (``quant_train_cpu``), run
+    here when None.  The resident codes of both runners are equal; losses
     within rtol 1e-4, for the reason of ``phase_train_card_vs_cpu``."""
-    from repro_torch.common.pytree import flatten_with_paths
     from repro_torch.configs.registry import get_config
-    from repro_torch.core import LRSchedule, QuantConfig, make_runner
-    from repro_torch.kernels import dequant_matmul as DM
     cfg = dataclasses.replace(get_config("llama2-7b"), n_layers=2)
-    params = host_params(torch, cfg)
-    batches = train_batches(cfg, 64, 1, 4, "cpu")
-    out, codes = {}, {}
-    for dev in ("cpu", "cuda"):
-        runner = make_runner(cfg, "hift", params=params, optimizer="adamw",
-                             schedule=LRSchedule(base_lr=1e-4),
-                             quant=QuantConfig("nf4", "bf16"), device=dev)
-        codes[dev] = {k: t.cpu() for k, t in
-                      flatten_with_paths(runner.params).items()}
-        before = DM.dequant_matmul.launches
-        t0 = time.perf_counter()
-        out[dev] = [float(runner.train_step(b)) for b in batches]
-        secs = time.perf_counter() - t0
-        if dev == "cuda" and DM.dequant_matmul.launches == before:
-            raise RuntimeError("the card's quantized HiFT steps did not run "
-                               "the dequant-matmul kernel")
-        emit("train_quant_card_vs_cpu_run", device=dev, seconds=secs,
-             dequant_launches=DM.dequant_matmul.launches - before)
-        del runner
+    params, host = cpu or quant_train_cpu(torch)
+    sides = {"cpu": host,
+             "cuda": quant_train_side(torch, cfg, params, "cuda")}
+    for dev, side in sides.items():
+        emit("train_quant_card_vs_cpu_run", device=dev,
+             seconds=side["seconds"], dequant_launches=side["launches"])
+    codes = {dev: side["codes"] for dev, side in sides.items()}
+    out = {dev: side["losses"] for dev, side in sides.items()}
     same = all(torch.equal(codes["cpu"][k], codes["cuda"][k])
                for k in codes["cpu"])
     rel = max(abs(a - b) / abs(a) for a, b in zip(out["cpu"], out["cuda"]))
@@ -2758,7 +2861,7 @@ def phase_train_quant_card_vs_cpu(torch):
         raise RuntimeError("card and CPU resident codes differ")
     if not all(math.isfinite(x) for x in out["cuda"]) or rel > 1e-4:
         raise RuntimeError(f"card and CPU quantized losses differ: {out}")
-    del params, codes
+    del params, codes, sides
     gc.collect()
 
 
@@ -2905,12 +3008,16 @@ SSM_CASES = [   # (case, dtype, B, S, H, decay); P = N = 64
 
 def ssm_inputs(torch, dt, b, s, h, decay, gen, p=64, n=64):
     """(x, a_log, b, c) on the card: x ~ N(0, 1), b and c ~ N(0, 1/4) in
-    ``dt``, a_log fp32 at the case's decay."""
+    ``dt``, a_log fp32 at the case's decay ("mlstm": the mLSTM's forget
+    gate at its bias, log_sigmoid(N(0, 1) + 3))."""
     def rnd(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device="cuda")
                 * scale).to(dt)
     if decay == "slow":
         a_log = -0.05 * torch.rand((b, s, h), generator=gen, device="cuda")
+    elif decay == "mlstm":
+        a_log = torch.nn.functional.logsigmoid(
+            torch.randn((b, s, h), generator=gen, device="cuda") + 3.0)
     else:
         raw = torch.randn((b, s, h), generator=gen, device="cuda")
         rates = torch.linspace(1.0, 16.0, h, device="cuda")
@@ -3335,10 +3442,9 @@ def _sample(t):
 
 
 def cpu_noise(torch, shapes: dict):
-    """MeZO's seam for the card-against-CPU moe runs: each slice's z drawn
-    on the CPU from the port's own seed of (key, step, path, index) and
-    kept, so two processes draw the same z and the card's run copies it
-    over."""
+    """MeZO's seam for the card-against-CPU runs: each slice's z drawn on
+    the CPU from the port's own seed of (key, step, path, index) and kept,
+    so two processes draw the same z and the card's run copies it over."""
     from repro_torch.optim.mezo import noise_seed
     kept = {}
 
@@ -4308,23 +4414,401 @@ def phase_encdec(torch) -> dict:
     return launches
 
 
+# ------------------------------------------------------------ xlstm
+
+# The wide scan (P, N) = (1025, 1024): xlstm-1.3b's mLSTM, heads folded
+# into the batch (H = 1).  (case, dtype, batch rows x heads, S, decay):
+# "mlstm" is the mLSTM's own forget gate at its bias, log_sigmoid(N(0, 1)
+# + 3) (~0.95 a step); "published" is ``ssm_inputs``' fast decay, at one
+# head softplus(N(0, 1)) (~0.5 a step).
+WIDE_SSM_CASES = [
+    (f"xlstm {shape} {dtype} {decay}", dtype, b, s, decay)
+    for shape, b, s in (("prefill 16 x 512", 16, 512),
+                        ("one long prompt 4 x 2048", 4, 2048),
+                        ("ragged 16 x 301", 16, 301))
+    for dtype in ("float32", "bfloat16")
+    for decay in ("mlstm", "published")]
+XLSTM_LOGIT_TOL = 1e-3     # card against CPU, fp32 prefill logits (atol = rtol)
+XLSTM_CPU_PROMPTS = [64, 37, 20, 50]
+XLSTM_CPU_NEW = 8
+
+
+def phase_wide_ssm_kernel(torch):
+    """The wide scan kernel against its plain version (``ssm_plain``, the
+    fp64 chunked scan) over ``WIDE_SSM_CASES``, timed with its inputs
+    rotated beyond L2, beside its bound: fp32 at three TF32 products a
+    product (the kernel's route for C h^T; the CUDA cores' bound beside
+    it), bf16 at bf16's rate.  No single PyTorch call computes the scan
+    (``library_ms`` null).  Returns the first case's row of each
+    instantiation."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssm_scan as S
+    p, n = S.WIDE
+    gen = torch.Generator(device="cuda").manual_seed(2025)
+    results = {}
+    for case, dtype, b, s, decay in WIDE_SSM_CASES:
+        dt = getattr(torch, dtype)
+        args = ssm_inputs(torch, dt, b, s, 1, decay, gen, p=p, n=n)
+        got_y, got_h = S.ssm_scan(*args)
+        want_y, want_h = ssm_plain(*args)
+        torch.cuda.synchronize()
+        tol = TOL[dtype]
+        errs = {}
+        for what, got, want in (("y", got_y, want_y),
+                                ("h_final", got_h, want_h)):
+            got, want = got.float(), want.float()
+            if not torch.isfinite(got).all():
+                raise RuntimeError(f"ssm_scan_wide ({case}): non-finite "
+                                   f"{what}")
+            err = (got - want).abs()
+            errs[what] = float(err.max())
+            # the largest share of its tolerance an entry takes
+            errs[what + "_of_tol"] = float((err / (tol + tol * want.abs()))
+                                           .max())
+            if errs[what + "_of_tol"] > 1:
+                raise RuntimeError(f"ssm_scan_wide ({case}): {what} max "
+                                   f"|err| {errs[what]} over tolerance {tol}")
+        # the normalizer channel (column 1024) on its own: decode divides
+        # by it
+        norm_err = float((got_y[..., -1].float()
+                          - want_y[..., -1].float()).abs().max())
+        flow_y, _ = ref.gated_chunked_scan_ref(*args)
+        row_extra = dict(
+            reference_flow_gap=float((flow_y.float()
+                                      - want_y.float()).abs().max()),
+            y_scale=float(want_y.float().abs().max()),
+            max_abs_err_normalizer=norm_err)
+        del flow_y, got_y, got_h, want_y, want_h
+        nbytes = sum(a.numel() * a.element_size() for a in args)
+        sets = [args] + [ssm_inputs(torch, dt, b, s, 1, decay, gen, p=p, n=n)
+                         for _ in range(copies(nbytes) - 1)]
+        ms = time_ms(torch, S.ssm_scan, sets, reps=5, launches=10)
+        plain_ms = time_ms(torch, ssm_plain, sets, reps=3, launches=2)
+        flops, wbytes = ssm_work(dtype, b, s, 1, p=p, n=n)
+        bound_ms, bound_by = bound(flops, wbytes, dtype)
+        if dtype == "float32":
+            row_extra["bound_cuda_cores_ms"] = bound_ms
+            bound_ms, bound_by = bound(3 * flops, wbytes, "tf32")
+        row = dict(kernel=instance("ssm_scan_wide", dtype), case=case,
+                   dtype=dtype, shapes=dict(b=b, s=s, h=1, p=p, n=n),
+                   decay=decay,
+                   max_abs_err=max(errs["y"], errs["h_final"]),
+                   max_abs_err_y=errs["y"], max_abs_err_h=errs["h_final"],
+                   y_share_of_tol=errs["y_of_tol"],
+                   h_share_of_tol=errs["h_final_of_tol"],
+                   tol=tol, ms=ms, plain_ms=plain_ms, library_ms=None,
+                   bound_ms=bound_ms, bound_by=bound_by, flops=flops,
+                   bytes=wbytes, share_of_bound=bound_ms / ms,
+                   products="3xTF32 mma (C h^T), fp64 mma (state update), "
+                   "fp64 sums", **row_extra)
+        emit("kernel", **row)
+        results.setdefault(row["kernel"], row)
+        del sets, args
+        gc.collect()
+        torch.cuda.empty_cache()
+    return results
+
+
+def _timed(torch, fn, acc: dict, key: str):
+    """``fn`` that adds its synchronised wall seconds to ``acc[key]``."""
+    def wrapped(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        acc[key] = acc.get(key, 0.0) + time.perf_counter() - t0
+        return out
+    return wrapped
+
+
+def xlstm_breakdown(torch, cfg, params, toks, dt) -> dict:
+    """Where one prefill's and one decode step's time go: the host clock of
+    each with the wide scan's and the sLSTM loop's calls synchronised and
+    timed on their own (their shares of the total), then
+    ``torch.profiler`` (device activity) over one prefill and one decode
+    step (device busy and idle share, the wide scan's device ms, the top
+    kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import xlstm as X
+    # the device's activity only: a prefill launches ~60,000 kernels, and
+    # the host's op events besides would take a minute to tally
+    acts = [ProfilerActivity.CUDA]
+    out = {}
+
+    def prefill():
+        cache = X.init_cache(cfg, toks.shape[0], device="cuda")
+        return X.prefill(cfg, params, {"tokens": toks}, cache, dt)
+
+    logits, cache = prefill()                          # warm up
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    X.decode_step(cfg, params, cache, tok, dt)
+    for name, run in (("prefill", prefill),
+                      ("decode", lambda: X.decode_step(cfg, params, cache,
+                                                       tok, dt))):
+        parts = {}
+        scan, loop = X.ssm_scan, X._slstm_scan
+        X.ssm_scan = _timed(torch, scan, parts, "wide_scan_s")
+        X._slstm_scan = _timed(torch, loop, parts, "slstm_loop_s")
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+        finally:
+            X.ssm_scan, X._slstm_scan = scan, loop
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            host_ms = 1e3 * (time.perf_counter() - t0)
+        out[name] = dict(
+            timed_ms=1e3 * total,
+            **{k[:-2] + "_share": v / total for k, v in parts.items()},
+            profile=profile_summary(prof, host_ms, wide_scan_ms="ssm_wide"))
+    return out
+
+
+def phase_serve_xlstm_full(torch, dtype: str = "bfloat16", max_new: int = 32):
+    """``ServeEngine`` over xlstm-1.3b at its published config (48 layers,
+    random weights from seed 0), batch 4, ragged prompts of 512, 384, 200
+    and 77 tokens (left pad unmasked, as in the reference), ``max_new`` new
+    tokens, one warm-up call first: host-clock prefill ms (a 1-token
+    generation), decode-step ms ((the run - prefill) / (max_new - 1)),
+    tokens/s, and the wide scan's launches over the timed runs: 42 a
+    prefill (one a mLSTM layer) and none in decode.  Peak memory beside
+    the weights and the decode state; then ``xlstm_breakdown``.  Returns
+    the launches by instantiation."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ssm_scan as S
+    from repro_torch.models import xlstm as X
+    from repro_torch.serve.engine import ServeEngine
+    cfg = get_config("xlstm-1.3b")
+    dt = getattr(torch, dtype)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = X.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                    device="cuda", dtype=dt)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    plens = [512, 384, 200, 77]
+    rng = np.random.default_rng(17)
+    prompts = [rng.integers(1, cfg.vocab, n) for n in plens]
+    eng = ServeEngine(cfg, params, batch=4, compute_dtype=dt, device="cuda")
+    t0 = time.perf_counter()
+    eng.generate(prompts, max_new_tokens=2)              # warm-up
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    S.reset_launches()                 # count the timed runs only
+    t0 = time.perf_counter()
+    eng.generate(prompts, max_new_tokens=1)
+    prefill_s = time.perf_counter() - t0
+    after_prefill = S.ssm_scan.launches_wide
+    t0 = time.perf_counter()
+    out = eng.generate(prompts, max_new_tokens=max_new)
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    n_m = cfg.n_layers // cfg.slstm_every * (cfg.slstm_every - 1)
+    name = instance("ssm_scan_wide", dtype)
+    bf = S.ssm_scan.launches_wide_bf16
+    launches = {name: bf if dtype == "bfloat16"
+                else S.ssm_scan.launches_wide - bf}
+    per_run = [after_prefill, S.ssm_scan.launches_wide - after_prefill]
+    if per_run != [n_m, n_m] or launches[name] != 2 * n_m or \
+            S.ssm_scan.launches != 0:
+        raise RuntimeError(f"xlstm {dtype} serving launched the wide scan "
+                           f"{per_run} times a generation ({launches}, "
+                           f"{S.ssm_scan.launches} narrow), not {n_m} a "
+                           "prefill and none in decode")
+    for toks in out:
+        if len(toks) != max_new or not all(0 <= t < cfg.vocab_padded
+                                           for t in toks):
+            raise RuntimeError(f"xlstm: bad generation {toks}")
+    cache = X.init_cache(cfg, 4, device="meta")
+    state_bytes = sum(t.numel() * 4 for t in _flat(cache).values()
+                      if isinstance(t, torch.Tensor))
+    weights = sum(t.numel() * t.element_size()
+                  for t in _flat(eng.params).values())
+    plen = max(plens)
+    toks = torch.tensor(np.stack([np.pad(p, (plen - len(p), 0))
+                                  for p in prompts]), device="cuda")
+    t0 = time.perf_counter()
+    breakdown = xlstm_breakdown(torch, cfg, eng.params, toks, dt)
+    breakdown_s = time.perf_counter() - t0
+    emit("serve_xlstm_full", arch=cfg.name, n_layers=cfg.n_layers,
+         dtype=dtype, init_s=init_s, warm_up_s=warm_s,
+         breakdown_s=breakdown_s, prompt_lens=plens, new_tokens=max_new,
+         prefill_ms=1e3 * prefill_s,
+         decode_step_ms=1e3 * (run_s - prefill_s) / (max_new - 1),
+         tokens_per_s=len(prompts) * max_new / run_s,
+         launches=launches, launches_per_generation=per_run,
+         weights_gb=weights / 1e9, state_gb=state_bytes / 1e9,
+         peak_memory_gb=peak / 1e9,
+         peak_over_weights_and_state_gb=(peak - weights - state_bytes) / 1e9,
+         breakdown=breakdown)
+    del eng, params, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def xlstm_serve_side(torch, dev: str, cfg=None) -> dict:
+    """One device's side of the xlstm card-against-CPU serving: one
+    super-block (8 layers) of xlstm-1.3b at full width (or ``cfg``), fp32,
+    the params of seed 0 drawn on the CPU, 4 prompts of mixed length
+    (``XLSTM_CPU_PROMPTS``, left pad unmasked), ``XLSTM_CPU_NEW`` new
+    tokens through ``ServeEngine``, then one prefill's logits."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import xlstm as X
+    from repro_torch.serve.engine import ServeEngine
+    cfg = cfg or dataclasses.replace(get_config("xlstm-1.3b"), n_layers=8)
+    secs = {}
+    t0 = time.perf_counter()
+    params = X.init(cfg, torch.Generator().manual_seed(0), device="cpu",
+                    dtype=torch.float32)
+    secs["init"] = time.perf_counter() - t0
+    rng = np.random.default_rng(23)
+    prompts = [rng.integers(1, cfg.vocab, n) for n in XLSTM_CPU_PROMPTS]
+    eng = ServeEngine(cfg, params, batch=4, compute_dtype=torch.float32,
+                      device=dev)
+    t0 = time.perf_counter()
+    tokens = eng.generate(prompts, max_new_tokens=XLSTM_CPU_NEW)
+    secs["generate"] = time.perf_counter() - t0
+    plen = max(XLSTM_CPU_PROMPTS)
+    toks = torch.from_numpy(np.stack([np.pad(p, (plen - len(p), 0))
+                                      for p in prompts])).to(dev)
+    t0 = time.perf_counter()
+    logits, cache = X.prefill(cfg, eng.params, {"tokens": toks},
+                              X.init_cache(cfg, 4, device=dev),
+                              torch.float32)
+    state = cache["mlstm_C"][-1, :, :, -1].cpu().numpy()
+    secs["prefill"] = time.perf_counter() - t0
+    return dict(name=cfg.name, tokens=tokens, seconds=secs,
+                logits=logits.cpu().numpy(), state=state)
+
+
+def phase_serve_xlstm_card_vs_cpu(torch, cpu: dict, cfg=None):
+    """The card's side of ``xlstm_serve_side`` against the CPU's (run in a
+    child process, ``CpuSide("xlstm")``): the greedy tokens must be equal
+    and the prefill logits within ``XLSTM_LOGIT_TOL`` (atol = rtol: fp32
+    sums of up to 4096 products in other orders through 8 layers, and the
+    card's scan in fp32 where the CPU's plain version follows the
+    reference's chunked form); the last mLSTM layer's normalizer row of
+    the prefill state beside it."""
+    card = xlstm_serve_side(torch, "cuda", cfg)
+    gap = np.abs(card["logits"] - cpu["logits"])
+    over = gap > XLSTM_LOGIT_TOL * (1 + np.abs(cpu["logits"]))
+    same = card["tokens"] == cpu["tokens"]
+    emit("serve_xlstm_card_vs_cpu", arch=card["name"],
+         prompts=XLSTM_CPU_PROMPTS, new_tokens=XLSTM_CPU_NEW,
+         tokens_equal=same, max_logit_gap_prefill=float(gap.max()),
+         logit_scale=float(np.abs(cpu["logits"]).max()),
+         logit_tol=XLSTM_LOGIT_TOL,
+         max_normalizer_state_gap=float(np.abs(card["state"]
+                                               - cpu["state"]).max()),
+         seconds={"cpu": cpu["seconds"], "cuda": card["seconds"]},
+         cpu_tokens=cpu["tokens"], cuda_tokens=card["tokens"])
+    if not same:
+        raise RuntimeError(f"xlstm: card and CPU greedy tokens differ: "
+                           f"{cpu['tokens']} {card['tokens']}")
+    if over.any():
+        raise RuntimeError(f"xlstm: card and CPU prefill logits differ by "
+                           f"{float(gap.max())}, over {XLSTM_LOGIT_TOL}")
+
+
+def phase_xlstm(torch) -> tuple[dict, dict]:
+    """The xlstm family (xlstm-1.3b) served: the wide scan kernel against
+    its plain version, the published config served in bf16 (32 new
+    tokens) and fp32 (8), and one super-block served card against CPU (the
+    CPU side in a child process, ``CpuSide("xlstm")``, started first).
+    Each part's seconds in a line; returns (the kernel rows, the wide
+    scan's launches over the main-path runs)."""
+    launches, secs = {}, {}
+    cpu = CpuSide("xlstm")
+    try:
+        t0 = time.perf_counter()
+        rows = phase_wide_ssm_kernel(torch)
+        secs["wide_ssm_kernel"] = time.perf_counter() - t0
+        for name, fn in (("serve_xlstm_full", phase_serve_xlstm_full),
+                         ("serve_xlstm_full_fp32",
+                          lambda t: phase_serve_xlstm_full(t, "float32", 8))):
+            t0 = time.perf_counter()
+            for kernel, n in fn(torch).items():
+                launches[kernel] = launches.get(kernel, 0) + n
+            secs[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        side = cpu.result()
+        secs["cpu_side_wait"] = time.perf_counter() - t0
+        secs["cpu_side"] = side["seconds"]
+        t0 = time.perf_counter()
+        phase_serve_xlstm_card_vs_cpu(torch, side["serve"])
+        torch.cuda.empty_cache()
+        secs["serve_xlstm_card_vs_cpu"] = time.perf_counter() - t0
+    finally:
+        cpu.close()
+    emit("xlstm_seconds", seconds=secs,
+         total=sum(v for k, v in secs.items() if k != "cpu_side"))
+    return rows, launches
+
+
 def cpu_side(path: str, family: str) -> int:
-    """The CPU side of the moe or encdec card-against-CPU training,
-    pickled to ``path``: ``phase_moe_vlm`` and ``phase_encdec`` run this
-    in a child process on 6 of the host's threads beside the card's
-    phases."""
+    """The CPU side of the moe or encdec card-against-CPU training, or of
+    the xlstm card-against-CPU serving, pickled to ``path``:
+    ``phase_moe_vlm``, ``phase_encdec`` and ``phase_xlstm`` run this in a
+    child process on 6 of the host's threads beside the card's phases."""
     import pickle
 
     import torch
     torch.set_num_threads(6)
     if family == "moe":
         out = {"train": moe_train_side(torch, moe_train_runs(torch), "cpu")}
+    elif family == "xlstm":
+        out = {"serve": xlstm_serve_side(torch, "cpu")}
     else:
         out = {"train": encdec_train_side(torch, encdec_train_runs(torch),
                                           "cpu")}
     with open(path, "wb") as f:
         pickle.dump(out, f)
     return 0
+
+
+class CpuHalves:
+    """The CPU halves of the in-process card-against-CPU training phases
+    (``train_card_vs_cpu_cpu``, ``fused_train_cpu``, ``quant_train_cpu``,
+    ``hybrid_train_cpu``), one after another in a thread of their own,
+    started on construction, beside the card's phases: their torch ops
+    release the interpreter's lock, and they touch no CUDA (each draws its
+    params on the CPU, so no device peak of another phase moves).
+    ``take(name)`` waits for that job and returns its result, or raises
+    what it raised."""
+
+    def __init__(self, jobs):
+        import threading
+        self._done = {name: threading.Event() for name, _ in jobs}
+        self._out = {}
+
+        def run():
+            for name, fn in jobs:
+                t0 = time.perf_counter()
+                try:
+                    self._out[name] = (True, fn(), time.perf_counter() - t0)
+                except BaseException as e:      # handed to take()
+                    self._out[name] = (False, e, time.perf_counter() - t0)
+                self._done[name].set()
+
+        threading.Thread(target=run, daemon=True).start()
+
+    def take(self, name: str):
+        t0 = time.perf_counter()
+        self._done[name].wait()
+        ok, value, secs = self._out.pop(name)
+        emit("cpu_half", job=name, seconds=secs,
+             wait_s=time.perf_counter() - t0)
+        if not ok:
+            raise value
+        return value
 
 
 class CpuSide:
@@ -4366,7 +4850,8 @@ class CpuSide:
 # ------------------------------------------------------------ main
 
 TC_KERNELS = ("flash_attention_tc_kernel", "flash_attention_3xtf32_kernel",
-              "dequant_matmul_wgmma_kernel", "ssm_scan_tc_kernel")
+              "dequant_matmul_wgmma_kernel", "ssm_scan_tc_kernel",
+              "ssm_wide_walk_kernel")
 
 
 def ptxas_usage(log: str) -> dict:
@@ -4467,14 +4952,14 @@ def main(argv=None) -> int:
 
     import torch
     ap = argparse.ArgumentParser(description="Drive the port on one card.")
-    ap.add_argument("--only", choices=["moe_vlm", "encdec"],
-                    help="build, then run only the moe/vlm or the encdec "
-                    "phase (no result line)")
+    ap.add_argument("--only", choices=["moe_vlm", "encdec", "xlstm"],
+                    help="build, then run only the moe/vlm, the encdec or "
+                    "the xlstm phase (no result line)")
     ap.add_argument("--cpu-side", metavar="PATH", help=argparse.SUPPRESS)
     ap.add_argument("--cpu-side-family", default="moe",
                     help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
-    if args.cpu_side:                  # phase_moe_vlm's, phase_encdec's child
+    if args.cpu_side:                  # phase_moe_vlm's, encdec's, xlstm's child
         return cpu_side(args.cpu_side, args.cpu_side_family)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4508,10 +4993,21 @@ def main(argv=None) -> int:
             raise RuntimeError(f"{name}: no tensor-core instruction in its "
                                f"SASS: {inst}")
     if args.only:
-        {"moe_vlm": phase_moe_vlm, "encdec": phase_encdec}[args.only](torch)
+        {"moe_vlm": phase_moe_vlm, "encdec": phase_encdec,
+         "xlstm": phase_xlstm}[args.only](torch)
         emit("done", seconds=time.perf_counter() - start)
         return 0
 
+    # the CPU halves of the card-against-CPU training phases, done before
+    # the training phases below start
+    cpu = CpuHalves([
+        ("train_card_vs_cpu", lambda: train_card_vs_cpu_cpu(torch,
+                                                            "llama2-7b")),
+        ("train_card_vs_cpu_neo",
+         lambda: train_card_vs_cpu_cpu(torch, "gpt-neo-2.7b")),
+        ("train_fused_card_vs_cpu", lambda: fused_train_cpu(torch)),
+        ("train_quant_card_vs_cpu", lambda: quant_train_cpu(torch)),
+        ("train_hybrid_card_vs_cpu", lambda: hybrid_train_cpu(torch))])
     laps, t_lap = {}, [time.perf_counter()]
 
     def lap(name: str) -> None:
@@ -4520,8 +5016,19 @@ def main(argv=None) -> int:
         laps[name] = laps.get(name, 0.0) + now - t_lap[0]
         t_lap[0] = now
 
+    # first the phases that hold little host memory, beside the CPU halves
+    # (the kernels against their plain versions, serving): the halves' ~25
+    # GB would not fit beside the training phases' pinned bundles
     rows = phase_kernels(torch)
     lap("kernels")
+    rows.update(phase_update_kernels(torch))
+    lap("update_kernels")
+    rows.update(phase_dequant_kernel(torch))
+    lap("dequant_kernel")
+    rows.update(phase_ssm_kernel(torch))
+    lap("ssm_kernel")
+    phase_kernels(torch, hybrid_attention_cases())
+    lap("kernels_hybrid")
     phase_card_vs_cpu(torch)
     lap("card_vs_cpu")
     launches = phase_full(torch)
@@ -4532,56 +5039,8 @@ def main(argv=None) -> int:
                               n_layers=16).items():
         launches[name] = launches.get(name, 0) + n
     lap("full_size_fp32")
-    rows.update(phase_update_kernels(torch))
-    lap("update_kernels")
-    phase_train_card_vs_cpu(torch)
-    lap("train_card_vs_cpu")
-    launches.update(phase_train_full(torch))
-    lap("train_full")
-    phase_train_mixed_hi(torch)
-    lap("train_mixed_hi")
-    phase_train_4_layers(torch)
-    lap("train_4_layers")
-    # the paper's experiment matrix: its other models, optimizers, the
-    # balanced schedule, FPFT against HiFT at full depth, checkpoint/resume;
-    # each runs the fused updates
-    # then the pipelined and streamed strategies (side streams; the
-    # pipelined HiFT and LiSA steps run the fused AdamW)
-    for phase in (phase_train_paper_configs, phase_train_optimizer_matrix,
-                  phase_train_fpft_vs_hift_full, phase_train_balanced,
-                  phase_train_checkpoint, phase_train_pipelined,
-                  phase_train_streamed):
-        for name, n in phase(torch).items():
-            launches[name] += n
-        lap(phase.__name__[len("phase_"):])
-    # the fused-backward and zeroth-order strategies: no hand-written
-    # kernel lies on their path (the reference's updates there are plain)
-    phase_train_fused_card_vs_cpu(torch)
-    lap("train_fused_card_vs_cpu")
-    phase_train_fused_full(torch)
-    lap("train_fused_full")
-    rows.update(phase_dequant_kernel(torch))
-    lap("dequant_kernel")
     phase_quant_codes(torch)
     lap("quant_codes")
-    phase_train_quant_card_vs_cpu(torch)
-    lap("train_quant_card_vs_cpu")
-    quant = phase_train_quant_full(torch)
-    launches.update({k: quant[k] for k in ("dequant_matmul",
-                                           "dequant_matmul_bf16")})
-    lap("train_quant_full")
-    # hybrid training (zamba2): the fused AdamW and, under NF4 residency,
-    # the dequant kernel; the training scan is plain torch, as the
-    # reference's is plain jnp
-    phase_train_hybrid_card_vs_cpu(torch)
-    lap("train_hybrid_card_vs_cpu")
-    for name, n in phase_train_hybrid_full(torch).items():
-        launches[name] = launches.get(name, 0) + n
-    lap("train_hybrid_full")
-    rows.update(phase_ssm_kernel(torch))
-    lap("ssm_kernel")
-    phase_kernels(torch, hybrid_attention_cases())
-    lap("kernels_hybrid")
     phase_hybrid_card_vs_cpu(torch)
     lap("hybrid_card_vs_cpu")
     # the scan's main paths: zamba2-2.7b served at full size in bf16 and
@@ -4593,6 +5052,53 @@ def main(argv=None) -> int:
                                          depth).items():
             launches[name] = launches.get(name, 0) + n
     lap("hybrid_full")
+    # the card-against-CPU training phases take their CPU halves: dense
+    # HiFT, the fused-backward and zeroth-order strategies (no hand-written
+    # kernel lies on their path: the reference's updates there are plain),
+    # quantized HiFT and hybrid training
+    phase_train_card_vs_cpu(torch, cpu=cpu.take("train_card_vs_cpu"))
+    lap("train_card_vs_cpu")
+    phase_train_fused_card_vs_cpu(torch, cpu.take("train_fused_card_vs_cpu"))
+    lap("train_fused_card_vs_cpu")
+    phase_train_quant_card_vs_cpu(torch, cpu.take("train_quant_card_vs_cpu"))
+    lap("train_quant_card_vs_cpu")
+    phase_train_hybrid_card_vs_cpu(
+        torch, cpu=cpu.take("train_hybrid_card_vs_cpu"))
+    lap("train_hybrid_card_vs_cpu")
+    launches.update(phase_train_full(torch))
+    lap("train_full")
+    phase_train_mixed_hi(torch)
+    lap("train_mixed_hi")
+    phase_train_4_layers(torch)
+    lap("train_4_layers")
+    # the paper's experiment matrix: its other models, optimizers, the
+    # balanced schedule, FPFT against HiFT at full depth, checkpoint/resume;
+    # each runs the fused updates
+    # then the pipelined and streamed strategies (side streams; the
+    # pipelined HiFT and LiSA steps run the fused AdamW)
+    for name, n in phase_train_paper_configs(
+            torch, cpu.take("train_card_vs_cpu_neo")).items():
+        launches[name] += n
+    lap("train_paper_configs")
+    for phase in (phase_train_optimizer_matrix,
+                  phase_train_fpft_vs_hift_full, phase_train_balanced,
+                  phase_train_checkpoint, phase_train_pipelined,
+                  phase_train_streamed):
+        for name, n in phase(torch).items():
+            launches[name] += n
+        lap(phase.__name__[len("phase_"):])
+    phase_train_fused_full(torch)
+    lap("train_fused_full")
+    quant = phase_train_quant_full(torch)
+    launches.update({k: quant[k] for k in ("dequant_matmul",
+                                           "dequant_matmul_bf16")})
+    lap("train_quant_full")
+    # hybrid training (zamba2): the fused AdamW and, under NF4 residency,
+    # the dequant kernel; the training scan is plain torch, as the
+    # reference's is plain jnp
+    for name, n in phase_train_hybrid_full(torch).items():
+        launches[name] = launches.get(name, 0) + n
+    lap("train_hybrid_full")
     # the moe and vlm families and the last dense configs: the prefill and
     # the decode with a vision prefix, the fused AdamW, the dequant kernel
     for name, n in phase_moe_vlm(torch).items():
@@ -4603,6 +5109,11 @@ def main(argv=None) -> int:
     for name, n in phase_encdec(torch).items():
         launches[name] = launches.get(name, 0) + n
     lap("encdec")
+    # the xlstm family served: the wide-state scan kernel
+    wide_rows, wide_launches = phase_xlstm(torch)
+    rows.update(wide_rows)
+    launches.update(wide_launches)
+    lap("xlstm")
     emit("seconds", laps=laps)
     emit("done", seconds=time.perf_counter() - start)
 

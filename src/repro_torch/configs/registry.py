@@ -3,8 +3,8 @@
 Mirrors ``repro.configs.registry.get_config``; only the architectures whose
 config module has been copied into this package resolve, any other id
 raises a clear "not ported yet" error.  The five paper models
-(``PAPER_IDS``) are all ported, and every assigned arch but the xlstm
-one.
+(``PAPER_IDS``) are all ported, and every assigned arch (the xlstm
+one for serving only).
 """
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ PAPER_IDS = ["llama2_7b", "roberta_base", "roberta_large", "gpt2_large",
 PORTED_IDS = PAPER_IDS + ["qwen2_0_5b", "zamba2_2_7b", "deepseek_7b",
                           "internlm2_1_8b", "smollm_360m", "internvl2_26b",
                           "deepseek_moe_16b", "arctic_480b",
-                          "seamless_m4t_large_v2"]
+                          "seamless_m4t_large_v2", "xlstm_1_3b"]
 
 
 def normalize(arch_id: str) -> str:

@@ -1,4 +1,5 @@
-"""Wrapper of the chunked SSM scan kernel (``csrc/ssm_scan.cu``).
+"""Wrapper of the chunked SSM scan kernels (``csrc/ssm_scan.cu``,
+``csrc/ssm_scan_wide.cu``).
 
 Port of ``repro.kernels.ssm_scan.ssm_scan_pallas``: the gated linear scan
 ``h_t = exp(a_log_t) h_{t-1} + x_t (x) b_t``, ``y_t = h_t . c_t`` from a
@@ -10,8 +11,15 @@ gated_chunked_scan`` (the Mamba2 SSD core).  :func:`ssm_scan`:
   its bf16 roundings included), its state cast to fp32;
 - on CUDA tensors, checks device, dtypes, shapes, alignment and
   contiguity, allocates the outputs with ``torch.empty`` and launches the
-  kernel on ``torch.cuda.current_stream()``, or raises.  It never falls
-  back to the plain version.  The kernel runs its products on the tensor
+  kernel of the call's (P, N) on ``torch.cuda.current_stream()``, or
+  raises.  It never falls back to the plain version.  (P, N) = (64, 64),
+  Mamba2's heads, goes to ``csrc/ssm_scan.cu``; (1025, 1024), the mLSTM
+  of xlstm-1.3b (its head dim and the normalizer's ones-channel), to the
+  wide-state kernel of ``csrc/ssm_scan_wide.cu``, which keeps the state in
+  fp32 slices of 16 rows, runs C h^T as 3xTF32 and the state update as
+  fp64 products on the tensor cores, and takes its long sums in fp64 (its
+  decayed scores into a workspace this wrapper allocates); any other
+  (P, N) raises.  The (64, 64) kernel runs its products on the tensor
   cores: fp32 as three TF32 products each (fp32 accuracy), bf16 as bf16
   products with fp32 sums, its fp32 operands (the decayed scores, the
   state, ``x exp(total - cum)``) each entering as a bf16 pair hi + lo; the
@@ -25,8 +33,10 @@ gated_chunked_scan`` (the Mamba2 SSD core).  :func:`ssm_scan`:
   grad mode an input that requires grad raises too, rather than return a
   ``y`` that silently carries no gradient; training runs
   ``models.mamba2.gated_chunked_scan``;
-- counts its kernel launches in ``ssm_scan.launches`` (and nowhere else),
-  the bf16 ones in ``ssm_scan.launches_bf16`` as well.
+- counts the (64, 64) kernel's launches in ``ssm_scan.launches`` (and
+  nowhere else), the bf16 ones in ``ssm_scan.launches_bf16`` as well, and
+  the wide kernel's in ``ssm_scan.launches_wide`` (its bf16 ones in
+  ``ssm_scan.launches_wide_bf16`` as well).
 """
 from __future__ import annotations
 
@@ -40,7 +50,9 @@ from repro_torch.kernels import build
 from repro_torch.kernels import ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_SHAPES = ((64, 64),)                 # (P, N) instances of the kernel
+WIDE = (1025, 1024)                    # (P, N) of ssm_scan_wide.cu
+_SHAPES = ((64, 64), WIDE)            # (P, N) instances of the kernels
+_LC_WIDE = 64                         # the wide kernel's chunk rows
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -52,6 +64,23 @@ def _fn():
     fn.argtypes = [_P] * 6 + [_I] * 6 + [_P]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_fn():
+    fn = build.load("ssm_scan_wide").ssm_scan_wide_fwd
+    # x, a_log, b, c, y, h_final, work, B, S, H, P, N, dtype, stream
+    fn.argtypes = [_P] * 7 + [_I] * 6 + [_P]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def wide_work_floats(bt: int, s: int, h: int) -> int:
+    """Floats of the wide kernel's workspace: per (batch row, head, 64-row
+    chunk) its decayed scores (64 x 64 fp32) and decays (2 x 64 + 1
+    fp64)."""
+    return bt * h * -(-s // _LC_WIDE) * (_LC_WIDE * _LC_WIDE
+                                         + 2 * (2 * _LC_WIDE + 1))
 
 
 def _check(x, a_log, b, c) -> None:
@@ -92,12 +121,12 @@ def ssm_scan(x: torch.Tensor, a_log: torch.Tensor, b: torch.Tensor,
             "ssm_scan: the CUDA kernel has no backward; an input requires "
             "grad under grad mode (train through models.mamba2."
             "gated_chunked_scan, or call this under torch.no_grad())")
-    if x.device.type != "cuda":
-        raise ValueError(f"ssm_scan: no kernel for device {x.device}")
     if h0 is not None:
         raise NotImplementedError("ssm_scan: an entering state h0 has no "
                                   "CUDA kernel")
     _check(x, a_log, b, c)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssm_scan: no kernel for device {x.device}")
     bt, s, h, p = x.shape
     n = b.shape[-1]
     a32 = a_log.to(torch.float32).contiguous()
@@ -115,22 +144,35 @@ def ssm_scan(x: torch.Tensor, a_log: torch.Tensor, b: torch.Tensor,
                               device=x.device)
     hf = torch.empty((bt, h, p, n), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream().cuda_stream
-    err = _fn()(x.data_ptr(), a32.data_ptr(), b.data_ptr(), c.data_ptr(),
-                y.data_ptr(), hf.data_ptr(), bt, s, h, p, n,
-                _DTYPES[x.dtype], stream)
+    bf16 = x.dtype == torch.bfloat16
+    if (p, n) == WIDE:
+        work = torch.empty(wide_work_floats(bt, s, h), dtype=torch.float32,
+                           device=x.device)
+        err = _wide_fn()(x.data_ptr(), a32.data_ptr(), b.data_ptr(),
+                         c.data_ptr(), y.data_ptr(), hf.data_ptr(),
+                         work.data_ptr(), bt, s, h, p, n, _DTYPES[x.dtype],
+                         stream)
+    else:
+        err = _fn()(x.data_ptr(), a32.data_ptr(), b.data_ptr(), c.data_ptr(),
+                    y.data_ptr(), hf.data_ptr(), bt, s, h, p, n,
+                    _DTYPES[x.dtype], stream)
     if err != 0:
         raise RuntimeError(f"ssm_scan: CUDA kernel launch failed with "
                            f"cudaError {err}")
-    ssm_scan.launches += 1
-    if x.dtype == torch.bfloat16:
-        ssm_scan.launches_bf16 += 1
+    if (p, n) == WIDE:
+        ssm_scan.launches_wide += 1
+        ssm_scan.launches_wide_bf16 += bf16
+    else:
+        ssm_scan.launches += 1
+        ssm_scan.launches_bf16 += bf16
     return y, hf
-
-
-ssm_scan.launches = 0
-ssm_scan.launches_bf16 = 0
 
 
 def reset_launches() -> None:
     ssm_scan.launches = 0
     ssm_scan.launches_bf16 = 0
+    ssm_scan.launches_wide = 0
+    ssm_scan.launches_wide_bf16 = 0
+
+
+reset_launches()

@@ -15,7 +15,9 @@ prompts follow ``vision_tokens`` zero embeddings, which the cache length
 counts on top of ``--max-len``.  The encdec family's decoder attends to
 ``src_embeds`` of shape (requests, --max-len, d_model), standard normal
 from a ``torch.Generator`` seeded 99 (the reference draws
-``jax.random.normal(PRNGKey(99))``).
+``jax.random.normal(PRNGKey(99))``).  The xlstm family
+(``--arch xlstm-1.3b``) serves from its constant-size state; ``--max-len``
+does not bound it.
 """
 from __future__ import annotations
 

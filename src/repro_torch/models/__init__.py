@@ -3,8 +3,9 @@
 Ported: the dense family and the vlm family (its LM backbone, the same
 module, as in the reference), the hybrid family (zamba2), the moe family
 (deepseek-moe-16b, arctic-480b) and the encdec family
-(seamless-m4t-large-v2), each for serving and training.  The xlstm
-family raises.  The family-dispatching ``unit_first_depth`` lives in
+(seamless-m4t-large-v2), each for serving and training, and the xlstm
+family (xlstm-1.3b) for serving; ``core.make_runner`` refuses to train
+it.  The family-dispatching ``unit_first_depth`` lives in
 ``models.base``.
 """
 import importlib
@@ -13,7 +14,8 @@ _FAMILIES = {"dense": "repro_torch.models.transformer",
              "vlm": "repro_torch.models.transformer",
              "moe": "repro_torch.models.moe",
              "hybrid": "repro_torch.models.zamba2",
-             "encdec": "repro_torch.models.encdec"}
+             "encdec": "repro_torch.models.encdec",
+             "xlstm": "repro_torch.models.xlstm"}
 
 
 def get_family(cfg):

@@ -3,8 +3,9 @@
 Port of ``repro.serve.engine``:
 
 - :class:`ServeEngine` — fixed decode batch over a contiguous cache, for
-  the dense, vlm, hybrid, moe and encdec families; the simple baseline and
-  the token-for-token oracle of the continuous engine.
+  the dense, vlm, hybrid, moe and encdec families, and over the xlstm
+  family's constant-size state; the simple baseline and the
+  token-for-token oracle of the continuous engine.
 - :class:`ContinuousServeEngine` — dense family only: slot-level
   continuous batching over the paged cache (``serve.kv_cache``) driven
   by ``serve.scheduler``: per-slot admission with full-budget
@@ -104,7 +105,9 @@ class ServeEngine:
         in front of the prompts, as in the reference; the cache's
         ``max_len`` counts those positions.  The encdec family needs
         ``src_embeds`` (batch, S_enc, d_model), the source its decoder
-        attends to, and raises ``ValueError`` without them.  Sampled
+        attends to, and raises ``ValueError`` without them.  The xlstm
+        family's state has a constant size, so ``max_len`` does not bound
+        its generation, as in the reference.  Sampled
         tokens stay on the device and reach the host in one copy at the
         end."""
         if len(prompts) > self.batch:
@@ -117,7 +120,8 @@ class ServeEngine:
         prompts = [np.asarray(p, np.int64).reshape(-1) for p in prompts]
         plen = max(len(p) for p in prompts)
         vt = self.cfg.vision_tokens
-        if vt + plen + max_new_tokens - 1 > self.max_len:
+        xlstm = self.cfg.family == "xlstm"   # its state has no length
+        if not xlstm and vt + plen + max_new_tokens - 1 > self.max_len:
             raise ValueError(f"{vt} vision tokens + prompt {plen} + "
                              f"{max_new_tokens} new tokens exceed max_len "
                              f"{self.max_len}")
@@ -141,8 +145,11 @@ class ServeEngine:
         if encdec:
             batch_in["src_embeds"] = torch.as_tensor(src_embeds).to(dev)
             kw["enc_len"] = src_embeds.shape[1]
-        cache = self.model.init_cache(self.cfg, self.batch, self.max_len,
-                                      dtype=cdt, device=dev, **kw)
+        if xlstm:
+            cache = self.model.init_cache(self.cfg, self.batch, device=dev)
+        else:
+            cache = self.model.init_cache(self.cfg, self.batch, self.max_len,
+                                          dtype=cdt, device=dev, **kw)
         logits, cache = self.model.prefill(self.cfg, self.params, batch_in,
                                            cache, self.compute_dtype)
         tok = self.sample_fn(logits[:, -1])

@@ -14,6 +14,7 @@ those paths count, bridged to torch), same numpy-made tokens:
   refuse a missing card unless asked for the CPU; a request that can never
   be admitted raises instead of spinning.
 """
+import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -350,13 +351,13 @@ def test_bridge_roundtrip_is_bit_exact(dtype):
 def test_registry_resolves_ported_archs_only():
     assert get_config("llama2-7b").n_layers == 32
     assert get_config("qwen2-0.5b", smoke=True).name == "qwen2-smoke"
-    with pytest.raises(ValueError, match="not ported yet"):
-        get_config("xlstm-1.3b")
+    assert get_config("xlstm-1.3b").family == "xlstm"
     with pytest.raises(ValueError, match="not ported yet"):
         get_config("no-such-arch")
     xlstm = _torch_cfg(jax_get_config("xlstm-1.3b", smoke=True))
+    assert get_family(xlstm).__name__ == "repro_torch.models.xlstm"
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_family(xlstm)
+        get_family(dataclasses.replace(xlstm, family="no-such-family"))
 
 
 def test_launcher_serves_on_cpu(capsys):
@@ -389,7 +390,8 @@ def test_port_imports_neither_jax_nor_repro():
         "'repro_torch.models.moe', 'repro_torch.configs.deepseek_moe_16b', "
         "'repro_torch.configs.internvl2_26b', "
         "'repro_torch.models.encdec', "
-        "'repro_torch.configs.seamless_m4t_large_v2']\n"
+        "'repro_torch.configs.seamless_m4t_large_v2', "
+        "'repro_torch.models.xlstm', 'repro_torch.configs.xlstm_1_3b']\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('msgpack', 'zstandard'))\n"
         "assert not bad, bad\n"

@@ -52,6 +52,8 @@ def _inputs(s, decay, seed=0, b=B, h=H, p=P, n=N):
     x = rng.standard_normal((b, s, h, p)).astype(np.float32)
     if decay == "slow":
         a_log = -rng.uniform(0.0, 0.05, (b, s, h))
+    elif decay == "mlstm":               # log_sigmoid(N(0, 1) + 3)
+        a_log = -np.logaddexp(0.0, -(rng.standard_normal((b, s, h)) + 3))
     else:
         a_log = -np.logaddexp(rng.standard_normal((b, s, h)), 0.0)
     bm = 0.5 * rng.standard_normal((b, s, n))
@@ -200,6 +202,88 @@ def test_wrapper_refuses_devices_and_shapes_without_a_kernel():
     with pytest.raises(ValueError, match="a_log"):
         K._check(torch.empty((1, 8, 2, 64)), torch.empty((1, 8, 3)),
                  torch.empty((1, 8, 64)), torch.empty((1, 8, 64)))
+
+
+# ------------------------------------------------------------ the wide scan
+#
+# The mLSTM calls the scan at (P, N) = (hd + 1, hd), heads folded into the
+# batch (H = 1): xlstm-1.3b's (1025, 1024) on the card, here hd = 64.
+
+WIDE = dict(b=4, h=1, p=65, n=64)
+
+
+@pytest.mark.parametrize("s,chunk,decay", [(256, 128, "mlstm"),
+                                           (192, 64, "fast"),
+                                           (100, 128, "mlstm")])
+def test_wide_plain_scan_matches_jax_fp32(s, chunk, decay):
+    x, a_log, bm, cm = _inputs(s, decay, seed=6, **WIDE)
+    y, h = K.ssm_scan(_t(x), _t(a_log), _t(bm), _t(cm), chunk=chunk)
+    assert y.shape == (4, s, 1, 65) and h.shape == (4, 1, 65, 64)
+    jy, jh = JM.gated_chunked_scan(jnp.asarray(x), jnp.asarray(a_log),
+                                   jnp.asarray(bm), jnp.asarray(cm),
+                                   chunk=chunk)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), **TOL)
+    np.testing.assert_allclose(h.numpy(), np.asarray(jh), **TOL)
+
+
+@pytest.mark.parametrize("s,chunk", [(200, 64), (257, 128)])
+def test_wide_plain_scan_bf16_and_a_short_last_chunk(s, chunk):
+    """bf16 against the JAX scan in bf16 (the bound of
+    ``test_plain_scan_matches_jax_bf16``) where the reference's chunk rule
+    splits S whole (200 at chunk 64: 4 x 50), and fp32 against the
+    sequential oracle where it does not (257 at chunk 128: 128 + 128 +
+    1)."""
+    x, a_log, bm, cm = _inputs(s, "mlstm", seed=7, **WIDE)
+    lc, nc = tref.scan_chunking(s, chunk)
+    if s % lc:
+        y, h = K.ssm_scan(_t(x), _t(a_log), _t(bm), _t(cm), chunk=chunk)
+        sy, sh = jax_ref.ssm_scan_ref(
+            jnp.asarray(x), jnp.exp(jnp.asarray(a_log)), jnp.asarray(bm),
+            jnp.asarray(cm))
+        np.testing.assert_allclose(y.numpy(), np.asarray(sy), **TOL)
+        np.testing.assert_allclose(h.numpy(), np.asarray(sh), **TOL)
+        return
+    bf = jnp.bfloat16
+    jy, jh = JM.gated_chunked_scan(jnp.asarray(x).astype(bf),
+                                   jnp.asarray(a_log),
+                                   jnp.asarray(bm).astype(bf),
+                                   jnp.asarray(cm).astype(bf), chunk=chunk)
+    y, h = K.ssm_scan(_t(x).bfloat16(), _t(a_log), _t(bm).bfloat16(),
+                      _t(cm).bfloat16(), chunk=chunk)
+    assert y.dtype == torch.bfloat16 and h.dtype == torch.float32
+    for got, want in ((y.float().numpy(), np.asarray(jy.astype(jnp.float32))),
+                      (h.numpy(), np.asarray(jh.astype(jnp.float32)))):
+        bound = 2e-2 * np.abs(want) + 2.0 ** -7 * np.abs(want).max()
+        assert (np.abs(got - want) <= bound).all(), \
+            float(np.abs(got - want).max())
+
+
+def test_wrapper_takes_both_widths_off_the_cpu_and_refuses_the_rest():
+    """On the meta device (standing in for the card): the wrapper takes
+    (64, 64) and (1025, 1024) past its checks (to the device, which has no
+    kernel) and refuses any other (P, N), grad mode and an entering state
+    before any launch."""
+    meta = dict(device="meta")
+
+    def args(p, n):
+        return [torch.empty(sh, **meta) for sh in
+                ((4, 8, 1, p), (4, 8, 1), (4, 8, n), (4, 8, n))]
+
+    for p, n in ((64, 64), (1025, 1024)):
+        with pytest.raises(ValueError, match="no kernel for device meta"):
+            K.ssm_scan(*args(p, n))
+    for p, n in ((1024, 1024), (1025, 1025), (65, 64), (64, 1024)):
+        with pytest.raises(ValueError, match=r"\(P, N\)"):
+            K.ssm_scan(*args(p, n))
+    args = args(1025, 1024)
+    with pytest.raises(NotImplementedError, match="h0"):
+        K.ssm_scan(*args, h0=torch.empty((4, 1, 1025, 1024), **meta))
+    args[0] = args[0].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        K.ssm_scan(*args)
+    # the workspace: per 64-row chunk 64 x 64 fp32 scores, 129 fp64 decays
+    assert K.wide_work_floats(16, 512, 1) == 16 * 8 * (4096 + 258)
+    assert K.wide_work_floats(16, 301, 1) == 16 * 5 * (4096 + 258)
 
 
 # ------------------------------------------------------------ Mamba2 pieces
