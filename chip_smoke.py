@@ -33,8 +33,8 @@ Phases, one JSON line each:
    plain version at one llama2-7b layer group, the embedding group, a
    Mixed^Hi case (f32 master, bf16 grads) and bf16 moments, with times,
    library yardstick and byte bound;
-6. training, card against CPU at fp32: 4 HiFT steps with AdamW (embed,
-   layer 0, layer 1, head) of a 2-layer model at llama2-7b width;
+6. training, card against CPU at fp32: 3 HiFT steps with AdamW (embed,
+   layer 0, head) of a 1-layer model at llama2-7b width;
 7. training at full size: llama2-7b (32 layers, fp32, remat per layer),
    HiFT m=1 at batch 4 x 512 — AdamW bottom2up and top2down, then
    SGD-momentum and AdaGrad — with host time, peak memory and the update
@@ -46,7 +46,7 @@ Phases, one JSON line each:
    Appendix-B model (``core.memory_model``), as in every training phase;
    then the paper's experiment matrix, each phase counting the fused
    updates' launches over its run:
-   a. card against CPU at 2 layers of gpt-neo-2.7b's width, then
+   a. card against CPU at 1 layer of gpt-neo-2.7b's width, then
       roberta-large, gpt2-large and gpt-neo-2.7b at full size (fp32, HiFT
       m=1, AdamW, batch 4 x 512): the embed step, the head and the top
       layer of each, with host time, peak memory and update time per step;
@@ -61,7 +61,7 @@ Phases, one JSON line each:
    e. checkpoint and resume of roberta-large at full size through the
       training loop's async save: the resumed run equal to a straight one,
       with the checkpoint's bytes and save and restore seconds;
-   f. the bundle pipeline on side streams (``train_pipelined``): 4
+   f. the bundle pipeline on side streams (``train_pipelined``): 2
       layers of llama2-7b at full width, fp32, AdamW (fused), 4 x 512 —
       serial ``hift`` against ``hift_pipelined`` at depths 2 and 3, and
       ``lisa`` against pipelined ``lisa``, bit-equal at every step of two
@@ -71,10 +71,10 @@ Phases, one JSON line each:
    g. ``fpft_streamed`` (``train_streamed``): gpt-neo-2.7b at full depth,
       one ``fpft`` and one ``fpft_streamed`` step (64 MiB chunks, depth
       3), bit-equal, peaks, pinned bytes, chunks, the update's share;
-      then two streamed steps of llama2-7b at 16 of its 32 layers;
+      then two streamed steps of llama2-7b at 8 of its 32 layers;
    h. ``lomo``, ``adalomo`` and ``mezo``, card against CPU
       (``train_fused_card_vs_cpu``): 1 layer at llama2-7b's width (untied
-      head) and at gpt-neo-2.7b's (tied), fp32, 3 steps each of ``lomo``
+      head) and at gpt-neo-2.7b's (tied), fp32, 2 steps each of ``lomo``
       (clip 1.0), ``adalomo`` (clip 0; 1.0 at the tied width) and
       ``mezo`` (the same z on both devices), losses and grad norms within
       1e-4, params within a tolerance per strategy; then ``lomo`` with
@@ -97,7 +97,7 @@ Phases, one JSON line each:
    time of ``torch.matmul`` on the pre-decoded weight, and the bound;
 10. codes on the card equal codes on the CPU: a llama2-7b layer group and
    the head, both formats;
-11. quantized training, card against CPU: 4 HiFT steps of a 2-layer model
+11. quantized training, card against CPU: 3 HiFT steps of a 1-layer model
    at llama2-7b width with ``QuantConfig("nf4", "bf16")``;
 12. quantized training at full width: llama2-7b at 16 of its 32 layers,
    HiFT m=1, AdamW, batch 4 x 512 — NF4 with bf16 moments (embed, layers
@@ -112,7 +112,7 @@ Phases, one JSON line each:
    plain chunked scan, as the reference trains through its jnp scan):
    a. card against CPU (``train_hybrid_card_vs_cpu``): 12 layers (2
       super-blocks) at zamba2-2.7b's width, slow-decay SSM scalars, fp32,
-      2 x 128: 4 HiFT steps (m = 4, top2down: the shared block's group,
+      2 x 64: 4 HiFT steps (m = 4, top2down: the shared block's group,
       whose cut rounds down to super-block 1, then layers of both
       super-blocks, then the embedding's group) and one step each of
       ``lomo`` (unclipped), ``adalomo`` and ``mezo``, losses within 1e-4;
@@ -153,7 +153,7 @@ Phases, one JSON line each:
       the decode at smollm-360m's 15 heads over 5, bf16 and fp32, each
       against its plain version;
    b. ``train_moe_card_vs_cpu``: 2 layers of deepseek-moe-16b at full
-      width, fp32, 2 x 128, 4 HiFT steps and one step each of ``lomo``,
+      width, fp32, 2 x 64, 4 HiFT steps and one step each of ``lomo``,
       ``adalomo`` and ``mezo``, then one HiFT step of arctic-480b's SMOKE
       twin, losses within 1e-4, the routes that flip counted;
    c. ``train_moe_full``: deepseek-moe-16b at its published config, 4 x
@@ -177,10 +177,9 @@ Phases, one JSON line each:
       last q and key tiles partial), and the decode over 512 memory keys,
       bf16 and fp32, each against its plain version;
    b. ``train_encdec_card_vs_cpu``: 2 encoder and 2 decoder layers at
-      full width, fp32, 2 x 128 frames and 2 x 32 tokens, 4 HiFT steps
+      full width, fp32, 2 x 64 frames and 2 x 32 tokens, 4 HiFT steps
       (embed, enc 0, enc 1, dec 0) and one step each of ``lomo``,
-      ``adalomo`` and ``mezo``, losses within 1e-4 (the CPU side in a
-      child process);
+      ``adalomo`` and ``mezo``, losses within 1e-4;
    c. ``train_encdec_full``: seamless-m4t-large-v2 at its published
       config, 4 x 512 frames and 4 x 128 tokens, fp32 HiFT m=1 (embed,
       enc 0, dec 0, dec 23, head, head again), FPFT and the saving beside
@@ -191,29 +190,40 @@ Phases, one JSON line each:
       decode-step ms, tokens/s, 72 prefill launches a generation and 48
       decode launches a step; then served card against CPU at 2 + 2
       layers, fp32, the same greedy tokens.
-19. the xlstm family (``phase_xlstm``; ``--only xlstm`` builds and runs
+19. the xlstm family (``phase_xlstm``, run after phase 16 and before the
+   card-against-CPU training phases; ``--only xlstm`` builds and runs
    only this):
    a. the wide scan kernel ((P, N) = (1025, 1024), ``ssm_scan_wide`` and
-      ``ssm_scan_wide_bf16``) against its plain version (the fp64 chunked
-      scan) at 16 x 512 (4 prompts x 4 heads), 4 x 2048 (one long
-      prompt) and 16 x 301 (a ragged last chunk), fp32 and bf16, at the
-      mLSTM's own decays and at ``ssm_inputs``' fast decays, with ms, the
-      plain version's ms and the bound;
+      ``ssm_scan_wide_bf16``: a scores kernel, fp64 on the CUDA cores,
+      then a walk of 32-row state slices in shared memory fed by a
+      producer warp's cp.async through a ring of stages, C h^T and
+      the state update as TF32 ``mma.sync`` products, three passes fp32,
+      two bf16, fp64 sums, the normalizer row in a block of its own)
+      against its plain version (the fp64 chunked scan) at 16 x 512 (4
+      prompts x 4 heads), 4 x 2048 (one long prompt) and 16 x 301 (a
+      ragged last chunk), fp32 and bf16, at the mLSTM's own decays and at
+      ``ssm_inputs``' fast decays, with ms, the scores kernel's and the
+      walk's ms apart, the plain version's ms and the bound;
    b. ``serve_xlstm_full``: xlstm-1.3b at its published config (48
       layers), ``ServeEngine`` at batch 4, ragged prompts of up to 512
-      tokens, bf16 (32 new tokens) and fp32 (8): prefill and decode-step
-      ms, tokens/s, 42 wide-scan launches a prefill and none in decode,
+      tokens, bf16 (32 new tokens) and fp32 (8, 24 of the 48 layers):
+      prefill and decode-step ms, tokens/s, a wide-scan launch a mLSTM
+      layer a prefill (42 at full depth) and none in decode,
       peak memory beside the weights and the 2.82 GB decode state, the
       scan's and the sLSTM loop's shares of a prefill and a decode step;
-   c. ``serve_xlstm_card_vs_cpu``: one super-block (8 layers) at full
-      width, fp32, the CPU side in a child process: the same greedy
-      tokens, prefill logits within ``XLSTM_LOGIT_TOL``.
+   c. ``serve_xlstm_card_vs_cpu``, last: one super-block (8 layers) at
+      full width, fp32: the same greedy tokens, prefill logits within
+      ``XLSTM_LOGIT_TOL``.
 
-The CPU halves of the in-process card-against-CPU training phases (6, 8a,
-the fused, quantized and hybrid ones) run one after another in a thread
-of their own from the start (``CpuHalves``), beside the card's phases;
-each draws its params on the CPU, and its phase takes them for the card's
-half and compares.
+The CPU halves of the in-process card-against-CPU phases (6, 8a, the
+fused, quantized and hybrid training, then 19c's serving) run one after
+another in a thread of their own from before the build (``CpuHalves``),
+beside the card's kernel and serving phases; each draws its params on the
+CPU, and its phase takes them for the card's half and compares.  The CPU
+sides of 17b and 18b run in one child process (``CpuSide``) from 8i on,
+when the host's cores are otherwise idle.  The card waits on neither: the
+script's time is the card's phases' and their host work's (the host's
+least available memory over each phase is in the ``seconds`` line).
 
 Then the ``nvidia-smi`` line, the kernels line and, last, the result line.
 Any failure raises: the script exits non-zero and prints no result.  It
@@ -526,8 +536,8 @@ def instance(kernel: str, dtype: str) -> str:
     with bf16 x runs on the tensor cores (``dequant_matmul_bf16``), with
     fp32 x on the CUDA cores (``dequant_matmul``); the SSM scan in bf16 is
     ``ssm_scan_bf16``, in fp32 (three-pass TF32) ``ssm_scan``; the wide
-    scan (P, N) = (1025, 1024), fp32 on the CUDA cores, ``ssm_scan_wide``
-    and ``ssm_scan_wide_bf16``."""
+    scan (P, N) = (1025, 1024), three-pass TF32 in fp32 and two-pass in
+    bf16, ``ssm_scan_wide`` and ``ssm_scan_wide_bf16``."""
     if kernel == "flash_attention" and dtype == "float32":
         return "flash_attention_fp32"
     if kernel in ("dequant_matmul", "ssm_scan", "ssm_scan_wide") and \
@@ -1121,21 +1131,30 @@ def host_params(torch, cfg, on_card: bool = True, seed: int = 0):
     return out
 
 
+# Layers of the dense and quantized card-against-CPU training: their CPU
+# halves, with the fused, hybrid and moe ones, set much of the whole
+# script's time, and one layer is a group of its own between embed and
+# head
+CARD_VS_CPU_LAYERS = 1
+
+
 def train_card_vs_cpu_side(torch, cfg, params, dev: str) -> dict:
-    """One device's side of ``phase_train_card_vs_cpu``: 4 HiFT steps with
-    AdamW from ``params``; the losses, the final params (on the CPU), the
-    seconds and the groups."""
+    """One device's side of ``phase_train_card_vs_cpu``: a HiFT step with
+    AdamW (m = 1) for each group (embed, each layer, head) from
+    ``params``; the losses, the final params (on the CPU), the seconds and
+    the groups."""
     from repro_torch.common.pytree import flatten_with_paths
     from repro_torch.core import LRSchedule, make_runner
     from repro_torch.kernels import fused_update as FU
-    batches = train_batches(cfg, 64, 1, 4, "cpu")
+    steps = cfg.n_layers + 2
+    batches = train_batches(cfg, 64, 1, steps, "cpu")
     runner = make_runner(cfg, "hift", params=params, optimizer="adamw",
                          schedule=LRSchedule(base_lr=1e-4), device=dev)
     before = FU.fused_adamw_update.launches
     t0 = time.perf_counter()
     losses = [float(runner.train_step(b)) for b in batches]
     secs = time.perf_counter() - t0
-    if dev == "cuda" and FU.fused_adamw_update.launches - before != 4:
+    if dev == "cuda" and FU.fused_adamw_update.launches - before != steps:
         raise RuntimeError("the card's HiFT steps did not run the fused "
                            "AdamW kernel once each")
     return dict(losses=losses, seconds=secs,
@@ -1146,25 +1165,25 @@ def train_card_vs_cpu_side(torch, cfg, params, dev: str) -> dict:
 
 def train_card_vs_cpu_cpu(torch, arch: str):
     """The CPU half of ``phase_train_card_vs_cpu`` (``CpuHalves`` runs it
-    beside the card's phases): 2 layers of ``arch``'s width, the fp32
-    params of seed 0 drawn on the CPU, and the CPU's side."""
+    beside the card's phases): ``CARD_VS_CPU_LAYERS`` of ``arch``'s width,
+    the fp32 params of seed 0 drawn on the CPU, and the CPU's side."""
     from repro_torch.configs.registry import get_config
-    cfg = dataclasses.replace(get_config(arch), n_layers=2)
+    cfg = dataclasses.replace(get_config(arch), n_layers=CARD_VS_CPU_LAYERS)
     params = host_params(torch, cfg, on_card=False)
     return params, train_card_vs_cpu_side(torch, cfg, params, "cpu")
 
 
 def phase_train_card_vs_cpu(torch, arch: str = "llama2-7b", cpu=None):
-    """4 HiFT steps with AdamW (embed, layer 0, layer 1, head) of a 2-layer
-    model at ``arch``'s width, fp32, batch 1 x 64, from the same params on
-    the CPU (plain versions) and the card (fused kernel); ``cpu`` is the
-    CPU half (``train_card_vs_cpu_cpu``), run here when None.  Losses
-    within rtol 1e-4: the same fp32 arithmetic summed in other orders by
-    cuBLAS and the CPU's BLAS, where AdamW's first step moves every element
-    by about lr times the sign of its gradient, so near-zero gradients may
-    flip."""
+    """3 HiFT steps with AdamW (embed, layer 0, head) of a 1-layer model
+    (``CARD_VS_CPU_LAYERS``) at ``arch``'s width, fp32, batch 1 x 64, from
+    the same params on the CPU (plain versions) and the card (fused
+    kernel); ``cpu`` is the CPU half (``train_card_vs_cpu_cpu``), run here
+    when None.  Losses within rtol 1e-4: the same fp32 arithmetic summed
+    in other orders by cuBLAS and the CPU's BLAS, where AdamW's first step
+    moves every element by about lr times the sign of its gradient, so
+    near-zero gradients may flip."""
     from repro_torch.configs.registry import get_config
-    cfg = dataclasses.replace(get_config(arch), n_layers=2)
+    cfg = dataclasses.replace(get_config(arch), n_layers=CARD_VS_CPU_LAYERS)
     params, host = cpu or train_card_vs_cpu_cpu(torch, arch)
     sides = {"cpu": host,
              "cuda": train_card_vs_cpu_side(torch, cfg, params, "cuda")}
@@ -1402,7 +1421,7 @@ def phase_train_paper_configs(torch, cpu=None):
     bottom2up runner, then the head and the top layer from a top2down one.
     Per step: host clock, peak memory beside the port's analytic P+G+S,
     the fused update's device time and launches (counted over this run).
-    First, card against CPU: 4 steps of 2 layers at gpt-neo-2.7b's width
+    First, card against CPU: 3 steps of 1 layer at gpt-neo-2.7b's width
     (``phase_train_card_vs_cpu``; ``cpu`` its CPU half)."""
     from repro_torch.common.pytree import tree_bytes, tree_size
     from repro_torch.configs.registry import get_config
@@ -1680,7 +1699,7 @@ def phase_train_checkpoint(torch):
 # reference's default 1 MiB would be ~10,000 chunks a gpt-neo-2.7b step,
 # each ~10 eager launches)
 STREAM_WINDOW, STREAM_DEPTH = 64 << 20, 3
-STREAM_LLAMA_LAYERS = 16
+STREAM_LLAMA_LAYERS = 8
 
 
 def _host_trees_unequal(torch, a, b) -> list:
@@ -1852,8 +1871,9 @@ def _sweep_timing(torch, cfg, batches, strategy, timer, profile=False,
 
 
 def phase_train_pipelined(torch):
-    """The bundle pipeline on the card: llama2-7b at full width and 4
-    layers (k = 6), fp32, HiFT m=1 with AdamW (fused), batch 4 x 512.
+    """The bundle pipeline on the card: llama2-7b at full width and 2
+    layers (k = 4; at 4 layers the phase took 44.7 s on an H100), fp32,
+    HiFT m=1 with AdamW (fused), batch 4 x 512.
 
     Lockstep (``_lockstep``), two sweeps and one step: serial ``hift``
     against ``hift_pipelined`` at depth 2 and ``hift`` at depth 3; then
@@ -1870,7 +1890,7 @@ def phase_train_pipelined(torch):
     phase."""
     from repro_torch.configs.registry import get_config
     from repro_torch.core import LiSAConfig
-    cfg = dataclasses.replace(get_config("llama2-7b"), n_layers=4)
+    cfg = dataclasses.replace(get_config("llama2-7b"), n_layers=2)
     k = cfg.n_layers + 2
     batches = train_batches(cfg, 512, 4, 2 * k + 3, "cuda")
     lisa = LiSAConfig(m=1, switch_every=1, seed=0)
@@ -1976,10 +1996,10 @@ def phase_train_streamed(torch):
     what was allocated before its params, beside the analytic figures, the
     pinned host bytes, the chunks, the stream's counters and the update's
     share of the step (the update between two synchronises).  Then
-    llama2-7b at 16 of its 32 layers (``STREAM_LLAMA_LAYERS``; at full
+    llama2-7b at 8 of its 32 layers (``STREAM_LLAMA_LAYERS``; at full
     depth, where resident FPFT needs 100.4 GiB, the phase took 46.3 s of
-    the whole script's 933.1 in PR 22): two ``fpft_streamed`` steps, the
-    moments in one pinned buffer."""
+    the whole script's 933.1, and 36.7 s at 16 layers, on an H100): two
+    ``fpft_streamed`` steps, the moments in one pinned buffer."""
     from repro_torch.common.pytree import flatten_with_paths
     from repro_torch.configs.registry import get_config
     from repro_torch.core import LRSchedule, make_runner
@@ -2073,7 +2093,7 @@ def phase_train_streamed(torch):
 # ---------------------------------------------- fused backward and MeZO
 
 FUSED_LR = 1e-4            # card against CPU
-FUSED_STEPS = 3
+FUSED_STEPS = 2            # 2 steps carry each strategy's state over
 FUSED_SEQ = 32             # batch 2 x FUSED_SEQ
 # one layer (two until PR 22: the phase's CPU side took 135.7 of the
 # whole script's 933.1 s); the full-size phase runs every layer
@@ -2158,11 +2178,11 @@ def fused_train_cpu(torch) -> list:
 
 def phase_train_fused_card_vs_cpu(torch, cpu=None):
     """``lomo`` (clip 1.0, weight decay 0.01), ``adalomo`` (defaults, then
-    clip 1.0) and ``mezo`` (the same z on both devices, ``cpu_noise``), 3
-    steps each, from the same params on the CPU and the card: one layer
-    (``FUSED_LAYERS``) at llama2-7b's width (untied head) and at
-    gpt-neo-2.7b's (tied), fp32, batch 2 x 32 (the CPU's side sets the
-    phase's time; at 2 x 128 its steps take minutes), the clipped
+    clip 1.0) and ``mezo`` (the same z on both devices, ``cpu_noise``),
+    ``FUSED_STEPS`` steps each, from the same params on the CPU and the
+    card: one layer (``FUSED_LAYERS``) at llama2-7b's width (untied head)
+    and at gpt-neo-2.7b's (tied), fp32, batch 2 x 32 (the CPU's side sets
+    the phase's time; at 2 x 128 its steps take minutes), the clipped
     ``adalomo`` at the tied width only; ``cpu`` is the CPU half
     (``fused_train_cpu``), run here when None.  Losses and grad norms
     within ``FUSED_RTOL``, params within ``FUSED_PARAM_TOL``.  Then
@@ -2365,7 +2385,7 @@ def phase_train_fused_full(torch):
 # ----------------------------------------------------- hybrid training
 
 HYBRID_LR = 1e-4           # card against CPU
-HYBRID_SEQ = 128           # batch 2 x HYBRID_SEQ
+HYBRID_SEQ = 64            # batch 2 x HYBRID_SEQ
 HYBRID_RTOL = 1e-4         # card against CPU: losses and grad norms
 
 
@@ -2439,7 +2459,7 @@ def phase_train_hybrid_card_vs_cpu(torch, cfg=None, devices=("cpu", "cuda"),
                                    cpu=None):
     """Hybrid training, card against CPU, from the same fp32 params: 12
     layers (2 super-blocks) of zamba2-2.7b at full width with slow-decay
-    SSM scalars, batch 2 x 128.  ``hift`` (m = 4, top2down, AdamW: layer
+    SSM scalars, batch 2 x 64.  ``hift`` (m = 4, top2down, AdamW: layer
     11 + shared + head, whose cut rounds down to super-block 1; layers
     7-10; layers 3-6, backward through both super-blocks; embed + layers
     0-2), then one step each of ``lomo`` (unclipped, one reverse sweep:
@@ -2802,12 +2822,12 @@ def phase_quant_codes(torch):
 
 def quant_train_side(torch, cfg, params, dev: str) -> dict:
     """One device's side of ``phase_train_quant_card_vs_cpu``: the
-    runner's resident codes (on the CPU), 4 quantized HiFT steps' losses,
-    seconds and dequant launches."""
+    runner's resident codes (on the CPU), a quantized HiFT step's loss for
+    each group (embed, each layer, head), seconds and dequant launches."""
     from repro_torch.common.pytree import flatten_with_paths
     from repro_torch.core import LRSchedule, QuantConfig, make_runner
     from repro_torch.kernels import dequant_matmul as DM
-    batches = train_batches(cfg, 64, 1, 4, "cpu")
+    batches = train_batches(cfg, 64, 1, cfg.n_layers + 2, "cpu")
     runner = make_runner(cfg, "hift", params=params, optimizer="adamw",
                          schedule=LRSchedule(base_lr=1e-4),
                          quant=QuantConfig("nf4", "bf16"), device=dev)
@@ -2828,20 +2848,23 @@ def quant_train_cpu(torch):
     runs it beside the card's phases): the fp32 params of seed 0 drawn on
     the CPU and the CPU's side."""
     from repro_torch.configs.registry import get_config
-    cfg = dataclasses.replace(get_config("llama2-7b"), n_layers=2)
+    cfg = dataclasses.replace(get_config("llama2-7b"),
+                              n_layers=CARD_VS_CPU_LAYERS)
     params = host_params(torch, cfg, on_card=False)
     return params, quant_train_side(torch, cfg, params, "cpu")
 
 
 def phase_train_quant_card_vs_cpu(torch, cpu=None):
-    """4 HiFT steps with AdamW and ``QuantConfig("nf4", "bf16")`` (embed,
-    layer 0, layer 1, head) of a 2-layer model at llama2-7b width, fp32,
-    batch 1 x 64, from the same params on the CPU (plain versions) and the
-    card (kernels); ``cpu`` is the CPU half (``quant_train_cpu``), run
-    here when None.  The resident codes of both runners are equal; losses
-    within rtol 1e-4, for the reason of ``phase_train_card_vs_cpu``."""
+    """3 HiFT steps with AdamW and ``QuantConfig("nf4", "bf16")`` (embed,
+    layer 0, head) of a 1-layer model (``CARD_VS_CPU_LAYERS``) at llama2-7b
+    width, fp32, batch 1 x 64, from the same params on the CPU (plain
+    versions) and the card (kernels); ``cpu`` is the CPU half
+    (``quant_train_cpu``), run here when None.  The resident codes of both
+    runners are equal; losses within rtol 1e-4, for the reason of
+    ``phase_train_card_vs_cpu``."""
     from repro_torch.configs.registry import get_config
-    cfg = dataclasses.replace(get_config("llama2-7b"), n_layers=2)
+    cfg = dataclasses.replace(get_config("llama2-7b"),
+                              n_layers=CARD_VS_CPU_LAYERS)
     params, host = cpu or quant_train_cpu(torch)
     sides = {"cpu": host,
              "cuda": quant_train_side(torch, cfg, params, "cuda")}
@@ -3421,7 +3444,7 @@ def vlm_attention_cases():
 
 
 MOE_LR = 1e-4              # card against CPU
-MOE_SEQ = 128              # batch 2 x MOE_SEQ
+MOE_SEQ = 64               # batch 2 x MOE_SEQ
 MOE_RTOL = 1e-4            # card against CPU: losses and grad norms
 # The card-against-CPU moe runs compare params on a sample: every
 # MOE_SAMPLE-th element of each leaf (the CPU side may run in another
@@ -3441,10 +3464,30 @@ def _sample(t):
     return t.detach().reshape(-1)[::MOE_SAMPLE].float().cpu().numpy()
 
 
+def cpu_normal(torch, shape, seed: int, chunk: int = 1 << 22):
+    """Standard normal fp32 of ``shape`` from ``seed``, drawn on the CPU in
+    pieces of ``chunk`` elements, each from a generator of its own seeded
+    by (``seed``, piece), on 8 threads: the same values in any process,
+    several times faster than one generator's serial draw of a slice of
+    hundreds of millions of elements."""
+    from concurrent.futures import ThreadPoolExecutor
+    out = torch.empty(math.prod(shape))
+
+    def fill(i: int) -> None:
+        gen = torch.Generator().manual_seed(
+            (seed * 1_000_003 + i) & (2**63 - 1))
+        out[i * chunk:(i + 1) * chunk].normal_(generator=gen)
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(fill, range(-(-out.numel() // chunk))))
+    return out.view(shape)
+
+
 def cpu_noise(torch, shapes: dict):
     """MeZO's seam for the card-against-CPU runs: each slice's z drawn on
-    the CPU from the port's own seed of (key, step, path, index) and kept,
-    so two processes draw the same z and the card's run copies it over."""
+    the CPU (``cpu_normal``) from the port's own seed of (key, step, path,
+    index) and kept, so two processes draw the same z and the card's run
+    copies it over."""
     from repro_torch.optim.mezo import noise_seed
     kept = {}
 
@@ -3455,9 +3498,8 @@ def cpu_noise(torch, shapes: dict):
             if (key, path, index) not in kept:
                 shape = shapes[path][1:] if index is not None \
                     else shapes[path]
-                gen = torch.Generator().manual_seed(
-                    noise_seed(key, path, index))
-                kept[key, path, index] = torch.randn(shape, generator=gen)
+                kept[key, path, index] = cpu_normal(
+                    torch, shape, noise_seed(key, path, index))
             return kept[key, path, index]
         return z
     return at
@@ -3599,7 +3641,7 @@ def phase_train_moe_card_vs_cpu(torch, cfgs=None, devices=("cpu", "cuda")):
     """moe training, card against CPU, from the same fp32 params
     (``moe_train_runs``): 2 layers of deepseek-moe-16b at full width (64
     experts top-6, 2 shared, d 2048, expert ff 1408, vocab 102400), batch
-    2 x 128, then arctic-480b's SMOKE twin (the parallel dense residual
+    2 x 64, then arctic-480b's SMOKE twin (the parallel dense residual
     FFN); ``compare_moe_train``'s gates, the routes that flip counted.
     ``phase_moe_vlm`` runs the CPU's side in a child process beside the
     card's phases; here each device's side runs in turn, and ``cfgs`` /
@@ -3984,7 +4026,7 @@ def phase_serve_moe_vlm_card_vs_cpu(torch, smoke=False,
 # ------------------------------------------------------------ encdec
 
 ENCDEC_LR = 1e-4           # card against CPU
-ENCDEC_FRAMES = 128        # batch 2 x 128 source frames
+ENCDEC_FRAMES = 64         # batch 2 x 64 source frames
 ENCDEC_SEQ = 32            # and 2 x 32 target tokens
 ENCDEC_RTOL = 1e-4         # card against CPU: losses and grad norms
 
@@ -4368,16 +4410,17 @@ def phase_serve_encdec_card_vs_cpu(torch, cfg=None, devices=("cpu", "cuda")):
                            f"{x['tokens']} {y['tokens']}")
 
 
-def phase_encdec(torch) -> dict:
+def phase_encdec(torch, cpu: CpuSide | None = None) -> dict:
     """The encdec family (seamless-m4t-large-v2): the attention kernels at
     its widths (non-causal, cross, the cross decode), the card's side of
     the training card against CPU, the full-size training and serving, and
     serving card against CPU.  The CPU side of the training runs in a
-    child process (``CpuSide``) beside the rest; its comparison comes
-    last.  Each part's seconds in a line; returns the kernels' launches
-    over the main-path runs."""
+    child process (``cpu``, a ``CpuSide`` started earlier, or one started
+    here) beside the rest; its comparison comes last.  Each part's seconds
+    in a line; returns the kernels' launches over the main-path runs."""
     launches, secs = {}, {}
-    cpu = CpuSide("encdec")
+    own = cpu is None
+    cpu = cpu or CpuSide(("encdec",))
     try:
         t0 = time.perf_counter()
         phase_kernels(torch, encdec_attention_cases())
@@ -4402,13 +4445,14 @@ def phase_encdec(torch) -> dict:
         torch.cuda.empty_cache()
         secs["serve_encdec_card_vs_cpu"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        sides = cpu.result()
+        sides = cpu.result("encdec")
         secs["cpu_side_wait"] = time.perf_counter() - t0
         secs["cpu_side"] = sides["seconds"]
         compare_encdec_train(torch, runs, {"cpu": sides["train"],
                                            "cuda": card}, ("cpu", "cuda"))
     finally:
-        cpu.close()
+        if own:
+            cpu.close()
     emit("encdec_seconds", seconds=secs,
          total=sum(v for k, v in secs.items() if k != "cpu_side"))
     return launches
@@ -4433,13 +4477,46 @@ XLSTM_CPU_PROMPTS = [64, 37, 20, 50]
 XLSTM_CPU_NEW = 8
 
 
+WIDE_KERNELS = {"scores_ms": "ssm_wide_scores", "walk_ms": "ssm_wide_walk"}
+
+
+def wide_split_ms(torch, fn, arg_sets) -> dict:
+    """Device ms a launch of each of the wide scan's two kernels, the
+    scores kernel and the walk, apart: ``torch.profiler``'s kernel times
+    over two passes of ``arg_sets`` after a warm-up pass, each kernel's
+    total over the launches the profiler caught (it may miss some; again,
+    up to three times, where it caught none of one)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        for args in arg_sets:
+            fn(*args)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for args in 2 * arg_sets:
+                fn(*args)
+            torch.cuda.synchronize()
+        out = {}
+        for key, sub in WIDE_KERNELS.items():
+            evs = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and sub in e.key]
+            n = sum(e.count for e in evs)
+            out[key] = (sum(e.self_device_time_total for e in evs) / 1e3 / n
+                        if n else 0.0)
+        if all(out.values()):
+            break
+    return out
+
+
 def phase_wide_ssm_kernel(torch):
     """The wide scan kernel against its plain version (``ssm_plain``, the
     fp64 chunked scan) over ``WIDE_SSM_CASES``, timed with its inputs
     rotated beyond L2, beside its bound: fp32 at three TF32 products a
-    product (the kernel's route for C h^T; the CUDA cores' bound beside
-    it), bf16 at bf16's rate.  No single PyTorch call computes the scan
-    (``library_ms`` null).  Returns the first case's row of each
+    product (the kernel's route; the CUDA cores' bound beside it), bf16 at
+    bf16's rate; the scores kernel's and the walk's device ms apart
+    (``wide_split_ms``) beside the total.  No single PyTorch call computes
+    the scan (``library_ms`` null).  Returns the first case's row of each
     instantiation."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssm_scan as S
@@ -4483,6 +4560,7 @@ def phase_wide_ssm_kernel(torch):
         sets = [args] + [ssm_inputs(torch, dt, b, s, 1, decay, gen, p=p, n=n)
                          for _ in range(copies(nbytes) - 1)]
         ms = time_ms(torch, S.ssm_scan, sets, reps=5, launches=10)
+        row_extra.update(wide_split_ms(torch, S.ssm_scan, sets))
         plain_ms = time_ms(torch, ssm_plain, sets, reps=3, launches=2)
         flops, wbytes = ssm_work(dtype, b, s, 1, p=p, n=n)
         bound_ms, bound_by = bound(flops, wbytes, dtype)
@@ -4499,8 +4577,11 @@ def phase_wide_ssm_kernel(torch):
                    tol=tol, ms=ms, plain_ms=plain_ms, library_ms=None,
                    bound_ms=bound_ms, bound_by=bound_by, flops=flops,
                    bytes=wbytes, share_of_bound=bound_ms / ms,
-                   products="3xTF32 mma (C h^T), fp64 mma (state update), "
-                   "fp64 sums", **row_extra)
+                   products=("3xTF32" if dtype == "float32" else "2xTF32")
+                   + " mma.sync (C h^T and the state update), fp64 sums "
+                   "(C B^T, G x, decays, C h^T's 32-column partials), fp32 "
+                   "k-step sums in the update, the normalizer row fp64",
+                   **row_extra)
         emit("kernel", **row)
         results.setdefault(row["kernel"], row)
         del sets, args
@@ -4569,14 +4650,16 @@ def xlstm_breakdown(torch, cfg, params, toks, dt) -> dict:
     return out
 
 
-def phase_serve_xlstm_full(torch, dtype: str = "bfloat16", max_new: int = 32):
+def phase_serve_xlstm_full(torch, dtype: str = "bfloat16", max_new: int = 32,
+                           n_layers=None):
     """``ServeEngine`` over xlstm-1.3b at its published config (48 layers,
-    random weights from seed 0), batch 4, ragged prompts of 512, 384, 200
-    and 77 tokens (left pad unmasked, as in the reference), ``max_new`` new
-    tokens, one warm-up call first: host-clock prefill ms (a 1-token
-    generation), decode-step ms ((the run - prefill) / (max_new - 1)),
-    tokens/s, and the wide scan's launches over the timed runs: 42 a
-    prefill (one a mLSTM layer) and none in decode.  Peak memory beside
+    or ``n_layers`` of them; random weights from seed 0), batch 4, ragged
+    prompts of 512, 384, 200 and 77 tokens (left pad unmasked, as in the
+    reference), ``max_new`` new tokens, one warm-up call first: host-clock
+    prefill ms (a 1-token generation), decode-step ms ((the run - prefill)
+    / (max_new - 1)), tokens/s, and the wide scan's launches over the timed
+    runs: one a mLSTM layer a prefill (42 at full depth) and none in
+    decode.  Peak memory beside
     the weights and the decode state; then ``xlstm_breakdown``.  Returns
     the launches by instantiation."""
     from repro_torch.configs.registry import get_config
@@ -4584,6 +4667,8 @@ def phase_serve_xlstm_full(torch, dtype: str = "bfloat16", max_new: int = 32):
     from repro_torch.models import xlstm as X
     from repro_torch.serve.engine import ServeEngine
     cfg = get_config("xlstm-1.3b")
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     dt = getattr(torch, dtype)
     gc.collect()
     torch.cuda.empty_cache()
@@ -4690,8 +4775,8 @@ def xlstm_serve_side(torch, dev: str, cfg=None) -> dict:
 
 
 def phase_serve_xlstm_card_vs_cpu(torch, cpu: dict, cfg=None):
-    """The card's side of ``xlstm_serve_side`` against the CPU's (run in a
-    child process, ``CpuSide("xlstm")``): the greedy tokens must be equal
+    """The card's side of ``xlstm_serve_side`` against the CPU's (``cpu``,
+    the last of the ``CpuHalves``): the greedy tokens must be equal
     and the prefill logits within ``XLSTM_LOGIT_TOL`` (atol = rtol: fp32
     sums of up to 4096 products in other orders through 8 layers, and the
     card's scan in fp32 where the CPU's plain version follows the
@@ -4719,56 +4804,49 @@ def phase_serve_xlstm_card_vs_cpu(torch, cpu: dict, cfg=None):
 
 
 def phase_xlstm(torch) -> tuple[dict, dict]:
-    """The xlstm family (xlstm-1.3b) served: the wide scan kernel against
-    its plain version, the published config served in bf16 (32 new
-    tokens) and fp32 (8), and one super-block served card against CPU (the
-    CPU side in a child process, ``CpuSide("xlstm")``, started first).
-    Each part's seconds in a line; returns (the kernel rows, the wide
-    scan's launches over the main-path runs)."""
+    """The xlstm family (xlstm-1.3b) served on the card: the wide scan
+    kernel against its plain version, then the published config served in
+    bf16 (32 new tokens) and fp32 (8, at 24 of its 48 layers).  Each
+    part's seconds in a line; returns (the kernel rows, the wide scan's
+    launches over the main-path runs).  The card-against-CPU serving
+    (``phase_serve_xlstm_card_vs_cpu``) runs apart, once its CPU side is
+    done."""
     launches, secs = {}, {}
-    cpu = CpuSide("xlstm")
-    try:
+    t0 = time.perf_counter()
+    rows = phase_wide_ssm_kernel(torch)
+    secs["wide_ssm_kernel"] = time.perf_counter() - t0
+    # fp32 at 24 of the 48 layers, as the other families' fp32 serving
+    # (full depth took 23.4-37 s of the whole script on an H100)
+    for name, fn in (("serve_xlstm_full", phase_serve_xlstm_full),
+                     ("serve_xlstm_full_fp32",
+                      lambda t: phase_serve_xlstm_full(t, "float32", 8,
+                                                       n_layers=24))):
         t0 = time.perf_counter()
-        rows = phase_wide_ssm_kernel(torch)
-        secs["wide_ssm_kernel"] = time.perf_counter() - t0
-        for name, fn in (("serve_xlstm_full", phase_serve_xlstm_full),
-                         ("serve_xlstm_full_fp32",
-                          lambda t: phase_serve_xlstm_full(t, "float32", 8))):
-            t0 = time.perf_counter()
-            for kernel, n in fn(torch).items():
-                launches[kernel] = launches.get(kernel, 0) + n
-            secs[name] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        side = cpu.result()
-        secs["cpu_side_wait"] = time.perf_counter() - t0
-        secs["cpu_side"] = side["seconds"]
-        t0 = time.perf_counter()
-        phase_serve_xlstm_card_vs_cpu(torch, side["serve"])
-        torch.cuda.empty_cache()
-        secs["serve_xlstm_card_vs_cpu"] = time.perf_counter() - t0
-    finally:
-        cpu.close()
-    emit("xlstm_seconds", seconds=secs,
-         total=sum(v for k, v in secs.items() if k != "cpu_side"))
+        for kernel, n in fn(torch).items():
+            launches[kernel] = launches.get(kernel, 0) + n
+        secs[name] = time.perf_counter() - t0
+    emit("xlstm_seconds", seconds=secs, total=sum(secs.values()))
     return rows, launches
 
 
-def cpu_side(path: str, family: str) -> int:
-    """The CPU side of the moe or encdec card-against-CPU training, or of
-    the xlstm card-against-CPU serving, pickled to ``path``:
-    ``phase_moe_vlm``, ``phase_encdec`` and ``phase_xlstm`` run this in a
-    child process on 6 of the host's threads beside the card's phases."""
+def cpu_side(path: str, families: str) -> int:
+    """The CPU sides of the moe and encdec card-against-CPU training, of
+    each of ``families`` (comma-separated) in turn, pickled to ``path`` as
+    {family: {"train": the side, "seconds": its seconds}}: ``CpuSide`` runs
+    this in a child process on 6 of the host's threads beside the card's
+    phases."""
     import pickle
 
     import torch
     torch.set_num_threads(6)
-    if family == "moe":
-        out = {"train": moe_train_side(torch, moe_train_runs(torch), "cpu")}
-    elif family == "xlstm":
-        out = {"serve": xlstm_serve_side(torch, "cpu")}
-    else:
-        out = {"train": encdec_train_side(torch, encdec_train_runs(torch),
-                                          "cpu")}
+    out = {}
+    for family in families.split(","):
+        t0 = time.perf_counter()
+        if family == "moe":
+            side = moe_train_side(torch, moe_train_runs(torch), "cpu")
+        else:
+            side = encdec_train_side(torch, encdec_train_runs(torch), "cpu")
+        out[family] = {"train": side, "seconds": time.perf_counter() - t0}
     with open(path, "wb") as f:
         pickle.dump(out, f)
     return 0
@@ -4811,33 +4889,63 @@ class CpuHalves:
         return value
 
 
-class CpuSide:
-    """``cpu_side`` of ``family`` in a child process, started on
-    construction: joined and read with ``result`` (which raises if the
-    child failed), killed by ``close`` if still running."""
+class HostMemory:
+    """The host's available memory (``MemAvailable`` of /proc/meminfo),
+    read every half second by a thread of its own: ``take()`` returns the
+    least reading in GiB since the last take."""
 
-    def __init__(self, family: str = "moe"):
+    def __init__(self):
+        import threading
+        self._low = math.inf
+        threading.Thread(target=self._run, daemon=True).start()
+
+    @staticmethod
+    def available_gib() -> float:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable:"):
+                    return int(line.split()[1]) / 2**20
+        return math.nan
+
+    def _run(self) -> None:
+        while True:
+            self._low = min(self._low, self.available_gib())
+            time.sleep(0.5)
+
+    def take(self) -> float:
+        low = min(self._low, self.available_gib())
+        self._low = math.inf
+        return low
+
+
+class CpuSide:
+    """``cpu_side`` of ``families`` in a child process, started on
+    construction: joined and read with ``result`` (which raises if the
+    child failed; a second call returns the same sides), killed by
+    ``close`` if still running."""
+
+    def __init__(self, families=("moe",)):
         import tempfile
         self.dir = tempfile.TemporaryDirectory(prefix="chip_smoke_")
         self.path = os.path.join(self.dir.name, "cpu_side.pkl")
         self.err = open(os.path.join(self.dir.name, "stderr"), "w+")
         self.proc = subprocess.Popen(
             [sys.executable, str(Path(__file__).resolve()), "--cpu-side",
-             self.path, "--cpu-side-family", family],
+             self.path, "--cpu-side-families", ",".join(families)],
             stdout=subprocess.DEVNULL, stderr=self.err)
-        self.t0 = time.perf_counter()
+        self._out = None
 
-    def result(self) -> dict:
+    def result(self, family: str) -> dict:
         import pickle
-        rc = self.proc.wait(timeout=900)
-        if rc != 0:
-            self.err.seek(0)
-            raise RuntimeError(f"the CPU sides' process failed ({rc}): "
-                               f"{self.err.read()[-2000:]}")
-        with open(self.path, "rb") as f:
-            out = pickle.load(f)
-        out["seconds"] = time.perf_counter() - self.t0
-        return out
+        if self._out is None:
+            rc = self.proc.wait(timeout=900)
+            if rc != 0:
+                self.err.seek(0)
+                raise RuntimeError(f"the CPU sides' process failed ({rc}): "
+                                   f"{self.err.read()[-2000:]}")
+            with open(self.path, "rb") as f:
+                self._out = pickle.load(f)
+        return self._out[family]
 
     def close(self) -> None:
         if self.proc.poll() is None:
@@ -4901,17 +5009,19 @@ def sass_mma(libs, usage: dict) -> dict:
     return out
 
 
-def phase_moe_vlm(torch) -> dict:
+def phase_moe_vlm(torch, cpu: CpuSide | None = None) -> dict:
     """The moe and vlm families and the last dense configs: the attention
     kernels with a vision prefix and at smollm-360m's GQA, the card's
     side of the moe training card against CPU, deepseek-moe-16b trained
     and the dense and vlm configs trained at full size, the three served
     at full size, and moe and vlm served card against CPU.  The CPU side
-    of the moe training runs in a child process (``CpuSide``) beside the
-    rest; its comparison comes last.  Each part's seconds in a line;
-    returns the kernels' launches over the main-path runs."""
+    of the moe training runs in a child process (``cpu``, a ``CpuSide``
+    started earlier, or one started here) beside the rest; its comparison
+    comes last.  Each part's seconds in a line; returns the kernels'
+    launches over the main-path runs."""
     launches, secs = {}, {}
-    cpu = CpuSide()
+    own = cpu is None
+    cpu = cpu or CpuSide(("moe",))
     try:
         t0 = time.perf_counter()
         phase_kernels(torch, vlm_attention_cases())
@@ -4935,13 +5045,14 @@ def phase_moe_vlm(torch) -> dict:
         torch.cuda.empty_cache()
         secs["serve_moe_vlm_card_vs_cpu"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        sides = cpu.result()
+        sides = cpu.result("moe")
         secs["cpu_side_wait"] = time.perf_counter() - t0
         secs["cpu_side"] = sides["seconds"]
         compare_moe_train(torch, runs, {"cpu": sides["train"],
                                         "cuda": card}, ("cpu", "cuda"))
     finally:
-        cpu.close()
+        if own:
+            cpu.close()
     emit("moe_vlm_seconds", seconds=secs,
          total=sum(v for k, v in secs.items() if k != "cpu_side"))
     return launches
@@ -4956,11 +5067,11 @@ def main(argv=None) -> int:
                     help="build, then run only the moe/vlm, the encdec or "
                     "the xlstm phase (no result line)")
     ap.add_argument("--cpu-side", metavar="PATH", help=argparse.SUPPRESS)
-    ap.add_argument("--cpu-side-family", default="moe",
+    ap.add_argument("--cpu-side-families", default="moe",
                     help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.cpu_side:                  # phase_moe_vlm's, encdec's, xlstm's child
-        return cpu_side(args.cpu_side, args.cpu_side_family)
+        return cpu_side(args.cpu_side, args.cpu_side_families)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -4977,6 +5088,18 @@ def main(argv=None) -> int:
          cuda=torch.version.cuda, name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count())
 
+    # the CPU halves of the card-against-CPU phases, from before the build
+    # (they need no kernel) to beside the full-size training phases; each
+    # is taken where its phase runs
+    cpu = None if args.only else CpuHalves([
+        ("train_card_vs_cpu", lambda: train_card_vs_cpu_cpu(torch,
+                                                            "llama2-7b")),
+        ("train_card_vs_cpu_neo",
+         lambda: train_card_vs_cpu_cpu(torch, "gpt-neo-2.7b")),
+        ("train_fused_card_vs_cpu", lambda: fused_train_cpu(torch)),
+        ("train_quant_card_vs_cpu", lambda: quant_train_cpu(torch)),
+        ("train_hybrid_card_vs_cpu", lambda: hybrid_train_cpu(torch)),
+        ("serve_xlstm_card_vs_cpu", lambda: xlstm_serve_side(torch, "cpu"))])
     t0 = time.perf_counter()
     libs = build.build_all()
     usage = {}
@@ -4992,33 +5115,30 @@ def main(argv=None) -> int:
         if not inst or any(v["hmma"] + v["hgmma"] == 0 for v in inst):
             raise RuntimeError(f"{name}: no tensor-core instruction in its "
                                f"SASS: {inst}")
+    if args.only == "xlstm":
+        phase_xlstm(torch)
+        phase_serve_xlstm_card_vs_cpu(torch, xlstm_serve_side(torch, "cpu"))
+    elif args.only:
+        {"moe_vlm": phase_moe_vlm, "encdec": phase_encdec}[args.only](torch)
     if args.only:
-        {"moe_vlm": phase_moe_vlm, "encdec": phase_encdec,
-         "xlstm": phase_xlstm}[args.only](torch)
         emit("done", seconds=time.perf_counter() - start)
         return 0
 
-    # the CPU halves of the card-against-CPU training phases, done before
-    # the training phases below start
-    cpu = CpuHalves([
-        ("train_card_vs_cpu", lambda: train_card_vs_cpu_cpu(torch,
-                                                            "llama2-7b")),
-        ("train_card_vs_cpu_neo",
-         lambda: train_card_vs_cpu_cpu(torch, "gpt-neo-2.7b")),
-        ("train_fused_card_vs_cpu", lambda: fused_train_cpu(torch)),
-        ("train_quant_card_vs_cpu", lambda: quant_train_cpu(torch)),
-        ("train_hybrid_card_vs_cpu", lambda: hybrid_train_cpu(torch))])
-    laps, t_lap = {}, [time.perf_counter()]
+    laps, t_lap, low = {}, [time.perf_counter()], {}
+    host = HostMemory()
 
     def lap(name: str) -> None:
-        """Seconds since the previous lap, under ``name``."""
+        """Seconds since the previous lap, under ``name``, and the host's
+        least available memory over them."""
         now = time.perf_counter()
         laps[name] = laps.get(name, 0.0) + now - t_lap[0]
+        low[name] = min(low.get(name, math.inf), host.take())
         t_lap[0] = now
 
     # first the phases that hold little host memory, beside the CPU halves
     # (the kernels against their plain versions, serving): the halves' ~25
-    # GB would not fit beside the training phases' pinned bundles
+    # GB would not fit beside the training phases' pinned bundles (the
+    # last half, xlstm serving's, holds a few GB)
     rows = phase_kernels(torch)
     lap("kernels")
     rows.update(phase_update_kernels(torch))
@@ -5052,6 +5172,12 @@ def main(argv=None) -> int:
                                          depth).items():
             launches[name] = launches.get(name, 0) + n
     lap("hybrid_full")
+    # the xlstm family served on the card: the wide-state scan kernel; its
+    # card-against-CPU comparison comes last
+    wide_rows, wide_launches = phase_xlstm(torch)
+    rows.update(wide_rows)
+    launches.update(wide_launches)
+    lap("xlstm")
     # the card-against-CPU training phases take their CPU halves: dense
     # HiFT, the fused-backward and zeroth-order strategies (no hand-written
     # kernel lies on their path: the reference's updates there are plain),
@@ -5065,56 +5191,66 @@ def main(argv=None) -> int:
     phase_train_hybrid_card_vs_cpu(
         torch, cpu=cpu.take("train_hybrid_card_vs_cpu"))
     lap("train_hybrid_card_vs_cpu")
-    launches.update(phase_train_full(torch))
-    lap("train_full")
-    phase_train_mixed_hi(torch)
-    lap("train_mixed_hi")
-    phase_train_4_layers(torch)
-    lap("train_4_layers")
-    # the paper's experiment matrix: its other models, optimizers, the
-    # balanced schedule, FPFT against HiFT at full depth, checkpoint/resume;
-    # each runs the fused updates
-    # then the pipelined and streamed strategies (side streams; the
-    # pipelined HiFT and LiSA steps run the fused AdamW)
-    for name, n in phase_train_paper_configs(
-            torch, cpu.take("train_card_vs_cpu_neo")).items():
-        launches[name] += n
-    lap("train_paper_configs")
-    for phase in (phase_train_optimizer_matrix,
-                  phase_train_fpft_vs_hift_full, phase_train_balanced,
-                  phase_train_checkpoint, phase_train_pipelined,
-                  phase_train_streamed):
-        for name, n in phase(torch).items():
+    sides = None
+    try:
+        launches.update(phase_train_full(torch))
+        lap("train_full")
+        phase_train_mixed_hi(torch)
+        lap("train_mixed_hi")
+        phase_train_4_layers(torch)
+        lap("train_4_layers")
+        # the paper's experiment matrix: its other models, optimizers, the
+        # balanced schedule, FPFT against HiFT at full depth,
+        # checkpoint/resume; each runs the fused updates
+        # then the pipelined and streamed strategies (side streams; the
+        # pipelined HiFT and LiSA steps run the fused AdamW)
+        for name, n in phase_train_paper_configs(
+                torch, cpu.take("train_card_vs_cpu_neo")).items():
             launches[name] += n
-        lap(phase.__name__[len("phase_"):])
-    phase_train_fused_full(torch)
-    lap("train_fused_full")
-    quant = phase_train_quant_full(torch)
-    launches.update({k: quant[k] for k in ("dequant_matmul",
-                                           "dequant_matmul_bf16")})
-    lap("train_quant_full")
-    # hybrid training (zamba2): the fused AdamW and, under NF4 residency,
-    # the dequant kernel; the training scan is plain torch, as the
-    # reference's is plain jnp
-    for name, n in phase_train_hybrid_full(torch).items():
-        launches[name] = launches.get(name, 0) + n
-    lap("train_hybrid_full")
-    # the moe and vlm families and the last dense configs: the prefill and
-    # the decode with a vision prefix, the fused AdamW, the dequant kernel
-    for name, n in phase_moe_vlm(torch).items():
-        launches[name] = launches.get(name, 0) + n
-    lap("moe_vlm")
-    # the encdec family: the prefill non-causal and over the memory's keys,
-    # the decode over the memory, the fused AdamW, the dequant kernel
-    for name, n in phase_encdec(torch).items():
-        launches[name] = launches.get(name, 0) + n
-    lap("encdec")
-    # the xlstm family served: the wide-state scan kernel
-    wide_rows, wide_launches = phase_xlstm(torch)
-    rows.update(wide_rows)
-    launches.update(wide_launches)
-    lap("xlstm")
-    emit("seconds", laps=laps)
+        lap("train_paper_configs")
+        for phase in (phase_train_optimizer_matrix,
+                      phase_train_fpft_vs_hift_full, phase_train_balanced,
+                      phase_train_checkpoint, phase_train_pipelined,
+                      phase_train_streamed):
+            for name, n in phase(torch).items():
+                launches[name] += n
+            lap(phase.__name__[len("phase_"):])
+        # the moe and encdec training's CPU sides, in a child process beside
+        # the last full-size training phases, whose host cores are otherwise
+        # idle; not before: beside train_streamed's pinned moments the
+        # child's ~30 GB left the host 8 GiB
+        sides = CpuSide(("moe", "encdec"))
+        phase_train_fused_full(torch)
+        lap("train_fused_full")
+        quant = phase_train_quant_full(torch)
+        launches.update({k: quant[k] for k in ("dequant_matmul",
+                                               "dequant_matmul_bf16")})
+        lap("train_quant_full")
+        # hybrid training (zamba2): the fused AdamW and, under NF4
+        # residency, the dequant kernel; the training scan is plain torch,
+        # as the reference's is plain jnp
+        for name, n in phase_train_hybrid_full(torch).items():
+            launches[name] = launches.get(name, 0) + n
+        lap("train_hybrid_full")
+        # the moe and vlm families and the last dense configs: the prefill
+        # and the decode with a vision prefix, the fused AdamW, the dequant
+        # kernel
+        for name, n in phase_moe_vlm(torch, sides).items():
+            launches[name] = launches.get(name, 0) + n
+        lap("moe_vlm")
+        # the encdec family: the prefill non-causal and over the memory's
+        # keys, the decode over the memory, the fused AdamW, the dequant
+        # kernel
+        for name, n in phase_encdec(torch, sides).items():
+            launches[name] = launches.get(name, 0) + n
+        lap("encdec")
+    finally:
+        if sides is not None:
+            sides.close()
+    phase_serve_xlstm_card_vs_cpu(torch,
+                                  cpu.take("serve_xlstm_card_vs_cpu"))
+    lap("serve_xlstm_card_vs_cpu")
+    emit("seconds", laps=laps, host_min_available_gib=low)
     emit("done", seconds=time.perf_counter() - start)
 
     kernels = []

@@ -31,63 +31,86 @@
 //      decays exp(cum_i), exp(total - cum_j) and exp(total) in fp64, the
 //      cumulative log decay summed in fp64.  G does not depend on the
 //      state, so it is computed once, not in every P-slice.  Into a
-//      workspace the wrapper allocates: 64 x 64 floats and 129 doubles a
-//      chunk.
-//   2. ssm_wide_walk_kernel, one block a (P-slice of 16 rows of the state,
-//      head, batch row), walking the chunks in order with its 16 x 1024
-//      fp32 state slice in shared memory (64 KiB, stored n-major).  Per
-//      chunk: the x slice (64 x 16, loaded one element at a time: a row of
-//      x is P = 1025 elements, so it is not 16-byte aligned) and x scaled
-//      by exp(total - cum_j) in fp64; then, over 64-column tiles of N (C
-//      and B through shared memory, the next tile's loads in flight in
-//      registers), on the tensor cores, y's state term C h^T (3xTF32
-//      mma.sync m16n8k8; warp w chunk rows 16 (w % 4) .., state rows
-//      8 (w / 4) ..) and the state update h = exp(total) h +
-//      (x exp(total - cum))^T B (fp64 mma.sync m8n8k4; warp w the tile's
-//      columns 8w .. 8w + 7), each tile's old state read before it is
-//      overwritten; then y = exp(cum_i) (C h^T) + G x in fp64 on the CUDA
-//      cores, rounded to T once and stored one element at a time.  The
-//      last slice holds one row (1025 = 64 x 16 + 1: the normalizer
-//      channel); rows past P are zero and not stored.
+//      workspace the wrapper allocates (G's rows padded to 68 floats, 16
+//      bytes aligned), from which the walk reads them through L2.
+//   2. ssm_wide_walk_kernel, 33 blocks a (head, batch row), walking the
+//      chunks in order.  Blocks 0..31 each own 32 rows of the state, a
+//      32 x 1024 fp32 slice in shared memory (128 KiB, n-major, the rows
+//      swizzled by n so that every access below is free of bank
+//      conflicts): one block an SM.  In each, a producer warp streams the
+//      chunk's C and then its B, 64 x 64 tiles of each, into a ring of
+//      shared-memory stages (4 in fp32, 8 in bf16: the shared memory the
+//      state and x leave) with cp.async, 16 bytes a lane, rows past S
+//      zero-filled (one cp.async.bulk a row took ~3 us a tile: the copy
+//      engine's cost per request), under mbarriers (full: the producer's
+//      copies landed; empty: the 8 consumer warps read it).
+//      The 8 consumer warps take each tile as it lands, with no barrier per
+//      tile: per chunk (i) y's state term C h^T (64 x 32 over 1024
+//      columns; warp w the chunk rows 16 (w % 4) .., the state rows
+//      16 (w / 4) ..), (ii) y = exp(cum_i) (C h^T) + G x in fp64 on the
+//      CUDA cores, rounded to T once, (iii) after one barrier among the 8
+//      warps (the old state is read), the state update h = exp(total) h +
+//      (x exp(total - cum))^T B tile by tile (warp w the state rows
+//      16 (w % 2) .., the tile's columns 16 (w / 2) ..; its A operand,
+//      x exp(total - cum) split in two, held in registers for the chunk).
+//      x (64 x 32 a chunk; a row of 1025 elements is not 16-byte aligned)
+//      is loaded one element a thread into registers a chunk ahead, and
+//      kept in fp64.  Block 32 walks the normalizer row (row 1024) alone
+//      on the CUDA cores in fp64: C h^T, G x and the update over C and B
+//      read straight from L2, cheaper than a 32-row slice that streams
+//      all of C and B for one row.
+//   What bounds it now: compute, not L2 (with no copy at all the walk
+//   keeps ~80 % of its time, tools/wide_scan_variants.py): it issues ~4
+//   other instructions (operand loads and TF32 splits) for each mma.sync
+//   with 2 warps a scheduler (288 threads cap a thread at 168 registers),
+//   so it reaches ~13 % of the fp32 bound (PERF.md, row 8w).  Sharing
+//   each tile across a cluster by TMA multicast was slower.
 //
 // Precision.  The fp32 tolerance (2e-5, absolute where y is near 0) is
 //   tight beside this width's sums: y runs to ~170 at the mLSTM's decay,
 //   and an fp32 chain of 64 or 1024 terms drifts by ~sqrt(n) half-ulps of
-//   its partial sums (measured 4.6e-5 over 8.4 M outputs with every sum in
-//   fp32).  So the sums whose error reaches y are fp64: C B^T, the state
-//   update's 64 products (an fp32 rounding of a state entry enters y
-//   through 1024 products), the 32-column partial sums of C h^T, G x and
-//   the decays.  Each partial sum of C h^T stays fp32: 3xTF32 products
-//   (big x big + big x small + small x big, each part tf32-rounded to
-//   nearest), each k8 step's three summed from zero and then added in
-//   fp32, since the tensor cores truncate as they add (ssm_scan.cu); the
-//   state is fp32, rounded once a chunk.  Rows past S are zero-filled
-//   with a_log 0, so a ragged last chunk adds nothing and decays nothing.
+//   its partial sums.  So the sums whose error reaches y most are fp64:
+//   C B^T, G x, the decays and the 32-column partial sums of C h^T; a
+//   state update's 8 k-step partials are summed in fp32 and the state
+//   updated by one fp32 fma with exp(total) rounded to fp32 (in fp64
+//   their conversions took ~15 % of the walk and bought no accuracy the
+//   tolerance sees).  The products run on the tensor cores as TF32
+//   mma.sync m16n8k8: in fp32 three passes (big x big, big x small, small
+//   x big, each part tf32-rounded to nearest), in bf16 two, since a bf16
+//   value is exact in TF32 (C x small(h), C x big(h); small(xw) x B,
+//   big(xw) x B); each k8 step's passes summed from zero, since the
+//   tensor cores truncate as they add (ssm_scan.cu).  The state is fp32,
+//   rounded once a chunk.  tests/test_torch_wide_scan_numerics.py models
+//   this arithmetic at full width against the reference and fp64.  Rows
+//   past S are zeros with a_log 0: they add nothing to the state, and
+//   their y is not stored.
 //
-// Shared memory: scores kernel 34,304 bytes (static); walk kernel 115,712
-//   bytes (dynamic): two blocks an SM, the SM's 228 KiB exactly.  Rows are
-//   padded so that the mma operands' loads are free of bank conflicts
-//   (x w 20 doubles, C 68 floats, B 72 floats); the state's B operand of
-//   C h^T meets 2-way conflicts.
+// Shared memory: scores kernel 34,304 bytes (static); walk kernel 221,248
+//   bytes in fp32, 221,312 in bf16 (dynamic).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "load_f32.cuh"
+#include "tensor_core.cuh"
 
 namespace {
 
 constexpr int kLc = 64;                  // rows per chunk
 constexpr int kP = 1025;                 // state rows (x and y columns)
 constexpr int kN = 1024;                 // state columns (b and c width)
-constexpr int kPS = 16;                  // state rows a walk block owns
-constexpr int kNT = 64;                  // N columns a walk tile
-constexpr int kLD = kNT + 4;             // padded row of the walk's C tile
+constexpr int kPS = 32;                  // state rows a walk block owns
+constexpr int kSlices = kN / kPS;        // 32 slices, then the normalizer
+constexpr int kNT = 64;                  // N columns a tile
+constexpr int kTiles = kN / kNT;         // tiles of C, then of B, a chunk
+constexpr int kConsumers = 256;          // 8 warps of products
+constexpr int kWalkThreads = kConsumers + 32;   // and a producer warp
 constexpr int kST = 32;                  // N columns a scores tile
 constexpr int kSLD = kST + 1;            // padded row of a scores tile
-constexpr int kThreads = 256;
+constexpr int kScoresThreads = 256;
 constexpr int kDec = 2 * kLc + 1;        // exp(cum), exp(total - cum), exp(total)
+constexpr int kGLD = kLc + 4;            // row of G: 272 bytes, 16-aligned
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -114,7 +137,7 @@ __device__ __forceinline__ void load_row(const T* __restrict__ row, bool ok,
 // ---------------------------------------------------------------- scores
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kScoresThreads)
 ssm_wide_scores_kernel(const T* __restrict__ bm, const T* __restrict__ cm,
                        const float* __restrict__ a_log, float* __restrict__ g,
                        double* __restrict__ dec, int S, int H) {
@@ -172,14 +195,14 @@ ssm_wide_scores_kernel(const T* __restrict__ bm, const T* __restrict__ cm,
   }
 
   // G_ij = (C B^T)_ij exp(cum_i - cum_j) for j <= i, 0 above the diagonal
-  float* gout = g + chunk * (kLc * kLc);
+  float* gout = g + chunk * (kLc * kGLD);
 #pragma unroll
   for (int a = 0; a < 4; ++a)
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const int i = ri + 16 * a, j = cj + 16 * c;
-      gout[i * kLc + j] = j <= i ? (float)(acc[a][c] * exp(cum[i] - cum[j]))
-                                 : 0.f;
+      gout[i * kGLD + j] = j <= i ? (float)(acc[a][c] * exp(cum[i] - cum[j]))
+                                  : 0.f;
     }
   double* d = dec + chunk * kDec;
   if (tid < kLc) {
@@ -193,7 +216,8 @@ ssm_wide_scores_kernel(const T* __restrict__ bm, const T* __restrict__ cm,
 
 // x rounded to TF32 (10 mantissa bits), to nearest with ties away, and x
 // as a pair (tf32(x), tf32(x - tf32(x))): the split of ssm_scan.cu's
-// 3xTF32 products.
+// 3xTF32 products; an fp64 value splits from its fp32 rounding, its small
+// part from the fp64 remainder.
 __device__ __forceinline__ uint32_t tf32_rna(float x) {
   return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
@@ -201,6 +225,11 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& big,
                                            uint32_t& small) {
   big = tf32_rna(x);
   small = tf32_rna(x - __uint_as_float(big));
+}
+__device__ __forceinline__ void split_tf32(double x, uint32_t& big,
+                                           uint32_t& small) {
+  big = tf32_rna((float)x);
+  small = tf32_rna((float)(x - (double)__uint_as_float(big)));
 }
 
 // d (16 x 8 fp32) += A (16 x 8 tf32) * B (8 x 8 tf32).  Per thread (g =
@@ -215,179 +244,409 @@ __device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// d (8 x 8 fp64) += a (8 x 4) * b (4 x 8) on the fp64 tensor cores.  Per
-// thread (g = lane / 4, t = lane % 4): a = A[g][t], b = B[t][g], d = D[g][2t],
-// D[g][2t + 1].
-__device__ __forceinline__ void mma_f64(double* d, double a, double b) {
-  asm("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 "
-      "{%0, %1}, {%2}, {%3}, {%0, %1};\n"
-      : "+d"(d[0]), "+d"(d[1])
-      : "d"(a), "d"(b));
+// ---- mbarriers and copies (the ring's producer and consumers)
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+// Wait for the phase of the given parity to complete.  A wait that lasts
+// ~2^35 cycles (seconds) means a lost arrival: trap, so that the launch
+// fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  const long long t0 = clock64();
+  while (true) {
+    uint32_t done;
+    asm volatile("{\n\t.reg .pred p;\n\t"
+                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+                 "selp.u32 %0, 1, 0, p;\n\t}\n"
+                 : "=r"(done) : "r"(a), "r"(parity) : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1ll << 35)) __trap();
+  }
+}
+// An arrival on `bar` once every cp.async this thread issued has landed
+// (the barrier's count includes it).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+// The 8 consumer warps only (the producer warp runs on).
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" :: "n"(kConsumers) : "memory");
 }
 
-constexpr int kXLD = kPS + 4;            // padded row of x w, in doubles
-constexpr int kBLD = kNT + 8;            // padded row of the B tile
-
-struct WalkSmem {                                  // offsets in bytes
-  static constexpr int xw = 0;                     // [kLc][kXLD] double
-  static constexpr int hs = xw + kLc * kXLD * 8;   // [kN][kPS] float state
-  static constexpr int ct = hs + kN * kPS * 4;     // [kLc][kLD] C, then G
-  static constexpr int bt = ct + kLc * kLD * 4;    // [kLc][kBLD] B
-  static constexpr int xs = bt + kLc * kBLD * 4;   // [kLc][kPS] x
-  static constexpr int bytes = xs + kLc * kPS * 4;
-};
+// The state slice, [n][p] with the rows of each n swizzled: (n, p) at
+// n * 32 + (p ^ 8 (n % 4)).  A warp's 8 rows p (g) by 4 columns n (t, or
+// t + 4) then fall on 32 banks.
+__device__ __forceinline__ int hidx(int n, int p) {
+  return n * kPS + (p ^ ((n & 3) << 3));
+}
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads, 2)
+struct WalkSmem {                                      // offsets in bytes
+  static constexpr int ldc = sizeof(T) == 4 ? kNT + 4 : kNT + 8;  // C row
+  static constexpr int ldb = kNT + 8;                             // B row
+  static constexpr int stage = kLc * ldb * (int)sizeof(T);
+  static constexpr int stages = sizeof(T) == 4 ? 4 : 8;           // the ring
+  static constexpr int hs = 0;                         // [kN][kPS] fp32
+  static constexpr int ring = hs + kN * kPS * 4;       // the ring's tiles
+  static constexpr int xs = ring + stages * stage;     // [kLc][kPS] x fp64
+  static constexpr int bars = xs + kLc * kPS * 8;      // full[], empty[]
+  static constexpr int bytes = bars + 2 * stages * 8;
+};
+
+// Block kSlices: the normalizer row (row kN) walked on the CUDA cores in
+// fp64, C and B read from L2, its state row fp32 in shared memory; the
+// 8 consumer warps only.
+template <typename T>
+__device__ void normalizer_walk(const T* __restrict__ x,
+                                const T* __restrict__ bm,
+                                const T* __restrict__ cm,
+                                const float* __restrict__ g,
+                                const double* __restrict__ dec,
+                                T* __restrict__ y, float* __restrict__ h_final,
+                                int S, int H, unsigned char* smem) {
+  float* hn = reinterpret_cast<float*>(smem);               // [kN]
+  double* xv = reinterpret_cast<double*>(smem + kN * 4);    // [kLc] x
+  double* xw = xv + kLc;                    // [kLc] x exp(total - cum)
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int nc = (S + kLc - 1) / kLc;
+  for (int n = tid; n < kN; n += kConsumers) hn[n] = 0.f;
+  for (int ci = 0; ci < nc; ++ci) {
+    const int t0 = ci * kLc, rows = min(kLc, S - t0);
+    const size_t chunk = ((size_t)b * H + h) * nc + ci;
+    const double* dch = dec + chunk * kDec;
+    const float* gch = g + chunk * (kLc * kGLD);
+    if (tid < kLc) {
+      const size_t row = (size_t)b * S + t0 + tid;
+      const double v =
+          tid < rows ? (double)to_f32(x[(row * H + h) * kP + kN]) : 0.0;
+      xv[tid] = v;
+      xw[tid] = v * dch[kLc + tid];
+    }
+    consumer_sync();                // x in place
+    // y_i = exp(cum_i) (C_i . h) + sum_j G_ij x_j: warp w rows 8w .. 8w + 7,
+    // each lane 4 columns of every 128
+    for (int r = 0; r < kLc / 8; ++r) {
+      const int i = (kLc / 8) * warp + r;
+      if (i >= rows) break;
+      double ch = 0.0;
+      if (ci > 0) {
+        const T* crow = cm + ((size_t)b * S + t0 + i) * kN + 4 * lane;
+#pragma unroll
+        for (int k = 0; k < kN / 128; ++k) {
+          float cv[4];
+          load_f32<T, 4>(crow + 128 * k, cv);
+          const int n = 128 * k + 4 * lane;
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            ch = fma((double)cv[e], (double)hn[n + e], ch);
+        }
+      }
+      double v = ch * dch[i];
+      for (int j = lane; j <= i; j += 32)
+        v = fma((double)gch[i * kGLD + j], xv[j], v);
+#pragma unroll
+      for (int o = 16; o > 0; o /= 2) v += __shfl_xor_sync(0xffffffffu, v, o);
+      if (lane == 0)
+        store(y + (((size_t)b * S + t0 + i) * H + h) * kP + kN, v);
+    }
+    consumer_sync();                // every read of the old state is done
+    // h = exp(total) h + sum_j xw_j B_j: thread tid columns 4 tid .. + 3
+    const double dc = dch[2 * kLc];
+    double u[4] = {0.0, 0.0, 0.0, 0.0};
+    const T* brow = bm + ((size_t)b * S + t0) * kN + 4 * tid;
+#pragma unroll 8
+    for (int j = 0; j < rows; ++j) {
+      float bv[4];
+      load_f32<T, 4>(brow + (size_t)j * kN, bv);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) u[e] = fma(xw[j], (double)bv[e], u[e]);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float* hp = hn + 4 * tid + e;
+      *hp = (float)fma(dc, (double)*hp, u[e]);
+    }
+    consumer_sync();                // every read of xw is done
+  }
+  float* hf = h_final + (((size_t)b * H + h) * kP + kN) * kN;
+  for (int n = tid; n < kN; n += kConsumers) hf[n] = hn[n];
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kWalkThreads, 1)
 ssm_wide_walk_kernel(const T* __restrict__ x, const T* __restrict__ bm,
                      const T* __restrict__ cm, const float* __restrict__ g,
                      const double* __restrict__ dec, T* __restrict__ y,
                      float* __restrict__ h_final, int S, int H) {
-  using M = WalkSmem;
-  extern __shared__ __align__(16) unsigned char smem[];
-  double* xw = reinterpret_cast<double*>(smem + M::xw);
-  float* hs = reinterpret_cast<float*>(smem + M::hs);
-  float* ct = reinterpret_cast<float*>(smem + M::ct);
-  float* bt = reinterpret_cast<float*>(smem + M::bt);
-  float* xs = reinterpret_cast<float*>(smem + M::xs);
-  const int p0 = blockIdx.x * kPS, h = blockIdx.y, b = blockIdx.z;
+  using M = WalkSmem<T>;
+  constexpr bool kF32 = sizeof(T) == 4;
+  extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int gq = lane / 4, tq = lane % 4;
+  if (blockIdx.x == kSlices) {                    // the normalizer row
+    if (warp < kConsumers / 32)
+      normalizer_walk<T>(x, bm, cm, g, dec, y, h_final, S, H, smem);
+    return;
+  }
+  float* hs = reinterpret_cast<float*>(smem + M::hs);
+  double* xs = reinterpret_cast<double*>(smem + M::xs);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + M::bars);
+  uint64_t* empty = full + M::stages;
+  const int p0 = blockIdx.x * kPS, h = blockIdx.y, b = blockIdx.z;
   const int nc = (S + kLc - 1) / kLc;
-  // thread roles: tile loads, row lr, columns lc .. lc + 15; C h^T and G x,
-  // warp w the chunk rows 16 (w % 4) .. and the state rows 8 (w / 4) ..;
-  // the update, warp w the tile's columns 8w .. 8w + 7
-  const int lr = tid / 4, lc = 16 * (tid % 4);
 
-  for (int e = tid; e < kN * kPS; e += kThreads) hs[e] = 0.f;
-
-  for (int ci = 0; ci < nc; ++ci) {
-    const int t0 = ci * kLc;
-    const size_t chunk = ((size_t)b * H + h) * nc + ci;
-    const double* dch = dec + chunk * kDec;       // the chunk's decays
-    const bool ok = t0 + lr < S;
-    const size_t roff = ((size_t)b * S + (ok ? t0 + lr : 0)) * kN + lc;
-    float cv[16], bv[16];                         // the next tile in flight
-    load_row<T, 16>(cm + roff, ok, cv);
-    load_row<T, 16>(bm + roff, ok, bv);
-    __syncthreads();                              // the last chunk is done
-    for (int e = tid; e < kLc * kPS; e += kThreads) {
-      const int j = e / kPS, p = e % kPS;
-      const float v =
-          t0 + j < S && p0 + p < kP
-              ? to_f32(x[(((size_t)b * S + t0 + j) * H + h) * kP + p0 + p])
-              : 0.f;
-      xs[e] = v;
-      xw[j * kXLD + p] = (double)v * __ldg(dch + kLc + j);
+  // a zero state
+  for (int e = tid; e < kN * kPS / 4; e += kWalkThreads)
+    reinterpret_cast<float4*>(hs)[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (tid == 0) {
+    for (int s = 0; s < M::stages; ++s) {
+      mbar_init(&full[s], 32);              // the producer's 32 lanes
+      mbar_init(&empty[s], kConsumers / 32);
     }
-    const double dc = __ldg(dch + 2 * kLc);
-
-    // (C h^T) at rows i0, i0 + 8 (i0 = 16 (warp % 4) + gq), state rows
-    // pc, pc + 1 (pc = 8 (warp / 4) + 2 tq), in the mma's order
-    double ya[4] = {0.0, 0.0, 0.0, 0.0};
-    for (int n0 = 0; n0 < kN; n0 += kNT) {
-      // the last tile's reads of ct and bt ended at its state barrier, the
-      // last chunk's at the chunk's first barrier
-#pragma unroll
-      for (int k = 0; k < 16; ++k) {
-        ct[lr * kLD + lc + k] = cv[k];
-        bt[lr * kBLD + lc + k] = bv[k];
-      }
-      __syncthreads();
-      if (n0 + kNT < kN) {
-        load_row<T, 16>(cm + roff + n0 + kNT, ok, cv);
-        load_row<T, 16>(bm + roff + n0 + kNT, ok, bv);
-      }
-      if (ci > 0) {                               // the state is 0 before
-        // C h^T's tile (16 x 8: rows 16 (warp % 4) .., state rows 8 (warp
-        // / 4) ..) as 3xTF32 products, each k8 step's three summed from
-        // zero and added in fp32 (the tensor cores truncate as they add),
-        // every 32 columns into the fp64 sums
-        const float* cr = ct + (16 * (warp % 4) + gq) * kLD + tq;
-        const float* hr = hs + (n0 + tq) * kPS + 8 * (warp / 4) + gq;
-#pragma unroll
-        for (int half = 0; half < kNT; half += kNT / 2) {
-          float acc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-          for (int kk = half; kk < half + kNT / 2; kk += 8) {
-            uint32_t a_big[4], a_small[4], b_big[2], b_small[2];
-            split_tf32(cr[kk], a_big[0], a_small[0]);
-            split_tf32(cr[8 * kLD + kk], a_big[1], a_small[1]);
-            split_tf32(cr[kk + 4], a_big[2], a_small[2]);
-            split_tf32(cr[8 * kLD + kk + 4], a_big[3], a_small[3]);
-            split_tf32(hr[kk * kPS], b_big[0], b_small[0]);
-            split_tf32(hr[(kk + 4) * kPS], b_big[1], b_small[1]);
-            float part[4] = {0.f, 0.f, 0.f, 0.f};
-            mma_tf32(part, a_small, b_big[0], b_big[1]);
-            mma_tf32(part, a_big, b_small[0], b_small[1]);
-            mma_tf32(part, a_big, b_big[0], b_big[1]);
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[e] += part[e];
-          }
-#pragma unroll
-          for (int e = 0; e < 4; ++e) ya[e] += acc[e];
-        }
-      }
-      // the update's products: U (16 x 8) = (x w)^T B[:, 8 warp ..], on the
-      // fp64 tensor cores, rows gq and 8 + gq, columns 2 tq, 2 tq + 1
-      double u[2][2] = {{0.0, 0.0}, {0.0, 0.0}};
-#pragma unroll 4
-      for (int j0 = 0; j0 < kLc; j0 += 4) {
-        const double bj = bt[(j0 + tq) * kBLD + 8 * warp + gq];
-        const double* wr = xw + (j0 + tq) * kXLD + gq;
-        mma_f64(u[0], wr[0], bj);
-        mma_f64(u[1], wr[8], bj);
-      }
-      __syncthreads();                            // the tile's old state read
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          float* hp = hs + (n0 + 8 * warp + 2 * tq + i) * kPS + 8 * mt + gq;
-          *hp = (float)fma(dc, (double)*hp, u[mt][i]);
-        }
-    }
-
-    // G into the C tile's place (its last reads were before the barrier
-    // above), then y = exp(cum_i) (C h^T) + G x
-    const float4* gin =
-        reinterpret_cast<const float4*>(g + chunk * (kLc * kLc));
-    for (int e = tid; e < kLc * kLc / 4; e += kThreads) {
-      const float4 v = gin[e];
-      float* dst = ct + (e / 16) * kLD + 4 * (e % 16);
-      dst[0] = v.x;
-      dst[1] = v.y;
-      dst[2] = v.z;
-      dst[3] = v.w;
-    }
-    __syncthreads();
-    const int i0 = 16 * (warp % 4) + gq, pc = 8 * (warp / 4) + 2 * tq;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int i = i0 + 8 * r;
-      const double e0 = __ldg(dch + i);
-      double yv[2] = {ya[2 * r] * e0, ya[2 * r + 1] * e0};
-      for (int j = 0; j <= i; ++j) {              // G is 0 above the diagonal
-        const double gv = ct[i * kLD + j];
-        const float2 xv = *reinterpret_cast<const float2*>(xs + j * kPS + pc);
-        yv[0] = fma(gv, (double)xv.x, yv[0]);
-        yv[1] = fma(gv, (double)xv.y, yv[1]);
-      }
-      if (t0 + i < S) {
-        T* yr = y + (((size_t)b * S + t0 + i) * H + h) * kP + p0 + pc;
-#pragma unroll
-        for (int k = 0; k < 2; ++k)
-          if (p0 + pc + k < kP) store(yr + k, yv[k]);
-      }
-    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  // h_final[b][h][p0 + p][n]
-  float* hf = h_final + ((size_t)b * H + h) * kP * kN;
-  for (int e = tid; e < kPS * kN; e += kThreads) {
-    const int p = e / kN, n = e % kN;
-    if (p0 + p < kP) hf[(size_t)(p0 + p) * kN + n] = hs[n * kPS + p];
+  if (warp == kConsumers / 32) {                  // the producer warp
+    int s = 0;
+    uint32_t ph = 0;
+    for (int ci = 0; ci < nc; ++ci) {
+      const int t0 = ci * kLc, rows = min(kLc, S - t0);
+      constexpr int kPieceElems = 16 / (int)sizeof(T);
+      constexpr int kPieces = kNT / kPieceElems;  // 16-byte pieces a row
+      for (int m = 0; m < 2; ++m) {               // C's tiles, then B's
+        const T* src = (m == 0 ? cm : bm) + ((size_t)b * S + t0) * kN;
+        const int ld = m == 0 ? M::ldc : M::ldb;
+        for (int tile = 0; tile < kTiles; ++tile) {
+          if (lane == 0) mbar_wait(&empty[s], ph ^ 1);
+          __syncwarp();
+          const uint32_t dst = smem_u32(smem + M::ring + s * M::stage);
+          // 16 bytes a lane and copy, a row's 16-byte pieces on
+          // neighbouring lanes; rows past S zero-filled
+#pragma unroll 4
+          for (int q = lane; q < kLc * kPieces; q += 32) {
+            const int r = q / kPieces, c = q % kPieces;
+            cp_async16(dst + (r * ld + c * kPieceElems) * (int)sizeof(T),
+                       src + (size_t)(r < rows ? r : 0) * kN + tile * kNT +
+                           c * kPieceElems,
+                       r < rows ? 16 : 0);
+          }
+          cp_async_arrive(&full[s]);
+          if (++s == M::stages) {
+            s = 0;
+            ph ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumers (g = lane / 4, t = lane % 4 as in mma_tf32)
+  const int gq = lane / 4, tq = lane % 4;
+  // x of a chunk, a warp a row of 32: element tid + 256 k, in registers a
+  // chunk ahead
+  constexpr int kXR = kLc * kPS / kConsumers;
+  float xr[kXR];
+  auto load_x = [&](int ci) {
+#pragma unroll
+    for (int k = 0; k < kXR; ++k) {
+      const int e = tid + kConsumers * k, row = ci * kLc + e / kPS;
+      xr[k] = row < S
+                  ? to_f32(x[(((size_t)b * S + row) * H + h) * kP + p0 +
+                             e % kPS])
+                  : 0.f;
+    }
+  };
+  load_x(0);
+  int s = 0;
+  uint32_t ph = 0;
+  for (int ci = 0; ci < nc; ++ci) {
+    const int t0 = ci * kLc;
+    consumer_sync();                // the last chunk's state and x are done
+#pragma unroll
+    for (int k = 0; k < kXR; ++k) xs[tid + kConsumers * k] = (double)xr[k];
+    consumer_sync();
+    if (ci + 1 < nc) load_x(ci + 1);
+
+    // (i) C h^T: warp w rows 16 (w % 4) + gq (+ 8), state rows 16 (w / 4) +
+    // 8 nt + gq as the B operand; the accumulator's columns 2 tq, 2 tq + 1
+    // are state rows 16 (w / 4) + 8 nt + 2 tq (+ 1)
+    double ya[2][4];
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ya[nt][e] = 0.0;
+    for (int tile = 0; tile < kTiles; ++tile) {
+      mbar_wait(&full[s], ph);
+      if (ci > 0) {                               // the state is 0 before
+        const T* cr =
+            reinterpret_cast<const T*>(smem + M::ring + s * M::stage) +
+            (16 * (warp % 4) + gq) * M::ldc + tq;
+        const int n0 = tile * kNT + tq;
+#pragma unroll
+        for (int half = 0; half < kNT; half += 32) {
+          float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+          for (int kk = half; kk < half + 32; kk += 8) {
+            const float av[4] = {to_f32(cr[kk]), to_f32(cr[8 * M::ldc + kk]),
+                                 to_f32(cr[kk + 4]),
+                                 to_f32(cr[8 * M::ldc + kk + 4])};
+            uint32_t a_big[4], a_small[4];
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              if constexpr (kF32) split_tf32(av[q], a_big[q], a_small[q]);
+              else a_big[q] = __float_as_uint(av[q]);   // exact in TF32
+            }
+#pragma unroll
+            for (int nt = 0; nt < 2; ++nt) {
+              const int p = 16 * (warp / 4) + 8 * nt + gq;
+              uint32_t h_big[2], h_small[2];
+              split_tf32(hs[hidx(n0 + kk, p)], h_big[0], h_small[0]);
+              split_tf32(hs[hidx(n0 + kk + 4, p)], h_big[1], h_small[1]);
+              float part[4] = {0.f, 0.f, 0.f, 0.f};
+              if constexpr (kF32) mma_tf32(part, a_small, h_big[0], h_big[1]);
+              mma_tf32(part, a_big, h_small[0], h_small[1]);
+              mma_tf32(part, a_big, h_big[0], h_big[1]);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc[nt][e] += part[e];
+            }
+          }
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) ya[nt][e] += acc[nt][e];
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+      if (++s == M::stages) {
+        s = 0;
+        ph ^= 1;
+      }
+    }
+
+    // (ii) y = exp(cum_i) (C h^T) + G x in fp64, rounded once; G's row
+    // and the decays from L2 (each read by the 32 slices of a head)
+    const size_t chunk = ((size_t)b * H + h) * nc + ci;
+    const double* dch = dec + chunk * kDec;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = 16 * (warp % 4) + gq + 8 * r;
+      const float4* gr =
+          reinterpret_cast<const float4*>(g + (chunk * kLc + i) * kGLD);
+      const double e0 = __ldg(dch + i);
+      double yv[2][2];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        yv[nt][0] = ya[nt][2 * r] * e0;
+        yv[nt][1] = ya[nt][2 * r + 1] * e0;
+      }
+      for (int j4 = 0; j4 <= i; j4 += 4) {        // G is 0 above the diagonal
+        const float4 g4 = __ldg(gr + j4 / 4);
+        const float gv[4] = {g4.x, g4.y, g4.z, g4.w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+            const double2 xv = *reinterpret_cast<const double2*>(
+                xs + (j4 + k) * kPS + 16 * (warp / 4) + 8 * nt + 2 * tq);
+            yv[nt][0] = fma((double)gv[k], xv.x, yv[nt][0]);
+            yv[nt][1] = fma((double)gv[k], xv.y, yv[nt][1]);
+          }
+      }
+      if (t0 + i < S) {
+        T* yr = y + (((size_t)b * S + t0 + i) * H + h) * kP + p0 +
+                16 * (warp / 4) + 2 * tq;
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          store(yr + 8 * nt, yv[nt][0]);
+          store(yr + 8 * nt + 1, yv[nt][1]);
+        }
+      }
+    }
+
+    // the update's A operand, (x exp(total - cum))^T split in two: warp w
+    // state rows 16 (w % 2) + gq (+ 8), chunk rows 8 ks + tq (+ 4)
+    uint32_t xa_big[kLc / 8][4], xa_small[kLc / 8][4];
+#pragma unroll
+    for (int ks = 0; ks < kLc / 8; ++ks)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int p = 16 * (warp % 2) + gq + 8 * (q % 2);
+        const int j = 8 * ks + tq + 4 * (q / 2);
+        split_tf32(xs[j * kPS + p] * __ldg(dch + kLc + j), xa_big[ks][q],
+                   xa_small[ks][q]);
+      }
+    const float dc = (float)__ldg(dch + 2 * kLc);
+    consumer_sync();                              // the old state is read
+
+    // (iii) h = exp(total) h + (x exp(total - cum))^T B, tile by tile: warp
+    // w the tile's columns 16 (w / 2) + 8 nt + sigma(.), where the
+    // accumulator's columns 2 tq, 2 tq + 1 are tq, tq + 4 and the B
+    // operand's column gq is 4 (gq % 2) + gq / 2
+    for (int tile = 0; tile < kTiles; ++tile) {
+      mbar_wait(&full[s], ph);
+      const T* bt = reinterpret_cast<const T*>(smem + M::ring + s * M::stage) +
+                    tq * M::ldb + 16 * (warp / 2) + 4 * (gq % 2) + gq / 2;
+      float u[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+      for (int ks = 0; ks < kLc / 8; ++ks) {
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const float b0 = to_f32(bt[8 * ks * M::ldb + 8 * nt]);
+          const float b1 = to_f32(bt[(8 * ks + 4) * M::ldb + 8 * nt]);
+          float part[4] = {0.f, 0.f, 0.f, 0.f};
+          if constexpr (kF32) {
+            uint32_t b_big[2], b_small[2];
+            split_tf32(b0, b_big[0], b_small[0]);
+            split_tf32(b1, b_big[1], b_small[1]);
+            mma_tf32(part, xa_small[ks], b_big[0], b_big[1]);
+            mma_tf32(part, xa_big[ks], b_small[0], b_small[1]);
+            mma_tf32(part, xa_big[ks], b_big[0], b_big[1]);
+          } else {                                // exact in TF32
+            mma_tf32(part, xa_small[ks], __float_as_uint(b0),
+                     __float_as_uint(b1));
+            mma_tf32(part, xa_big[ks], __float_as_uint(b0),
+                     __float_as_uint(b1));
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) u[nt][e] += part[e];
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+      if (++s == M::stages) {
+        s = 0;
+        ph ^= 1;
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int p = 16 * (warp % 2) + gq + 8 * (e / 2);
+          const int n =
+              tile * kNT + 16 * (warp / 2) + 8 * nt + tq + 4 * (e % 2);
+          float* hp = hs + hidx(n, p);
+          *hp = fmaf(dc, *hp, u[nt][e]);
+        }
+    }
+  }
+  consumer_sync();
+
+  // h_final[b][h][p0 + p][n]: a warp 8 rows p by 4 columns n at a time
+  float* hf = h_final + (((size_t)b * H + h) * kP + p0) * kN;
+  for (int q = warp; q < (kPS / 8) * (kN / 4); q += kConsumers / 32) {
+    const int p = 8 * (q % (kPS / 8)) + gq, n = 4 * (q / (kPS / 8)) + tq;
+    hf[(size_t)p * kN + n] = hs[hidx(n, p)];
   }
 }
 
@@ -395,11 +654,12 @@ template <typename T>
 int launch(const void* x, const void* a_log, const void* b, const void* c,
            void* y, void* h_final, void* work, int B, int S, int H,
            cudaStream_t st) {
+  using M = WalkSmem<T>;
   static bool attr_set = false;
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(
         ssm_wide_walk_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        WalkSmem::bytes);
+        M::bytes);
     if (e == cudaSuccess)
       e = cudaFuncSetAttribute(ssm_wide_walk_kernel<T>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
@@ -409,13 +669,13 @@ int launch(const void* x, const void* a_log, const void* b, const void* c,
   }
   const int nc = (S + kLc - 1) / kLc;
   float* g = static_cast<float*>(work);
-  double* dec = reinterpret_cast<double*>(g + (size_t)B * H * nc * kLc * kLc);
-  ssm_wide_scores_kernel<T><<<dim3(nc, H, B), kThreads, 0, st>>>(
+  double* dec = reinterpret_cast<double*>(g + (size_t)B * H * nc * kLc * kGLD);
+  ssm_wide_scores_kernel<T><<<dim3(nc, H, B), kScoresThreads, 0, st>>>(
       (const T*)b, (const T*)c, (const float*)a_log, g, dec, S, H);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   ssm_wide_walk_kernel<T>
-      <<<dim3((kP + kPS - 1) / kPS, H, B), kThreads, WalkSmem::bytes, st>>>(
+      <<<dim3(kSlices + 1, H, B), kWalkThreads, M::bytes, st>>>(
           (const T*)x, (const T*)b, (const T*)c, g, dec, (T*)y,
           (float*)h_final, S, H);
   return (int)cudaGetLastError();
@@ -429,9 +689,10 @@ enum { kFloat32 = 0, kBFloat16 = 1 };
 extern "C" {
 
 // x (B,S,H,P) and y in the dtype; a_log (B,S,H) fp32; b, c (B,S,N) in the
-// dtype; h_final (B,H,P,N) fp32; work: B H ceil(S / 64) (64 x 64 + 2 x 129)
-// floats (per chunk its decayed scores, then per chunk its 129 decays in
-// fp64).  (P, N) = (1025, 1024) only; S >= 1.
+// dtype; h_final (B,H,P,N) fp32; work: B H ceil(S / 64) (64 x 68 + 2 x 129)
+// floats (per chunk its decayed scores, rows padded to 68, then per chunk
+// its 129 decays in fp64).  (P, N) = (1025, 1024) only;
+// S >= 1; every pointer 16-byte aligned.
 int ssm_scan_wide_fwd(const void* x, const void* a_log, const void* b,
                       const void* c, void* y, void* h_final, void* work, int B,
                       int S, int H, int P, int N, int dtype, void* stream) {

@@ -16,9 +16,11 @@ gated_chunked_scan`` (the Mamba2 SSD core).  :func:`ssm_scan`:
   Mamba2's heads, goes to ``csrc/ssm_scan.cu``; (1025, 1024), the mLSTM
   of xlstm-1.3b (its head dim and the normalizer's ones-channel), to the
   wide-state kernel of ``csrc/ssm_scan_wide.cu``, which keeps the state in
-  fp32 slices of 16 rows, runs C h^T as 3xTF32 and the state update as
-  fp64 products on the tensor cores, and takes its long sums in fp64 (its
-  decayed scores into a workspace this wrapper allocates); any other
+  fp32 slices of 32 rows (the normalizer row in a block of its own),
+  streams b and c through a ring of shared-memory stages by cp.async,
+  runs C h^T and the state update as TF32 products on the tensor cores
+  (three passes in fp32, two in bf16) and takes its long sums in fp64
+  (its decayed scores into a workspace this wrapper allocates); any other
   (P, N) raises.  The (64, 64) kernel runs its products on the tensor
   cores: fp32 as three TF32 products each (fp32 accuracy), bf16 as bf16
   products with fp32 sums, its fp32 operands (the decayed scores, the
@@ -77,9 +79,9 @@ def _wide_fn():
 
 def wide_work_floats(bt: int, s: int, h: int) -> int:
     """Floats of the wide kernel's workspace: per (batch row, head, 64-row
-    chunk) its decayed scores (64 x 64 fp32) and decays (2 x 64 + 1
-    fp64)."""
-    return bt * h * -(-s // _LC_WIDE) * (_LC_WIDE * _LC_WIDE
+    chunk) its decayed scores (64 x 64 fp32, rows padded to 68 so that
+    each is 16-byte aligned) and decays (2 x 64 + 1 fp64)."""
+    return bt * h * -(-s // _LC_WIDE) * (_LC_WIDE * (_LC_WIDE + 4)
                                          + 2 * (2 * _LC_WIDE + 1))
 
 

@@ -14,12 +14,14 @@ Port of ``repro.serve.engine``:
 Both run on ``device="cuda"`` unless told otherwise, and raise if no card
 is present; ``device="cpu"`` serves through the kernels' plain versions.
 Params are cast once to the compute dtype and moved to the device at
-construction.  Deliberate differences from JAX: a request that could
-never be admitted (its budget is wider than a slot's table or the whole
-pool) raises ``ValueError`` instead of looping forever; the continuous
-engine refuses the vlm family at construction, where the reference's
-admits it and then fails in its first prefill (its ``_start`` passes no
-``vision_embeds``).  Distributed serving (``mesh=``) is not ported yet.
+construction, but for the norms' ``scale`` and ``bias`` and the
+family's ``FP32_LEAVES``, which stay fp32 as the reference reads them.
+Deliberate differences from JAX: a request that could never be admitted
+(its budget is wider than a slot's table or the whole pool) raises
+``ValueError`` instead of looping forever; the continuous engine refuses
+the vlm family at construction, where the reference's admits it and then
+fails in its first prefill (its ``_start`` passes no ``vision_embeds``).
+Distributed serving (``mesh=``) is not ported yet.
 """
 from __future__ import annotations
 
@@ -58,13 +60,21 @@ def _extract_params(state_or_params):
     return params
 
 
+# The norms' leaves: the reference's engines keep params as passed, and
+# its rmsnorm and layernorm multiply fp32 activations by an fp32 ``scale``
+# and add an fp32 ``bias`` (no other leaf of any family has these names).
+NORM_LEAVES = ("scale", "bias")
+
+
 def _place(params: PyTree, device: torch.device, dtype,
            keep_fp32: tuple = ()) -> PyTree:
     """Params on ``device``, floating leaves cast to ``dtype`` — once, here
-    — except the leaves named in ``keep_fp32`` (the family's
-    ``FP32_LEAVES``: per-head scalars the reference reads in fp32), which
-    stay fp32.  Leaves already in place are shared with the caller, not
-    copied."""
+    — except the norms' ``NORM_LEAVES`` and the leaves named in
+    ``keep_fp32`` (the family's ``FP32_LEAVES``: per-head scalars the
+    reference reads in fp32), which stay fp32.  Leaves already in place
+    are shared with the caller, not copied."""
+    keep_fp32 = NORM_LEAVES + tuple(keep_fp32)
+
     def leaf(path, t):
         if not t.is_floating_point():
             return t.to(device)

@@ -281,9 +281,10 @@ def test_wrapper_takes_both_widths_off_the_cpu_and_refuses_the_rest():
     args[0] = args[0].requires_grad_(True)
     with pytest.raises(RuntimeError, match="no backward"):
         K.ssm_scan(*args)
-    # the workspace: per 64-row chunk 64 x 64 fp32 scores, 129 fp64 decays
-    assert K.wide_work_floats(16, 512, 1) == 16 * 8 * (4096 + 258)
-    assert K.wide_work_floats(16, 301, 1) == 16 * 5 * (4096 + 258)
+    # the workspace: per 64-row chunk 64 x 64 fp32 scores in rows padded
+    # to 68 (16-byte aligned rows), 129 fp64 decays
+    assert K.wide_work_floats(16, 512, 1) == 16 * 8 * (64 * 68 + 258)
+    assert K.wide_work_floats(16, 301, 1) == 16 * 5 * (64 * 68 + 258)
 
 
 # ------------------------------------------------------------ Mamba2 pieces
