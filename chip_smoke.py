@@ -90,7 +90,8 @@ Phases, one JSON line each:
    shapes (M = 4 x 512; the three projection shapes of a stacked layer,
    scale tile rows 8; the head, tile rows 1; one ragged case), then at
    zamba2's Mamba2 projections (in_proj (2560, 10448), whose last column
-   tile is partial, and out_proj (5120, 2560)), int8 and NF4, fp32 x
+   tile is partial, and out_proj (5120, 2560)) and xlstm's (the mLSTM's
+   gates (4096, 4), the sLSTM's w_zifo (2048, 8192)), int8 and NF4, fp32 x
    (CUDA cores, ``dequant_matmul``) and bf16 x (tensor cores,
    ``dequant_matmul_bf16``): decode bit-exact (x = the identity) and the
    product within tolerance, with its time, the plain version's, the
@@ -214,9 +215,32 @@ Phases, one JSON line each:
    c. ``serve_xlstm_card_vs_cpu``, last: one super-block (8 layers) at
       full width, fp32: the same greedy tokens, prefill logits within
       ``XLSTM_LOGIT_TOL``.
+20. xlstm training (``phase_train_xlstm``, run after ``train_streamed``
+   and before ``train_fused_full``; ``--only xlstm`` runs it too, its CPU
+   side in the same process and its fused and NF4 runs at all 48 layers);
+   the mLSTM trains through the plain chunked scan and the sLSTM through
+   its Python time loop under autograd, as the reference trains, so no
+   scan kernel is launched (the run fails if one is):
+   a. ``train_xlstm_full``: xlstm-1.3b at its published config, fp32,
+      AdamW, 4 x 512: HiFT m=1 (fused, in place) over embed (a backward
+      through all 48 layers), mLSTM 0, sLSTM 0, mLSTM 41, sLSTM 5, the
+      head and the head again, with host ms, peak allocated and reserved
+      beside the analytic P+G+S and the update kernel's ms; the embed step
+      again, broken down (``xlstm_train_breakdown``: the sLSTM loop's and
+      the chunked scan's shares of the host time in the forward, the
+      recompute and the backward, the GEMMs' share of the busy time, the
+      device's idle share); one FPFT step at full depth and the saving;
+      ``lomo`` (clip 1.0), ``adalomo`` and ``mezo`` one step each at 16 of
+      the 48 layers (6 GiB gate over the analytic P+G+S); NF4 HiFT at 16
+      layers from a tree encoded leaf by leaf (embed, mLSTM 0), the
+      dequant kernel's ms and launches;
+   b. ``train_xlstm_card_vs_cpu``: one super-block (8 layers) at full
+      width, fp32, 1 x 128: HiFT m=1 over embed, mLSTM 0, sLSTM 0 and the
+      head, then one ``lomo`` step, losses and grad norms within 1e-4.
 
 The CPU halves of the in-process card-against-CPU phases (6, 8a, the
-fused, quantized and hybrid training, then 19c's serving) run one after
+fused, quantized and hybrid training, then 20b's training and 19c's
+serving) run one after
 another in a thread of their own from before the build (``CpuHalves``),
 beside the card's kernel and serving phases; each draws its params on the
 CPU, and its phase takes them for the card's half and compares.  The CPU
@@ -792,20 +816,26 @@ def profile_summary(prof, host_ms: float, calls: int = 1, top: int = 8,
     """The device side of a ``torch.profiler`` run, per call: busy ms (the
     sum of kernel times), idle share against ``host_ms`` (the host clock
     per call), the top kernels, and for each ``key=substring`` in ``named``
-    the ms of the kernels whose name holds the substring."""
+    the ms of the kernels whose name holds the substring.  Read from the
+    profiler's raw device events, summed by name here: ``key_averages``
+    builds a Python event a kernel first, a minute for the ~300,000 of an
+    xlstm training step."""
     from torch.autograd import DeviceType
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    dev_us = [getattr(e, "self_device_time_total", 0.0) for e in kernels]
-    busy_ms = sum(dev_us) / 1e3 / calls
+    by_name = {}                        # name -> [device ns, calls]
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            acc = by_name.setdefault(e.name(), [0, 0])
+            acc[0] += e.duration_ns()
+            acc[1] += 1
+    busy_ms = sum(ns for ns, _ in by_name.values()) / 1e6 / calls
     out = dict(host_ms=host_ms, device_busy_ms=busy_ms,
                device_idle_share=1 - busy_ms / host_ms)
     for key, sub in named.items():
-        out[key] = sum(us for us, e in zip(dev_us, kernels)
-                       if sub in e.key) / 1e3 / calls
-    ranked = sorted(zip(dev_us, kernels), key=lambda t: -t[0])[:top]
-    out["top_kernels"] = [dict(name=e.key[:80], ms=us / 1e3 / calls,
-                               calls=e.count / calls) for us, e in ranked]
+        out[key] = sum(ns for name, (ns, _) in by_name.items()
+                       if sub in name) / 1e6 / calls
+    ranked = sorted(by_name.items(), key=lambda t: -t[1][0])[:top]
+    out["top_kernels"] = [dict(name=name[:80], ms=ns / 1e6 / calls,
+                               calls=n / calls) for name, (ns, n) in ranked]
     return out
 
 
@@ -2701,6 +2731,19 @@ def mamba_dequant_cases(cfg):
             for name, k, n in shapes]
 
 
+def xlstm_dequant_cases(cfg):
+    """(case, fmt, dtype, K, N, stacked) at the xlstm layers' projections
+    that no other family has: the mLSTM's gates ``w_i``/``w_f`` (d_inner,
+    heads) = (4096, 4), one partial column tile four columns wide, and
+    the sLSTM's ``w_zifo`` (d_model, 4 d_model) = (2048, 8192)."""
+    di = cfg.expand * cfg.d_model
+    shapes = [("mlstm w_i/w_f", di, cfg.n_heads),
+              ("slstm w_zifo", cfg.d_model, 4 * cfg.d_model)]
+    return [(f"{name} {fmt} {dtype}", fmt, dtype, k, n, True)
+            for fmt in ("nf4", "int8") for dtype in ("float32", "bfloat16")
+            for name, k, n in shapes]
+
+
 def dequant_inputs(torch, fmt, dt, m, k, n, stacked, gen):
     """(x, view): random x and a codec view of random weights encoded on
     the card; a stacked leaf gives layer 1 of a 2-layer stack (scale tile
@@ -2724,7 +2767,8 @@ def phase_dequant_kernel(torch):
     x runs on the tensor cores (``dequant_matmul_bf16``, bound at the bf16
     tensor-core rate), fp32 x on the CUDA cores (``dequant_matmul``).
     After llama2-7b's shapes, zamba2's Mamba2 projections
-    (``mamba_dequant_cases``: N = 10448 ends in a partial column tile)."""
+    (``mamba_dequant_cases``: N = 10448 ends in a partial column tile) and
+    xlstm's (``xlstm_dequant_cases``: N = 4, one partial tile)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import dequant_matmul as DM
     from repro_torch.kernels import ref
@@ -2734,7 +2778,8 @@ def phase_dequant_kernel(torch):
     results = {}
     for case, fmt, dtype, k, n, stacked in (
             dequant_cases(cfg)
-            + mamba_dequant_cases(get_config("zamba2-2.7b"))):
+            + mamba_dequant_cases(get_config("zamba2-2.7b"))
+            + xlstm_dequant_cases(get_config("xlstm-1.3b"))):
         dt = getattr(torch, dtype)
         x, view = dequant_inputs(torch, fmt, dt, m, k, n, stacked, gen)
         eye = torch.eye(k, dtype=dt, device="cuda")
@@ -4829,6 +4874,361 @@ def phase_xlstm(torch) -> tuple[dict, dict]:
     return rows, launches
 
 
+# ------------------------------------------------------------ xlstm training
+
+XLSTM_TRAIN_LR = 1e-4      # card against CPU
+XLSTM_TRAIN_SEQ = 128      # batch 1 x XLSTM_TRAIN_SEQ
+XLSTM_TRAIN_RTOL = 1e-4    # card against CPU: losses and grad norms
+# The HiFT groups of the card-against-CPU runs, in their visit order: the
+# embedding's (a backward through every layer), the first mLSTM and the
+# first sLSTM (each a backward through the super-block), the head.
+XLSTM_TRAIN_GROUPS = ("embed", "mlstm[0:1]", "slstm[0:1]", "head")
+
+
+def xlstm_train_side(torch, cfg, params, dev: str) -> dict:
+    """One device's side of the xlstm card-against-CPU training, from
+    ``params`` (fp32, on the CPU) and the same batches of 1 x
+    ``XLSTM_TRAIN_SEQ`` tokens: HiFT m=1 (AdamW) over
+    ``XLSTM_TRAIN_GROUPS``, then one ``lomo`` step (clip 1.0); per run
+    the losses, grad norms, groups, seconds and a sample of the final
+    params.  On the card the HiFT steps must run the fused AdamW once each
+    and training must launch no scan kernel (neither has a backward)."""
+    from repro_torch.core import (HiFTConfig, LOMOConfig, LRSchedule,
+                                  make_runner)
+    from repro_torch.kernels import fused_update as FU
+    from repro_torch.kernels import ssm_scan as S
+    n_hift = len(XLSTM_TRAIN_GROUPS)
+    batches = train_batches(cfg, XLSTM_TRAIN_SEQ, 1, n_hift, "cpu")
+    out = {}
+    for strategy, kw, n in (("hift", dict(hift=HiFTConfig(m=1),
+                                          optimizer="adamw"), n_hift),
+                            ("lomo", dict(lomo=LOMOConfig(grad_clip=1.0)), 1)):
+        runner = make_runner(cfg, strategy, params=params, device=dev,
+                             schedule=LRSchedule(base_lr=XLSTM_TRAIN_LR),
+                             **kw)
+        if strategy == "hift":
+            _visit_first(runner, XLSTM_TRAIN_GROUPS)
+        if dev == "cuda":
+            S.reset_launches()
+        fu = FU.fused_adamw_update.launches
+        t0 = time.perf_counter()
+        losses, norms, groups = [], [], []
+        for b in batches[:n]:
+            losses.append(float(runner.train_step(b)))
+            g = runner.last_metrics.get("grad_norm")
+            norms.append(None if g is None else float(g))
+            groups.append(runner.last_metrics.get("group"))
+        secs = time.perf_counter() - t0
+        if dev == "cuda":
+            if S.ssm_scan.launches or S.ssm_scan.launches_wide:
+                raise RuntimeError("xlstm training launched a scan kernel, "
+                                   "which has no backward")
+            if strategy == "hift" and \
+                    FU.fused_adamw_update.launches - fu != n:
+                raise RuntimeError("the card's xlstm HiFT steps did not run "
+                                   "the fused AdamW once each")
+        out[strategy] = dict(losses=losses, norms=norms, groups=groups,
+                             seconds=secs,
+                             params={k: _sample(t) for k, t in
+                                     _flat(runner.params).items()})
+        del runner
+    return out
+
+
+def xlstm_train_cpu(torch, cfg=None):
+    """The CPU half of ``phase_train_xlstm_card_vs_cpu`` (``CpuHalves``
+    runs it beside the card's phases): the config (one super-block, 8
+    layers, of xlstm-1.3b unless given), the fp32 params of seed 0 drawn
+    on the CPU, and the CPU's side."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import xlstm as X
+    cfg = cfg or dataclasses.replace(get_config("xlstm-1.3b"), n_layers=8)
+    params = X.init(cfg, torch.Generator().manual_seed(0), device="cpu",
+                    dtype=torch.float32)
+    return cfg, params, xlstm_train_side(torch, cfg, params, "cpu")
+
+
+def phase_train_xlstm_card_vs_cpu(torch, cfg=None, devices=("cpu", "cuda"),
+                                  cpu=None):
+    """xlstm training, card against CPU, from the same fp32 params: one
+    super-block (7 mLSTM and 1 sLSTM layers) of xlstm-1.3b at full width,
+    batch 1 x ``XLSTM_TRAIN_SEQ``: HiFT m=1 through the embed, mLSTM 0,
+    sLSTM 0 and the head, then one ``lomo`` step (clip 1.0).  Losses and
+    grad norms within ``XLSTM_TRAIN_RTOL``, the params' sample within
+    2 lr + 1e-6 (HiFT's AdamW: its first update is about lr sign(g), so a
+    near-zero gradient that rounds to the other sign on one device moves
+    its element 2 lr apart) and ``FUSED_PARAM_TOL["lomo"]``.  ``cpu`` is
+    the CPU half (``xlstm_train_cpu``), run here when None;
+    ``cfg``/``devices`` let the phase run small on the CPU alone (its
+    second side on ``devices[1]``)."""
+    cfg, params, first = cpu or xlstm_train_cpu(torch, cfg)
+    second = xlstm_train_side(torch, cfg, params, devices[1])
+    tols = {"hift": 2 * XLSTM_TRAIN_LR + 1e-6,
+            "lomo": FUSED_PARAM_TOL["lomo"]}
+    for run, param_tol in tols.items():
+        x, y = first[run], second[run]
+        rel, nrel, gap, _, worst = train_gaps(x, y)
+        emit("train_xlstm_card_vs_cpu", arch=cfg.name, run=run,
+             n_layers=cfg.n_layers, d_model=cfg.d_model, batch=1,
+             seq=XLSTM_TRAIN_SEQ, lr=XLSTM_TRAIN_LR, groups=x["groups"],
+             cpu_losses=x["losses"], cuda_losses=y["losses"],
+             cpu_grad_norms=x["norms"], cuda_grad_norms=y["norms"],
+             max_rel_loss_gap=rel, max_rel_grad_norm_gap=nrel,
+             rtol=XLSTM_TRAIN_RTOL, max_param_gap=gap, worst_leaf=worst,
+             param_sample=f"every {MOE_SAMPLE}th element",
+             param_tol=param_tol, cpu_seconds=x["seconds"],
+             cuda_seconds=y["seconds"])
+        if (not all(math.isfinite(v) for v in y["losses"])
+                or rel > XLSTM_TRAIN_RTOL or nrel > XLSTM_TRAIN_RTOL
+                or gap > param_tol):
+            raise RuntimeError(f"{cfg.name} {run}: card and CPU differ: "
+                               f"losses {x['losses']} {y['losses']}, norms "
+                               f"{x['norms']} {y['norms']}, param gap {gap} "
+                               f"({worst})")
+    del params
+    gc.collect()
+
+
+def xlstm_train_breakdown(torch, runner, batch) -> dict:
+    """Where one xlstm training step's time goes (run it on the embed
+    group: a forward, a recompute and a backward through every layer),
+    in one step under ``torch.profiler`` (device activity only: the step
+    launches some 300,000 kernels) with synchronised timers: the sLSTM
+    loop's calls (``xlstm._slstm_scan``) and the mLSTM's chunked scan's
+    (``mamba2.gated_chunked_scan``) in the forward and in the recomputes,
+    and the backward of each (from the gradient reaching the call's output
+    to the gradient leaving its input, tensor hooks, less the recomputes
+    in between), each a share of the step's host time; from the profile
+    the busy ms, the device's idle share, the GEMMs' share of the busy
+    time and the top kernels.  The timers' ~200 synchronisations wait
+    for work already queued, so they add little idle time."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import mamba2 as M
+    from repro_torch.models import xlstm as X
+    cuda = torch.cuda
+    task = getattr(torch._C, "_current_graph_task_id", lambda: -1)
+    calls, spans = [], []          # (part, kind, t0, t1); [part, t0, t1]
+
+    def stamp(span, i):
+        def hook(grad):
+            cuda.synchronize()
+            span[i] = time.perf_counter()
+        return hook
+
+    def timed(fn, part, arg):
+        def wrapped(*args, **kw):
+            cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            cuda.synchronize()
+            kind = "forward" if task() == -1 else "recompute"
+            calls.append((part, kind, t0, time.perf_counter()))
+            y, x = out[0], args[arg]
+            if kind == "forward" and y.requires_grad and x.requires_grad:
+                span = [part, None, None]
+                y.register_hook(stamp(span, 1))
+                x.register_hook(stamp(span, 2))
+                spans.append(span)
+            return out
+        return wrapped
+
+    loop, scan = X._slstm_scan, M.gated_chunked_scan
+    X._slstm_scan = timed(loop, "slstm_loop", 1)
+    M.gated_chunked_scan = timed(scan, "chunked_scan", 0)
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = float(runner.train_step(batch))
+            cuda.synchronize()
+            total = time.perf_counter() - t0
+    finally:
+        X._slstm_scan, M.gated_chunked_scan = loop, scan
+    shares = {}
+    for part in ("slstm_loop", "chunked_scan"):
+        for kind in ("forward", "recompute"):
+            shares[f"{part}_{kind}"] = sum(
+                t1 - t0 for p, k, t0, t1 in calls
+                if p == part and k == kind) / total
+        back = 0.0
+        for p, s0, s1 in spans:
+            if p == part and s0 is not None and s1 is not None:
+                back += (s1 - s0) - sum(t1 - t0 for q, k, t0, t1 in calls
+                                        if q == part and k == "recompute"
+                                        and s0 <= t0 <= s1)
+        shares[f"{part}_backward"] = back / total
+        shares[part] = sum(v for k, v in shares.items()
+                           if k.startswith(part + "_"))
+    prof_out = profile_summary(prof, 1e3 * total, top=10, gemm_ms="gemm")
+    return dict(group=runner.last_metrics["group"], loss=loss,
+                host_ms=1e3 * total,
+                calls={part: sum(p == part for p, *_ in calls)
+                       for part in ("slstm_loop", "chunked_scan")},
+                backward_spans=len(spans), shares=shares,
+                gemm_share=prof_out["gemm_ms"] / prof_out["device_busy_ms"],
+                profile=prof_out)
+
+
+def phase_train_xlstm_full(torch, fused_layers=None):
+    """xlstm-1.3b at its published config (48 layers: 42 mLSTM, 6 sLSTM;
+    3,529,631,912 params), random fp32 weights from seed 0, batch 4 x
+    512:
+
+    - HiFT m=1, AdamW (fused, trained in place): the embed step (a
+      backward through all 48 layers), mLSTM 0, sLSTM 0, the last mLSTM
+      (41), sLSTM 5, the head, then the head again (a revisit: its 0.8 GB
+      bundle back from pinned host memory): host ms, peak allocated and
+      reserved beside the analytic P+G+S, the update kernel's device ms;
+      then the embed group again for ``xlstm_train_breakdown``;
+    - one FPFT step (AdamW, fused) at full depth from fresh params: its
+      peak beside the analytic, and the saving measured and analytic;
+    - ``lomo`` (clip 1.0), ``adalomo`` and ``mezo``, one step each: a
+      peak more than ``FUSED_ALLOWANCE_GIB`` over the analytic P+G+S
+      fails the run;
+    - NF4 HiFT (bf16 moments) from a tree encoded leaf by leaf: the embed
+      step and mLSTM 0, with the dequant kernel's device ms and launches.
+
+    ``fused_layers``: the depth of the fused and NF4 runs (None: all 48).
+    Training launches no scan kernel: the mLSTM trains through the plain
+    chunked scan.  Returns the kernels' launches over the HiFT, FPFT and
+    NF4 runs."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import (HiFTConfig, LOMOConfig, LRSchedule,
+                                  QuantConfig, make_runner)
+    from repro_torch.kernels import dequant_matmul as DM
+    from repro_torch.kernels import ssm_scan as S
+    from repro_torch.models import xlstm as X
+    cfg = get_config("xlstm-1.3b")
+    short = dataclasses.replace(cfg, n_layers=fused_layers or cfg.n_layers)
+    batches = train_batches(cfg, 512, 4, 2, "cuda")
+    sched = LRSchedule(base_lr=1e-5)
+    secs = {}
+    S.reset_launches()
+
+    def fresh(c=cfg):
+        gc.collect()
+        torch.cuda.empty_cache()
+        return X.init(c, torch.Generator(device="cuda").manual_seed(0),
+                      device="cuda", dtype=torch.float32)
+
+    t0 = time.perf_counter()
+    base = torch.cuda.memory_allocated()
+    params = fresh()
+    hift_pgs = analytic(cfg).pgs_gb
+    rows = []
+    visits = ("embed", "mlstm[0:1]", "slstm[0:1]", "mlstm[41:42]",
+              "slstm[5:6]", "head", "head")
+    with UpdateTimer(torch) as timer:   # counts the main path's run only
+        runner = make_runner(cfg, "hift", params=params, optimizer="adamw",
+                             hift=HiFTConfig(m=1), schedule=sched,
+                             device="cuda")
+        _visit_first(runner, visits + ("embed",))
+        for i in range(len(visits)):
+            row = fused_step(torch, runner, batches[i % 2], base, timer=timer)
+            row["visit"] = sum(r["group"] == row["group"] for r in rows) + 1
+            rows.append(row)
+            emit("train_xlstm_step", arch=cfg.name, strategy="hift",
+                 analytic_pgs_gib=hift_pgs,
+                 over_analytic_gib=row["peak_allocated_gib"] - hift_pgs,
+                 **row)
+        secs["hift"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        emit("train_xlstm_breakdown", arch=cfg.name, batch=4, seq=512,
+             **xlstm_train_breakdown(torch, runner, batches[0]))
+        secs["breakdown"] = time.perf_counter() - t0
+        launches = timer.launches()
+        del runner
+    del params
+    t0 = time.perf_counter()
+    with UpdateTimer(torch) as timer:
+        params = fresh()
+        runner = make_runner(cfg, "fpft", params=params, optimizer="adamw",
+                             fused_update=True, schedule=sched,
+                             device="cuda")
+        del params
+        fpft = fused_step(torch, runner, batches[0], base, timer=timer)
+        launches["fused_adamw"] += timer.launches()["fused_adamw"]
+        del runner
+    fpft_pgs = analytic(cfg, "fpft").pgs_gb
+    emit("train_xlstm_step", arch=cfg.name, strategy="fpft",
+         analytic_pgs_gib=fpft_pgs,
+         over_analytic_gib=fpft["peak_allocated_gib"] - fpft_pgs, **fpft)
+    hift_peak = max(r["peak_allocated_gib"] for r in rows)
+    emit("train_xlstm_memory", arch=cfg.name, dtype="float32", batch=4,
+         seq=512, n_params=analytic(cfg).n_params,
+         hift_peak_gib=hift_peak, fpft_peak_gib=fpft["peak_allocated_gib"],
+         hift_analytic_gib=hift_pgs, fpft_analytic_gib=fpft_pgs,
+         saving=1 - hift_peak / fpft["peak_allocated_gib"],
+         analytic_saving=1 - hift_pgs / fpft_pgs,
+         host_ms=[[r["group"], r["host_ms"]] for r in rows],
+         fpft_host_ms=fpft["host_ms"])
+    secs["fpft"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    params = fresh(short)
+    for strategy, kw in (("lomo", {"lomo": LOMOConfig(grad_clip=1.0)}),
+                         ("adalomo", {}), ("mezo", {})):
+        runner = make_runner(short, strategy, params=params, schedule=sched,
+                             device="cuda", **kw)
+        st = runner.strategy
+        pgs = analytic(short, st.memory_mode, m=st.memory_m).pgs_gb
+        row = fused_step(torch, runner, batches[0], base)
+        emit("train_xlstm_step", arch=cfg.name, n_layers=short.n_layers,
+             strategy=strategy, m=st.memory_m, analytic_pgs_gib=pgs,
+             analytic_m1_pgs_gib=analytic(short, st.memory_mode).pgs_gb,
+             over_analytic_gib=row["peak_allocated_gib"] - pgs, **row)
+        if row["peak_allocated_gib"] - pgs > FUSED_ALLOWANCE_GIB:
+            raise RuntimeError(f"{cfg.name} {strategy}: peak "
+                               f"{row['peak_allocated_gib']:.2f} GiB exceeds "
+                               f"the analytic {pgs:.2f} GiB by more than "
+                               f"{FUSED_ALLOWANCE_GIB} GiB")
+        del runner
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params
+    secs["fused"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    quant = QuantConfig("nf4", "bf16")
+    params = encoded_init(torch, short, "nf4")
+    DM.reset_launches()
+    with UpdateTimer(torch) as timer, UpdateTimer(torch, DM) as dq:
+        _nf4_steps(torch, short, params, batches, timer, dq, quant,
+                   "train_xlstm_quant_step")
+        launches["fused_adamw"] += timer.launches()["fused_adamw"]
+    del params
+    secs["nf4"] = time.perf_counter() - t0
+    launches["dequant_matmul"] = DM.dequant_matmul.launches - \
+        DM.dequant_matmul.launches_tc
+    if not launches["dequant_matmul"] or not launches["fused_adamw"]:
+        raise RuntimeError(f"xlstm training never launched a kernel: "
+                           f"{launches}")
+    if S.ssm_scan.launches or S.ssm_scan.launches_wide:
+        raise RuntimeError("xlstm training launched a scan kernel, which "
+                           "has no backward")
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("train_xlstm_launches", launches=launches, seconds=secs,
+         fused_layers=short.n_layers)
+    return launches
+
+
+def phase_train_xlstm(torch, cpu=None, fused_layers=None) -> dict:
+    """The xlstm family trained on the card: ``phase_train_xlstm_full``,
+    then the card against the CPU (``cpu``: the CPU half, a
+    ``CpuHalves`` job's result, or run here when None).  Each part's
+    seconds in a line; returns the kernels' launches over the main-path
+    runs."""
+    secs = {}
+    t0 = time.perf_counter()
+    launches = phase_train_xlstm_full(torch, fused_layers)
+    secs["train_xlstm_full"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_train_xlstm_card_vs_cpu(torch, cpu=cpu)
+    torch.cuda.empty_cache()
+    secs["train_xlstm_card_vs_cpu"] = time.perf_counter() - t0
+    emit("train_xlstm_seconds", seconds=secs, total=sum(secs.values()))
+    return launches
+
+
 def cpu_side(path: str, families: str) -> int:
     """The CPU sides of the moe and encdec card-against-CPU training, of
     each of ``families`` (comma-separated) in turn, pickled to ``path`` as
@@ -5099,6 +5499,7 @@ def main(argv=None) -> int:
         ("train_fused_card_vs_cpu", lambda: fused_train_cpu(torch)),
         ("train_quant_card_vs_cpu", lambda: quant_train_cpu(torch)),
         ("train_hybrid_card_vs_cpu", lambda: hybrid_train_cpu(torch)),
+        ("train_xlstm_card_vs_cpu", lambda: xlstm_train_cpu(torch)),
         ("serve_xlstm_card_vs_cpu", lambda: xlstm_serve_side(torch, "cpu"))])
     t0 = time.perf_counter()
     libs = build.build_all()
@@ -5117,6 +5518,7 @@ def main(argv=None) -> int:
                                f"SASS: {inst}")
     if args.only == "xlstm":
         phase_xlstm(torch)
+        phase_train_xlstm(torch)            # the fused and NF4 runs at 48
         phase_serve_xlstm_card_vs_cpu(torch, xlstm_serve_side(torch, "cpu"))
     elif args.only:
         {"moe_vlm": phase_moe_vlm, "encdec": phase_encdec}[args.only](torch)
@@ -5215,6 +5617,19 @@ def main(argv=None) -> int:
             for name, n in phase(torch).items():
                 launches[name] += n
             lap(phase.__name__[len("phase_"):])
+        # xlstm training: the fused AdamW and, under NF4 residency, the
+        # dequant kernel; the mLSTM trains through the plain chunked scan,
+        # as the reference trains through its jnp scan.  Here, before the
+        # moe/encdec child starts, its card-against-CPU part takes its CPU
+        # half (8 layers' 3 GB of params held since) and frees it: at the
+        # script's end the child's ~30 GB beside it left the host 7.9 GiB
+        # in moe_vlm.  The fused and NF4 runs at 16 of the 48 layers, to
+        # keep the script near half its limit (``--only xlstm``: at 48).
+        for name, n in phase_train_xlstm(
+                torch, cpu.take("train_xlstm_card_vs_cpu"),
+                fused_layers=16).items():
+            launches[name] = launches.get(name, 0) + n
+        lap("train_xlstm")
         # the moe and encdec training's CPU sides, in a child process beside
         # the last full-size training phases, whose host cores are otherwise
         # idle; not before: beside train_streamed's pinned moments the
@@ -5223,8 +5638,8 @@ def main(argv=None) -> int:
         phase_train_fused_full(torch)
         lap("train_fused_full")
         quant = phase_train_quant_full(torch)
-        launches.update({k: quant[k] for k in ("dequant_matmul",
-                                               "dequant_matmul_bf16")})
+        for name in ("dequant_matmul", "dequant_matmul_bf16"):
+            launches[name] = launches.get(name, 0) + quant[name]
         lap("train_quant_full")
         # hybrid training (zamba2): the fused AdamW and, under NF4
         # residency, the dequant kernel; the training scan is plain torch,

@@ -7,10 +7,10 @@
     loss = runner.train_step(batch)
 
 It runs on the card (``device="cuda"``, raising when there is none)
-unless the caller passes ``device="cpu"``, for the dense, hybrid
-(zamba2), vlm (internvl2-26b's backbone), moe (deepseek-moe-16b,
-arctic-480b) and encdec (seamless-m4t-large-v2) families.  Every
-strategy of the reference is ported: ``hift``, ``hift_pipelined``,
+unless the caller passes ``device="cpu"``, for every model family: dense,
+hybrid (zamba2), vlm (internvl2-26b's backbone), moe (deepseek-moe-16b,
+arctic-480b), encdec (seamless-m4t-large-v2) and xlstm (xlstm-1.3b).
+Every strategy of the reference is ported: ``hift``, ``hift_pipelined``,
 ``lisa``, ``fpft``, ``fpft_streamed``, ``mezo``, ``lomo`` and
 ``adalomo``.
 """
@@ -24,8 +24,8 @@ _REGISTRY: dict[str, type] = {}
 # optimizers with a fused update kernel (kernels/csrc/fused_update.cu)
 FUSED_OPTIMIZERS = ("adamw", "sgdm", "adagrad")
 # model families with a ported training path (models/transformer.py,
-# models/zamba2.py, models/moe.py, models/encdec.py)
-TRAINED_FAMILIES = ("dense", "hybrid", "vlm", "moe", "encdec")
+# models/zamba2.py, models/moe.py, models/encdec.py, models/xlstm.py)
+TRAINED_FAMILIES = ("dense", "hybrid", "vlm", "moe", "encdec", "xlstm")
 
 
 def register_strategy(name: str):
@@ -92,8 +92,8 @@ def make_runner(cfg, strategy: str = "hift", *, params: Any = None,
     ``stream_window``: ``fpft_streamed``'s chunk size in bytes
     (``StreamConfig.chunk_bytes``).
 
-    ``mesh``, ``cross_pod`` and the families outside
-    ``TRAINED_FAMILIES`` (xlstm) are not ported yet and raise.
+    ``mesh`` and ``cross_pod`` are not ported yet and raise, as does a
+    family outside ``TRAINED_FAMILIES``.
     Remaining kwargs go to the strategy (``schedule``, ``policy``,
     ``loss_fn``, ``hift=``, ``lisa=``, ``stream=``, ``mezo=``, ``lomo=``,
     ``adalomo=``)."""

@@ -15,6 +15,7 @@ hift_pipelined, lisa, fpft, fpft_streamed, mezo, lomo, adalomo).
     ... --arch deepseek-moe-16b ...   # moe family (arctic-480b too)
     ... --arch internvl2-26b ...      # vlm family
     ... --arch seamless-m4t-large-v2 ...   # encdec family
+    ... --arch xlstm-1.3b ...         # xlstm family
 
 The reference's flags for the ported surface (``--fpft`` its deprecated
 alias for ``--strategy fpft``), plus ``--device`` (default

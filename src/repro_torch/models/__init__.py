@@ -1,11 +1,10 @@
 """Model-family registry (port of ``repro.models.get_family``).
 
-Ported: the dense family and the vlm family (its LM backbone, the same
-module, as in the reference), the hybrid family (zamba2), the moe family
-(deepseek-moe-16b, arctic-480b) and the encdec family
-(seamless-m4t-large-v2), each for serving and training, and the xlstm
-family (xlstm-1.3b) for serving; ``core.make_runner`` refuses to train
-it.  The family-dispatching ``unit_first_depth`` lives in
+Ported, each for serving and training: the dense family and the vlm
+family (its LM backbone, the same module, as in the reference), the
+hybrid family (zamba2), the moe family (deepseek-moe-16b, arctic-480b),
+the encdec family (seamless-m4t-large-v2) and the xlstm family
+(xlstm-1.3b).  The family-dispatching ``unit_first_depth`` lives in
 ``models.base``.
 """
 import importlib

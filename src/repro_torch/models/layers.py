@@ -40,6 +40,14 @@ def weight(w):
     return Q.view_of(w) if Q.is_quantized(w) else w
 
 
+def decoded(w) -> torch.Tensor:
+    """A leaf used whole (elementwise, or in a product of its own): the
+    tensor itself, or a frozen layer's codec view (quantized residency)
+    decoded here, inside the layer's forward (and again in its
+    checkpointed recompute), so no decoded copy outlives its use."""
+    return w.decode() if isinstance(w, QuantView) else w
+
+
 def embed_lookup(tok, tokens: torch.Tensor) -> torch.Tensor:
     """Rows ``tokens`` of the embedding table; of a codec record, the
     gathered rows of its codes and scales, decoded."""

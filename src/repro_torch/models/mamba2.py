@@ -24,7 +24,6 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.dist.quant import QuantView
 from repro_torch.kernels import ref
 from repro_torch.kernels.ssm_scan import ssm_scan
 from repro_torch.models import layers as L
@@ -147,11 +146,6 @@ def mamba2_prefill(p, x: torch.Tensor, cfg: ArchConfig, chunk: int = 128):
     return y @ p["out_proj"].to(x.dtype), state.float(), conv_in[:, -(W - 1):]
 
 
-def _dense(w) -> torch.Tensor:
-    """A leaf used elementwise: a codec view decoded (template dtype)."""
-    return w.decode() if isinstance(w, QuantView) else w
-
-
 def mamba2_forward(p, x: torch.Tensor, cfg: ArchConfig, chunk: int = 128):
     """Full-sequence training forward of one Mamba2 block.  x: (B, S, D),
     already normed -> (B, S, D).
@@ -165,7 +159,7 @@ def mamba2_forward(p, x: torch.Tensor, cfg: ArchConfig, chunk: int = 128):
     h, n = cfg.ssm_heads, cfg.ssm_state
     z, xin, Bm, Cm, dt = _split_proj(cfg, L.linear(x, p["in_proj"]))
     conv_in = torch.cat([xin, Bm, Cm], dim=-1)
-    conv_out, _ = _depthwise_conv(conv_in, _dense(p["conv_w"]), p["conv_b"])
+    conv_out, _ = _depthwise_conv(conv_in, L.decoded(p["conv_w"]), p["conv_b"])
     conv_out = F.silu(conv_out)
     xin, Bm, Cm = torch.split(conv_out, [di, n, n], dim=-1)
     dt = _softplus(dt.float() + p["dt_bias"].float())

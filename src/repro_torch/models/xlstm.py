@@ -1,6 +1,6 @@
-"""xLSTM LM for serving: mLSTM (matrix memory, chunk-parallel prompt pass)
-and sLSTM (scalar memory, sequential) blocks, ratio (slstm_every-1):1
-(port of ``repro.models.xlstm``).
+"""xLSTM LM: mLSTM (matrix memory, chunk-parallel) and sLSTM (scalar
+memory, sequential) blocks, ratio (slstm_every-1):1 (port of
+``repro.models.xlstm``), served and trained.
 
 mLSTM recurrence per head (state C: (hd + 1) x hd, its last row the
 normalizer n):
@@ -26,22 +26,34 @@ returns its scan's state in x's dtype (in bf16 serving it rounds the
 state entering decode to bf16).  As in the reference, the prefill masks
 no left pad: pad tokens (token 0) run through both recurrences.
 
-Training (``apply``, ``loss_fn``, ``lomo_pieces``) is not ported yet:
-``core.make_runner`` refuses the family.
+Training: ``apply``, ``loss_fn`` and ``lomo_pieces``, with the
+reference's ``unit_spec`` and ``unit_first_depth``.  Each mLSTM block
+trains through ``mlstm_forward``: the prompt pass's ops with the plain
+chunked scan (``mamba2.gated_chunked_scan``) under
+``torch.utils.checkpoint``, as the reference trains through its jnp scan
+under ``jax.checkpoint``; the wide kernel has no backward.  The sLSTM
+trains through its Python time loop under autograd.  The HiFT cut is
+rounded down to a super-block, as in the reference.  Any leaf may be a
+codec record (quantized residency): the embedding decodes its gathered
+rows, every 2-d projection and the head multiply through the
+dequant-matmul kernel (``layers.linear``), the sLSTM's recurrent weights
+are decoded at use and the ``(L, d)`` stacks come decoded.
 """
 from __future__ import annotations
 
 import math
-from typing import Any
+from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.pytree import tree_map
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.ssm_scan import ssm_scan
 from repro_torch.models import layers as L
-from repro_torch.models.base import Unit, dense_unit
+from repro_torch.models import mamba2 as M
+from repro_torch.models.base import LomoPieces, Unit, dense_unit, layer_at
 
 PyTree = Any
 # leaves the reference reads in fp32 whatever the compute dtype: the forget
@@ -89,13 +101,13 @@ def mlstm_init(gen: torch.Generator, cfg: ArchConfig, *, lead=(),
 def _mlstm_qkvgates(p, hn: torch.Tensor, cfg: ArchConfig):
     b, s, _ = hn.shape
     _, H, hd = _dims(cfg)
-    x_in = hn @ p["w_up"].to(hn.dtype)
-    z = hn @ p["w_gate"].to(hn.dtype)
-    q = (x_in @ p["wq"].to(hn.dtype)).reshape(b, s, H, hd) / math.sqrt(hd)
-    k = (x_in @ p["wk"].to(hn.dtype)).reshape(b, s, H, hd)
-    v = (x_in @ p["wv"].to(hn.dtype)).reshape(b, s, H, hd)
-    i_gate = torch.sigmoid((x_in @ p["w_i"].to(hn.dtype)).float())
-    f_raw = (x_in @ p["w_f"].to(hn.dtype)).float() + p["b_f"].float()
+    x_in = L.linear(hn, p["w_up"])
+    z = L.linear(hn, p["w_gate"])
+    q = L.linear(x_in, p["wq"]).reshape(b, s, H, hd) / math.sqrt(hd)
+    k = L.linear(x_in, p["wk"]).reshape(b, s, H, hd)
+    v = L.linear(x_in, p["wv"]).reshape(b, s, H, hd)
+    i_gate = torch.sigmoid(L.linear(x_in, p["w_i"]).float())
+    f_raw = L.linear(x_in, p["w_f"]).float() + p["b_f"].float()
     return x_in, z, q, k, v, i_gate, F.logsigmoid(f_raw)
 
 
@@ -104,27 +116,59 @@ def _with_ones(v: torch.Tensor) -> torch.Tensor:
     return torch.cat([v, torch.ones_like(v[..., :1])], dim=-1)
 
 
-def mlstm_prefill(p, h: torch.Tensor, cfg: ArchConfig):
-    """The prompt pass of one mLSTM block (the reference's
-    ``prefill.mlstm_prefill``).  h: (B, S, D).  Returns (h + the block's
-    output, the final state C (B, H, hd + 1, hd) fp32)."""
+def _mlstm_mix(p, h: torch.Tensor, cfg: ArchConfig, scan):
+    """One mLSTM block up to its output projection: the norm, the
+    projections and gates, the heads folded into the batch (per-head k and
+    q act as the scan's b and c, v gains the normalizer's ones-channel),
+    ``scan(x, a_log, b, c) -> (y, state)``, the normalized readout, the
+    output norm and gate.  Returns (y (B, S, di), the scan's state)."""
     b, s, _ = h.shape
     di, H, hd = _dims(cfg)
     hn = L.rmsnorm(p["ln"], h)
     _, z, q, k, v, i_gate, f_log = _mlstm_qkvgates(p, hn, cfg)
     x_scaled = _with_ones(v) * i_gate[..., None].to(v.dtype)   # (B,S,H,hd+1)
-    # heads folded into the batch: per-head k and q act as the scan's b, c
     xs = x_scaled.transpose(1, 2).reshape(b * H, s, 1, hd + 1)
     a_log = f_log.transpose(1, 2).reshape(b * H, s, 1)
     bm = k.transpose(1, 2).reshape(b * H, s, hd)
     cm = q.transpose(1, 2).reshape(b * H, s, hd)
-    y_aug, state = ssm_scan(xs, a_log, bm, cm)
+    y_aug, state = scan(xs, a_log, bm, cm)
     y_aug = y_aug.reshape(b, H, s, hd + 1)
     y = (y_aug[..., :hd]
          / torch.clamp(y_aug[..., hd:].abs(), min=1.0)).to(h.dtype)
     y = y.transpose(1, 2).reshape(b, s, di)
-    y = L.rmsnorm(p["out_norm"], y) * F.silu(z)
-    return h + y @ p["w_down"].to(h.dtype), state.reshape(b, H, hd + 1, hd)
+    return L.rmsnorm(p["out_norm"], y) * F.silu(z), state
+
+
+def mlstm_prefill(p, h: torch.Tensor, cfg: ArchConfig):
+    """The prompt pass of one mLSTM block (the reference's
+    ``prefill.mlstm_prefill``) through ``kernels.ssm_scan``.  h: (B, S,
+    D).  Returns (h + the block's output, the final state C (B, H, hd + 1,
+    hd) fp32)."""
+    _, H, hd = _dims(cfg)
+    y, state = _mlstm_mix(p, h, cfg, ssm_scan)
+    return (h + y @ p["w_down"].to(h.dtype),
+            state.reshape(h.shape[0], H, hd + 1, hd))
+
+
+def mlstm_forward(p, h: torch.Tensor, cfg: ArchConfig, chunk: int = 128):
+    """The training forward of one mLSTM block (the reference's
+    ``mlstm_forward``), h: (B, S, D) -> (B, S, D).  The prompt pass's ops
+    with the plain chunked scan, run under ``torch.utils.checkpoint`` when
+    grad is enabled, as the reference wraps its scan in
+    ``jax.checkpoint``: the scan's chunk states are recomputed in the
+    backward instead of saved."""
+
+    def scan(*args):
+        return M.gated_chunked_scan(*args, chunk=chunk)[0]
+
+    def train_scan(*args):
+        if torch.is_grad_enabled():
+            return checkpoint(scan, *args, use_reentrant=False,
+                              preserve_rng_state=False), None
+        return scan(*args), None
+
+    y, _ = _mlstm_mix(p, h, cfg, train_scan)
+    return h + L.linear(y, p["w_down"])
 
 
 def mlstm_decode(p, h: torch.Tensor, cfg: ArchConfig, C: torch.Tensor):
@@ -179,7 +223,8 @@ def _slstm_scan(p, x_gates: torch.Tensor, cfg: ArchConfig, state: dict):
     H = cfg.n_heads
     dh = d // H
     # r_z | r_i | r_f | r_o: one (H, dh, 4 dh) product a step
-    r = torch.cat([p[k].float() for k in ("r_z", "r_i", "r_f", "r_o")], -1)
+    r = torch.cat([L.decoded(p[k]).float()
+                   for k in ("r_z", "r_i", "r_f", "r_o")], -1)
     xg = x_gates.float().reshape(b, s, 4, H, dh)
     c, n, hprev, m = state["c"], state["n"], state["h"], state["m"]
     ys = []
@@ -207,11 +252,11 @@ def slstm_forward(p, h: torch.Tensor, cfg: ArchConfig, state=None):
     """One sLSTM block over (B, S, D) from ``state`` (zeros if None).
     Returns (h + the block's output, the new state)."""
     hn = L.rmsnorm(p["ln"], h)
-    xg = hn @ p["w_zifo"].to(h.dtype) + p["b_zifo"].to(h.dtype)
+    xg = L.linear(hn, p["w_zifo"]) + p["b_zifo"].to(h.dtype)
     if state is None:
         state = slstm_zero_state(cfg, h.shape[0], h.device)
     ys, st = _slstm_scan(p, xg, cfg, state)
-    return h + ys.to(h.dtype) @ p["w_out"].to(h.dtype), st
+    return h + L.linear(ys.to(h.dtype), p["w_out"]), st
 
 
 def slstm_zero_state(cfg: ArchConfig, batch: int, device="cpu") -> dict:
@@ -263,6 +308,132 @@ def unit_first_depth(cfg: ArchConfig, unit: Unit) -> int:
     if unit.key == "slstm":
         return unit.index * cfg.slstm_every + m_per
     return cfg.n_layers        # head
+
+
+# ---------------------------------------------------------------- training
+
+def _super_block(cfg: ArchConfig):
+    """``block(h, mlstm_layers, slstm_layer) -> h``: the super-block's
+    ``slstm_every - 1`` mLSTM blocks, then its sLSTM block."""
+
+    def block(h, mlstm_layers, slstm_layer):
+        for p in mlstm_layers:
+            h = mlstm_forward(p, h, cfg)
+        return slstm_forward(slstm_layer, h, cfg)[0]
+    return block
+
+
+def _sb_layers(cfg: ArchConfig, params: PyTree, sb: int):
+    """Super-block ``sb``'s mLSTM layers and its sLSTM layer, one at a time
+    from whichever piece of a ``LayerStack`` holds each (a HiFT group may
+    straddle a super-block)."""
+    m_per = cfg.slstm_every - 1
+    return ([layer_at(params["mlstm"], i)
+             for i in range(sb * m_per, (sb + 1) * m_per)],
+            layer_at(params["slstm"], sb))
+
+
+def apply(cfg: ArchConfig, params: PyTree, batch, cut: Optional[int] = None,
+          compute_dtype=torch.bfloat16, return_hidden: bool = False):
+    """Training forward -> logits (B, S, V) float32 (or the final hidden
+    states with ``return_hidden``).
+
+    ``params["mlstm"]`` and ``params["slstm"]`` are each the stacked
+    sub-tree or a ``models.base.LayerStack``.  ``cut``: the HiFT backward
+    cut, rounded down to a super-block as the reference rounds it
+    (``sb_cut = min(cut // slstm_every, n_sb)``).  None = FPFT.  Otherwise
+    the embedding's output is detached, super-blocks below ``sb_cut`` run
+    without a graph and the activation entering super-block ``sb_cut`` is
+    detached.  Each super-block that records a graph runs under
+    ``torch.utils.checkpoint`` when the config asks for
+    ``remat="layer"``."""
+    h = L.embed_lookup(params["embed"]["tok"],
+                       batch["tokens"]).to(compute_dtype)
+    n_sb = _n_sb(cfg)
+    sb_cut = 0
+    if cut is not None:
+        h = h.detach()
+        sb_cut = min(cut // cfg.slstm_every, n_sb)
+    block = _super_block(cfg)
+    remat = cfg.remat == "layer"
+    for sb in range(n_sb):
+        layers = _sb_layers(cfg, params, sb)
+        if sb < sb_cut:
+            with torch.no_grad():
+                h = block(h, *layers)
+            continue
+        if sb == sb_cut and sb_cut:
+            h = h.detach()
+        if remat and torch.is_grad_enabled():
+            h = checkpoint(block, h, *layers, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            h = block(h, *layers)
+    h = L.rmsnorm(params["head"]["final_norm"], h)
+    if return_hidden:
+        return h
+    return L.linear(h, L.weight(params["head"]["w"])).float()
+
+
+def loss_fn(cfg: ArchConfig, params: PyTree, batch, cut: Optional[int] = None,
+            compute_dtype=torch.bfloat16):
+    """Next-token cross-entropy (chunked: never materializes (B, S, V))."""
+    from repro_torch.models.losses import chunked_next_token_xent
+    h = apply(cfg, params, batch, cut=cut, compute_dtype=compute_dtype,
+              return_hidden=True)
+    return chunked_next_token_xent(h, L.weight(params["head"]["w"]),
+                                   batch["labels"], chunk=cfg.ce_chunk or None)
+
+
+def lomo_pieces(cfg: ArchConfig, compute_dtype=torch.bfloat16) -> LomoPieces:
+    """Segmented forward for the fused-backward strategies.
+
+    The fused grain is one SUPER-BLOCK (``slstm_every - 1`` mLSTM blocks
+    and one sLSTM block), as in the reference: the two stacked segments
+    interleave at that period, so a grain's slice is the tree
+    ``{"mlstm": (m_per, ...), "slstm": (...)}`` and ``liveness_m =
+    slstm_every``.  ``split`` reshapes ``mlstm`` from ``(n_m, ...)`` to
+    ``(n_sb, m_per, ...)`` as VIEWS (``Tensor.view``, which raises rather
+    than copy): ``lomo`` and ``adalomo`` update those slices in place.
+    No shared segment; the head is untied."""
+    from repro_torch.models.losses import chunked_next_token_xent
+    n_sb, m_per = _n_sb(cfg), cfg.slstm_every - 1
+    sb_block = _super_block(cfg)
+
+    def embed_init(embed_p, prev, batch):
+        del prev
+        return L.embed_lookup(embed_p["tok"],
+                              batch["tokens"]).to(compute_dtype), None
+
+    def block(sb_p, shared_p, side, h):
+        del shared_p, side
+        return sb_block(h, [layer_at(sb_p["mlstm"], j) for j in range(m_per)],
+                        sb_p["slstm"])
+
+    def head_loss(head_p, embed_p, h, batch):
+        del embed_p  # untied head
+        h = L.rmsnorm(head_p["final_norm"], h)
+        return chunked_next_token_xent(h, L.weight(head_p["w"]),
+                                       batch["labels"],
+                                       chunk=cfg.ce_chunk or None)
+
+    def split(params):
+        m_sb = tree_map(lambda x: x.view((n_sb, m_per) + tuple(x.shape[1:])),
+                        params["mlstm"])
+        return (params["embed"], ({"mlstm": m_sb, "slstm": params["slstm"]},),
+                None, params["head"])
+
+    def merge(ep, stages, sp, hp):
+        del sp
+        mlstm = tree_map(
+            lambda x: x.view((x.shape[0] * x.shape[1],) + tuple(x.shape[2:])),
+            stages[0]["mlstm"])
+        return {"embed": ep, "mlstm": mlstm, "slstm": stages[0]["slstm"],
+                "head": hp}
+
+    return LomoPieces(stage_keys=("blocks",), stage_fns=(block,),
+                      stage_inits=(embed_init,), head_loss_fn=head_loss,
+                      split=split, merge=merge, liveness_m=cfg.slstm_every)
 
 
 # ---------------------------------------------------------------- serving

@@ -172,12 +172,12 @@ def test_continuous_batching_and_training_raise():
     _, tp = _params()
     with pytest.raises(ValueError, match="dense"):
         TE.ContinuousServeEngine(CFG, tp, device="cpu")
-    # hybrid training is ported (test_torch_hybrid_training); a family
-    # still unported raises
+    # hybrid training is ported (test_torch_hybrid_training); a family no
+    # module has raises
     assert make_runner(CFG, "hift", params=tp, device="cpu").k == \
         CFG.n_layers + 3
-    with pytest.raises(NotImplementedError, match="'xlstm'"):
-        make_runner(dataclasses.replace(CFG, family="xlstm"), "hift",
+    with pytest.raises(NotImplementedError, match="'rwkv'"):
+        make_runner(dataclasses.replace(CFG, family="rwkv"), "hift",
                     params=tp, device="cpu")
     from repro_torch.launch import serve
     with pytest.raises(ValueError, match="dense"):

@@ -53,7 +53,8 @@ def _shapes(arch):
 HYBRID = "zamba2_2_7b"
 # the moe, vlm and remaining dense configs, and the encdec one
 MORE = ["deepseek_7b", "internlm2_1_8b", "smollm_360m", "internvl2_26b",
-        "deepseek_moe_16b", "arctic_480b", "seamless_m4t_large_v2"]
+        "deepseek_moe_16b", "arctic_480b", "seamless_m4t_large_v2",
+        "xlstm_1_3b"]
 
 
 @pytest.mark.parametrize("arch", PAPER_IDS + [HYBRID] + MORE)
@@ -128,12 +129,15 @@ def test_zamba2_prices_as_the_reference():
     ("internlm2_1_8b", {("hift", None): 9.16}),
     ("smollm_360m", {("hift", None): 2.05}),
     ("seamless_m4t_large_v2", {("hift", None): 9.03, ("fpft", None): 24.35,
-                               ("hift", "nf4"): 3.72})])
+                               ("hift", "nf4"): 3.72}),
+    ("xlstm_1_3b", {("hift", None): 14.30, ("fpft", None): 52.60,
+                    ("hift", "nf4"): 2.81})])
 def test_new_archs_price_as_the_reference(arch, pgs):
     """AdamW, m=1, fp32 P+G+S in GiB (NF4 residency with bf16 moments
     where the codec is named): deepseek-moe-16b's HiFT fits one 80 GB card
     where FPFT needs more than three (a 72.4 % saving); internvl2-26b's
-    fp32 HiFT does not fit, its NF4 HiFT does."""
+    fp32 HiFT does not fit, its NF4 HiFT does; xlstm-1.3b's HiFT saves
+    72.8 % of FPFT's P+G+S."""
     units, shapes = _shapes(arch)
     for (mode, codec), want in pgs.items():
         kw = dict(optimizer="adamw", precision="fp32", mode=mode, m=1,
@@ -141,7 +145,8 @@ def test_new_archs_price_as_the_reference(arch, pgs):
                   moment_dtype="bf16" if codec else "fp32")
         got = TM.analyze(shapes, units, **kw)
         assert round(got.pgs_gb, 2) == want, (mode, codec)
-    saving = {"deepseek_moe_16b": 72.4, "seamless_m4t_large_v2": 62.9}
+    saving = {"deepseek_moe_16b": 72.4, "seamless_m4t_large_v2": 62.9,
+              "xlstm_1_3b": 72.8}
     if arch in saving:
         h, f = (TM.analyze(shapes, units, mode=m) for m in ("hift", "fpft"))
         assert round(100 * (1 - h.pgs_gb / f.pgs_gb), 1) == saving[arch]
@@ -152,6 +157,17 @@ def test_new_archs_price_as_the_reference(arch, pgs):
         assert h.peak_trainable == 256_256 * 1024 + 1024 * 1024
         for mode, want in (("lomo", 7.07), ("adalomo", 7.08),
                            ("mezo", 6.09)):
+            got = TM.analyze(shapes, units, mode=mode,
+                             optimizer="adafactor" if mode == "adalomo"
+                             else "adamw")
+            assert round(got.pgs_gb, 2) == want, mode
+    if arch == "xlstm_1_3b":
+        # 42 mLSTM and 6 sLSTM layers; the largest group is the head (its
+        # weight and final norm), the embedding 2,048 params below it
+        assert h.n_params == 3_529_631_912
+        assert h.peak_trainable == 2048 * 50304 + 2048 == 103_024_640
+        for mode, want in (("lomo", 13.53), ("adalomo", 13.54),
+                           ("mezo", 13.15)):
             got = TM.analyze(shapes, units, mode=mode,
                              optimizer="adafactor" if mode == "adalomo"
                              else "adamw")

@@ -303,7 +303,8 @@ def _jax(jcfg, npp, strategy, **kw):
 
 
 def run_both(jcfg, cfg, npp, strategy, steps, pkw=None, jkw=None,
-             update="linear", start_grads=None, batches=None):
+             update="linear", start_grads=None, batches=None,
+             bound_only=None):
     """``steps`` steps of both runners on the same batches, held as
     ``test_torch_hybrid_training._run_both`` holds them: "linear" losses
     and params within 1e-5; "adam" losses within 1e-5 (2e-4 from the third
@@ -315,7 +316,10 @@ def run_both(jcfg, cfg, npp, strategy, steps, pkw=None, jkw=None,
     elements of a HiFT m = 2 run, each gradient below 4e-10; 12.5 % of
     layer 1's under 1e-7), so a router may hold one expert's columns
     (1/E of the leaf) of such elements.  ``batches(n, seed=)``: the
-    family's batches (default: tokens and labels of ``cfg``)."""
+    family's batches (default: tokens and labels of ``cfg``).
+    ``bound_only``: {path: index} of elements whose true gradient is zero
+    (both packages' gradients rounding), held under "adam" to the 2-lr
+    bound alone."""
     tr = _port(cfg, npp, strategy, **(pkw or {}))
     jr = _jax(jcfg, npp, strategy, **(jkw or {}))
     bs = batches(steps, seed=1) if batches else _batches(cfg, steps, seed=1)
@@ -333,6 +337,10 @@ def run_both(jcfg, cfg, npp, strategy, steps, pkw=None, jkw=None,
             g, w = g[keep], w[keep]
         d = np.abs(g - w)
         if update == "adam":
+            if path in (bound_only or {}):
+                assert d[bound_only[path]].max() <= 2 * LR * steps + 1e-5, \
+                    (strategy, path)
+                d[bound_only[path]] = 0.0
             share = 1 / cfg.n_experts if path.endswith("moe/router") \
                 else 1e-3
             assert (d > 1e-5).sum() <= share * d.size, (strategy, path)

@@ -28,7 +28,8 @@ shows.
   further (up to 3.5e-2 of the leaf's largest entry here) while the leaf
   as a whole stays within 1.7e-2;
 - the launcher at ``--smoke --device cpu``; the published config's
-  parameter count on the meta device; training still refused.
+  parameter count on the meta device; ``make_runner`` builds an xlstm
+  runner and continuous batching refuses the family.
 """
 import dataclasses
 
@@ -290,9 +291,17 @@ def test_registry_init_and_parameter_count():
 
 
 def test_training_and_continuous_batching_refuse_xlstm():
+    """Named when the family did not train: ``make_runner`` now builds an
+    xlstm runner (HiFT m=1: embed, the four layers and the head, six
+    groups; training is held against JAX in
+    ``test_torch_xlstm_training``), and continuous batching still
+    refuses the family (its state has no paged cache)."""
     _, tp = _params()
-    with pytest.raises(NotImplementedError, match="'xlstm'"):
-        make_runner(CFG, "hift", params=tp, device="cpu")
+    runner = make_runner(CFG, "hift", params=tp, device="cpu")
+    assert runner.k == 6
+    assert [runner.group_for_step(s).label() for s in range(6)] == [
+        "g0(embed)", "g1(mlstm[0:1])", "g2(slstm[0:1])", "g3(mlstm[1:2])",
+        "g4(slstm[1:2])", "g5(head)"]
     with pytest.raises(ValueError, match="dense"):
         TE.ContinuousServeEngine(CFG, tp, device="cpu")
 
