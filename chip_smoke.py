@@ -36,8 +36,8 @@ Phases, one JSON line each:
 6. training, card against CPU at fp32: 3 HiFT steps with AdamW (embed,
    layer 0, head) of a 1-layer model at llama2-7b width;
 7. training at full size: llama2-7b (32 layers, fp32, remat per layer),
-   HiFT m=1 at batch 4 x 512 — AdamW bottom2up and top2down, then
-   SGD-momentum and AdaGrad — with host time, peak memory and the update
+   HiFT m=1 at batch 4 x 512 — AdamW bottom2up (embed, layer 0) and
+   top2down (head), then SGD-momentum and AdaGrad — with host time, peak memory and the update
    kernel's device time per step, the update kernels' launches counted
    over that run, and a profile of a layer-group step; then two full-size
    steps under Mixed^Hi (bf16 params, fp32 master of the active group);
@@ -56,8 +56,8 @@ Phases, one JSON line each:
    c. FPFT against HiFT on gpt-neo-2.7b at full depth (one step each):
       both peaks, both analytic figures and the saving;
    d. ``get_config(optimized=True)`` (the balanced causal schedule)
-      against the default on gpt2-large at 1 x 2048: losses equal, both
-      step times;
+      against the default on gpt2-large at 1 x 2048, the embed step of
+      each in turns ABBA: losses equal, both step times;
    e. checkpoint and resume of roberta-large at full size through the
       training loop's async save: the resumed run equal to a straight one,
       with the checkpoint's bytes and save and restore seconds;
@@ -97,7 +97,7 @@ Phases, one JSON line each:
    product within tolerance, with its time, the plain version's, the
    time of ``torch.matmul`` on the pre-decoded weight, and the bound;
 10. codes on the card equal codes on the CPU: a llama2-7b layer group and
-   the head, both formats;
+   the head, both formats (the CPU's encode in the ``CpuHalves`` thread);
 11. quantized training, card against CPU: 3 HiFT steps of a 1-layer model
    at llama2-7b width with ``QuantConfig("nf4", "bf16")``;
 12. quantized training at full width: llama2-7b at 16 of its 32 layers,
@@ -111,7 +111,8 @@ Phases, one JSON line each:
    NF4 step;
    then hybrid training (zamba2; its Mamba2 blocks train through the
    plain chunked scan, as the reference trains through its jnp scan):
-   a. card against CPU (``train_hybrid_card_vs_cpu``): 12 layers (2
+   a. card against CPU (``train_hybrid_card_vs_cpu``, run between 8f and
+      8g, where its CPU half is done): 12 layers (2
       super-blocks) at zamba2-2.7b's width, slow-decay SSM scalars, fp32,
       2 x 64: 4 HiFT steps (m = 4, top2down: the shared block's group,
       whose cut rounds down to super-block 1, then layers of both
@@ -120,8 +121,9 @@ Phases, one JSON line each:
       the scan kernel never launched by training, and its refusal of an
       input that requires grad under grad mode;
    b. zamba2-2.7b at its published config (``train_hybrid_full``), fp32,
-      4 x 512: HiFT m=1 (embed, layer 0, head, shared, layer 53), FPFT,
-      ``lomo``, ``adalomo`` and ``mezo`` with step time and peak allocated
+      4 x 512: HiFT m=1 (embed, layer 0, head, shared, layer 53), then
+      one step each of FPFT, ``lomo``, ``adalomo`` and ``mezo``, with step
+      time and peak allocated
       and reserved memory beside the analytic P+G+S (the fused and MeZO
       peaks failing the run more than 6 GiB over it), the FPFT-vs-HiFT
       saving beside the analytic one, then NF4 HiFT with the dequant
@@ -162,8 +164,8 @@ Phases, one JSON line each:
       analytic P+G+S and FPFT's, ``lomo`` and ``mezo`` (6 GiB gate), NF4
       HiFT from a tree encoded leaf by leaf;
    d. ``train_dense_vlm_full``: deepseek-7b (embed, head), internlm2-1.8b
-      and smollm-360m fp32 HiFT, internvl2-26b NF4 HiFT with 256 vision
-      tokens (its fp32 tree does not fit);
+      and smollm-360m fp32 HiFT, internvl2-26b NF4 HiFT at 16 of its 48
+      layers with 256 vision tokens (its fp32 tree does not fit);
    e. ``serve_moe_vlm_full``: deepseek-moe-16b, internvl2-26b and
       smollm-360m (also continuous) in bf16, 4 ragged prompts, 16 new
       tokens: prefill ms, decode-step ms, tokens/s, launches;
@@ -217,34 +219,55 @@ Phases, one JSON line each:
       ``XLSTM_LOGIT_TOL``.
 20. xlstm training (``phase_train_xlstm``, run after ``train_streamed``
    and before ``train_fused_full``; ``--only xlstm`` runs it too, its CPU
-   side in the same process and its fused and NF4 runs at all 48 layers);
+   side in the same process and every run at all 48 layers);
    the mLSTM trains through the plain chunked scan and the sLSTM through
    its Python time loop under autograd, as the reference trains, so no
    scan kernel is launched (the run fails if one is):
-   a. ``train_xlstm_full``: xlstm-1.3b at its published config, fp32,
-      AdamW, 4 x 512: HiFT m=1 (fused, in place) over embed (a backward
-      through all 48 layers), mLSTM 0, sLSTM 0, mLSTM 41, sLSTM 5, the
-      head and the head again, with host ms, peak allocated and reserved
+   a. ``train_xlstm_full``: xlstm-1.3b at its published width and 16 of
+      its 48 layers (two super-blocks), fp32, AdamW, 4 x 512: HiFT m=1
+      (fused, in place) over embed (a backward through every layer),
+      mLSTM 0, sLSTM 0, mLSTM 13, sLSTM 1, the head and the head again,
+      with host ms, peak allocated and reserved
       beside the analytic P+G+S and the update kernel's ms; the embed step
       again, broken down (``xlstm_train_breakdown``: the sLSTM loop's and
       the chunked scan's shares of the host time in the forward, the
       recompute and the backward, the GEMMs' share of the busy time, the
-      device's idle share); one FPFT step at full depth and the saving;
-      ``lomo`` (clip 1.0), ``adalomo`` and ``mezo`` one step each at 16 of
-      the 48 layers (6 GiB gate over the analytic P+G+S); NF4 HiFT at 16
-      layers from a tree encoded leaf by leaf (embed, mLSTM 0), the
-      dequant kernel's ms and launches;
+      device's idle share); one FPFT step and the saving; ``lomo`` (clip
+      1.0), ``adalomo`` and ``mezo`` one step each (6 GiB gate over the
+      analytic P+G+S); NF4 HiFT from a tree encoded leaf by leaf (embed,
+      mLSTM 0), the dequant kernel's ms and launches;
    b. ``train_xlstm_card_vs_cpu``: one super-block (8 layers) at full
       width, fp32, 1 x 128: HiFT m=1 over embed, mLSTM 0, sLSTM 0 and the
       head, then one ``lomo`` step, losses and grad norms within 1e-4.
+21. distributed training at a world of one (``phase_train_dist``, run
+   last, after the moe/encdec child has exited: its pinned bundles beside
+   the child's memory overran the host; ``--only dist`` builds and runs
+   only it, its CPU side in line): the cross-pod reduce
+   (``CrossPodConfig(pods=2)``, the int8 error-feedback codec) card against
+   CPU at 2 layers of gpt2-large; ``init_distributed`` through NCCL with a
+   ``FileStore`` and a 1x1 ``DeviceMesh``; gpt2-large at full size, fp32,
+   AdamW, 4 x 512, HiFT m = 10 (4 groups): a sweep of plain HiFT, HiFT on
+   the mesh (losses within 1e-6 relative) and cross-pod HiFT, a step of
+   each in turn, then 2 revisits (host ms per
+   group kind, the codec's share, peaks beside the memory model's with
+   ``ef_pods=2``, a profiled step); FPFT plain and cross-pod peaks; a
+   checkpoint under the mesh restored onto a fresh mesh-built runner with
+   ``restore_state(strategy=)``, 2 steps bit-equal; ``moe_ffn_spmd`` at
+   tp = 1 equal to ``moe_ffn`` bit for bit at deepseek-moe-16b's width
+   (at tp = 1 both run the same whole-range dispatch: the check holds the
+   context's path, not the model-axis split, which only the gloo tests
+   reach).  Its fused AdamW launches join row 4's count.
 
 The CPU halves of the in-process card-against-CPU phases (6, 8a, the
-fused, quantized and hybrid training, then 20b's training and 19c's
-serving) run one after
+fused training, 10's codes, the quantized and hybrid training, then 20b's
+training, 21's cross-pod training and 19c's serving) run one after
 another in a thread of their own from before the build (``CpuHalves``),
 beside the card's kernel and serving phases; each draws its params on the
-CPU, and its phase takes them for the card's half and compares.  The CPU
-sides of 17b and 18b run in one child process (``CpuSide``) from 8i on,
+CPU, and its phase takes them for the card's half and compares, where
+the thread has had the time to finish it (the ``cpu_half`` line gives the
+job's start, its seconds and the take's wait; each line's ``at_s`` the
+seconds since the start).  The CPU
+sides of 17b and 18b run in one child process (``CpuSide``) from 20 on,
 when the host's cores are otherwise idle.  The card waits on neither: the
 script's time is the card's phases' and their host work's (the host's
 least available memory over each phase is in the ``seconds`` line).
@@ -311,20 +334,20 @@ SOURCES = {
 def analytic(cfg, mode: str = "hift", precision: str = "fp32",
              optimizer: str = "adamw", frozen=None, moments: str = "fp32",
              stream_depth: int = 2, stream_chunk_bytes: int = 1 << 20,
-             m: int = 1):
+             m: int = 1, ef_pods: int = 0):
     """The port's Appendix-B model of ``cfg`` (``core.memory_model.analyze``
     on its meta-device shapes, m=1 unless given): a ``MemoryReport`` whose
     ``pgs_gb`` is the analytic P+G+S in GiB, a model, not a measurement.
     ``stream_depth``: the bundles of ``hift_pipelined`` or the chunks of
     ``fpft_streamed`` on the device; ``stream_chunk_bytes``: the latter's
-    chunk size."""
+    chunk size; ``ef_pods``: the cross-pod reduce's residuals."""
     from repro_torch.core.memory_model import analyze, param_shapes
     from repro_torch.models import get_family
     return analyze(param_shapes(cfg), get_family(cfg).unit_spec(cfg),
                    optimizer=optimizer, precision=precision, mode=mode, m=m,
                    frozen_quant=frozen, moment_dtype=moments,
                    stream_depth=stream_depth,
-                   stream_chunk_bytes=stream_chunk_bytes)
+                   stream_chunk_bytes=stream_chunk_bytes, ef_pods=ef_pods)
 
 
 # The dequant-matmul kernel against its plain version (decode, then one
@@ -339,8 +362,14 @@ DEQUANT_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 UPDATE_ULP_TOL = 0
 
 
+_START = time.perf_counter()
+
+
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One JSON line: the phase, its figures and ``at_s``, the seconds
+    since the script was imported."""
+    print(json.dumps({"phase": phase, **kw,
+                      "at_s": time.perf_counter() - _START}), flush=True)
 
 
 # ------------------------------------------------------------ measurement
@@ -627,7 +656,8 @@ def phase_kernels(torch, cases=None):
         sets = [args] + [make_inputs(torch, kernel, dt, sh, gen)
                          for _ in range(copies(nbytes) - 1)]
         ms = time_ms(torch, wrappers[kernel], sets)
-        plain_ms = time_ms(torch, plains[kernel], sets)
+        # the plain version's several launches a call: fewer rounds
+        plain_ms = time_ms(torch, plains[kernel], sets, reps=3, launches=10)
         lib = [library_call(torch, kernel, a, sh["h"], sh["kvh"])
                for a in sets]
         library_ms = None if lib[0] is None else time_ms(
@@ -1243,11 +1273,12 @@ def _group_kind(label: str) -> str:
 
 def phase_train_full(torch):
     """llama2-7b at full depth and width, fp32, HiFT m=1, batch 4 x 512:
-    AdamW 3 steps bottom2up (embed, layers 0 and 1) and 2 top2down (head,
-    layer 31) from fresh runners, then SGD-momentum and AdaGrad 2 steps
-    each top2down.  The runners train the same resident params in place.
-    Per step: host clock (to a synchronise), peak memory (reset per step)
-    and the update kernel's device time (CUDA events around its launches).
+    AdamW 2 steps bottom2up (embed, layer 0) and 1 top2down (head) from
+    fresh runners, then SGD-momentum and AdaGrad 1 step each top2down
+    (9 steps in all took 16.5 s of the whole script's 760.0 on an H100).
+    The runners train the same resident params in place.  Per step: host
+    clock (to a synchronise), peak memory (reset per step) and the update
+    kernel's device time (CUDA events around its launches).
     The update kernels' launches are counted over this run; then one more
     AdamW layer-group step runs under ``torch.profiler``."""
     from repro_torch.common.pytree import tree_bytes
@@ -1260,9 +1291,10 @@ def phase_train_full(torch):
                     device="cuda", dtype=torch.float32)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    batches = train_batches(cfg, 512, 4, 10, "cuda")
-    plan = [("adamw", "bottom2up", 3), ("adamw", "top2down", 2),
-            ("sgdm", "top2down", 2), ("adagrad", "top2down", 2)]
+    plan = [("adamw", "bottom2up", 2), ("adamw", "top2down", 1),
+            ("sgdm", "top2down", 1), ("adagrad", "top2down", 1)]
+    batches = train_batches(cfg, 512, 4, sum(n for *_, n in plan) + 1,
+                            "cuda")
     steps = []
     with UpdateTimer(torch) as timer:   # counts the main path's run only
         for opt, order, n in plan:
@@ -1284,7 +1316,7 @@ def phase_train_full(torch):
         raise RuntimeError(f"update kernels never launched on the training "
                            f"path: {missing}")
     phase_train_profile(torch, cfg, params, batches[-1])
-    full = steps[:3]
+    full = steps[:2]
     emit("train_full_size_vs_model", policy="fp32",
          peak_memory_gib=max(s["peak_memory_bytes"] for s in full) / 2**30,
          analytic_pgs_gib=analytic(cfg).pgs_gb)
@@ -1581,17 +1613,18 @@ def phase_train_balanced(torch):
     """``get_config(optimized=True)`` (the balanced causal schedule)
     against the default on gpt2-large at full size, fp32, HiFT m=1 AdamW,
     one 2048-token sequence (4 q blocks of 512): in turns default,
-    balanced, balanced, default, two steps each (embed, layer 0) from the
-    same params; every turn's losses within ``BALANCED_RTOL`` of the
-    first's, and each turn's step times.  No speed-up is expected: the
-    port runs one loop for both schedules."""
+    balanced, balanced, default, one step each (embed: a backward through
+    every layer; two steps each took 18.9 s of the whole script's 760.0 on
+    an H100) from the same params; every turn's loss within
+    ``BALANCED_RTOL`` of the first's, and each turn's step time.  No
+    speed-up is expected: the port runs one loop for both schedules."""
     from repro_torch.configs.registry import get_config
     cfgs = {"default": get_config("gpt2-large"),
             "balanced": get_config("gpt2-large", optimized=True)}
     if not cfgs["balanced"].attention_balanced:
         raise RuntimeError("optimized=True did not select the balanced "
                            "schedule")
-    batches = train_batches(cfgs["default"], 2048, 1, 2, "cuda")
+    batches = train_batches(cfgs["default"], 2048, 1, 1, "cuda")
     turns = []
     with UpdateTimer(torch) as timer:
         for name in ("default", "balanced", "balanced", "default"):
@@ -2560,9 +2593,10 @@ def phase_train_hybrid_full(torch):
       reserved beside the analytic P+G+S; layer 1's step (a backward
       through every super-block) under ``torch.profiler``: busy ms, idle
       share, the GEMMs' share, the top kernels;
-    - FPFT, AdamW (fused, in place): 2 steps, the same; the FPFT-vs-HiFT
+    - FPFT, AdamW (fused, in place): one step, the same; the FPFT-vs-HiFT
       saving in peak memory beside the analytic one;
-    - ``lomo`` (clip 1.0), ``adalomo`` and ``mezo``, 2 steps each: a peak
+    - ``lomo`` (clip 1.0), ``adalomo`` and ``mezo``, one step each (two
+      each took 16.6 s of the whole script's 760.0 on an H100): a peak
       more than ``FUSED_ALLOWANCE_GIB`` over the analytic P+G+S (the fused
       grain one super-block) fails the run;
     - NF4 HiFT (bf16 moments; embed, layer 0) from fresh params encoded
@@ -2625,28 +2659,23 @@ def phase_train_hybrid_full(torch):
         runner = make_runner(cfg, "fpft", params=params, optimizer="adamw",
                              fused_update=True, schedule=sched,
                              device="cuda")
-        runs["fpft"] = []
-        for i in range(2):
-            runs["fpft"].append(fused_step(torch, runner, batches[i],
-                                          timer=timer))
-            emit("train_hybrid_step", arch=cfg.name, strategy="fpft",
-                 analytic_pgs_gib=model("fpft"), **runs["fpft"][-1])
+        runs["fpft"] = [fused_step(torch, runner, batches[0], timer=timer)]
+        emit("train_hybrid_step", arch=cfg.name, strategy="fpft",
+             analytic_pgs_gib=model("fpft"), **runs["fpft"][-1])
         del runner
         launches = timer.launches()
     gc.collect()
     torch.cuda.empty_cache()            # each run's reserved bytes its own
     runs["hift"] = rows
-    for strategy, n, kw in (("lomo", 2, {"lomo": LOMOConfig(grad_clip=1.0)}),
-                            ("adalomo", 2, {}), ("mezo", 2, {})):
+    for strategy, kw in (("lomo", {"lomo": LOMOConfig(grad_clip=1.0)}),
+                         ("adalomo", {}), ("mezo", {})):
         runner = make_runner(cfg, strategy, params=params, schedule=sched,
                              device="cuda", **kw)
         m = runner.strategy.memory_m
         pgs = model(runner.strategy.memory_mode, m)
-        runs[strategy] = []
-        for i in range(n):
-            runs[strategy].append(fused_step(torch, runner, batches[i]))
-            emit("train_hybrid_step", arch=cfg.name, strategy=strategy, m=m,
-                 analytic_pgs_gib=pgs, **runs[strategy][-1])
+        runs[strategy] = [fused_step(torch, runner, batches[0])]
+        emit("train_hybrid_step", arch=cfg.name, strategy=strategy, m=m,
+             analytic_pgs_gib=pgs, **runs[strategy][-1])
         peak = max(r["peak_allocated_gib"] for r in runs[strategy])
         if peak - pgs > FUSED_ALLOWANCE_GIB:
             raise RuntimeError(f"{cfg.name} {strategy}: peak {peak:.2f} GiB "
@@ -2831,38 +2860,51 @@ def phase_dequant_kernel(torch):
     return results
 
 
-def phase_quant_codes(torch):
-    """The codec on the card and on the CPU from the same weights: one
-    llama2-7b layer group (9 leaves, stacked (1, K, N) and (1, d)) in fp32
-    and bf16, and the head (D, V) in fp32, in both formats; codes and
-    scales must be equal."""
+def quant_codes_cpu(torch) -> list:
+    """The CPU half of ``phase_quant_codes`` (``CpuHalves`` runs it beside
+    the card's phases: the CPU's encode took 43.2 s of the whole script's
+    760.0 on the main thread): one llama2-7b layer group (9 leaves,
+    stacked (1, K, N) and (1, d)) in fp32 and bf16, and the head (D, V)
+    in fp32, drawn on the CPU from seed 5 for each format; per format and
+    leaf (format, the leaf, its CPU record)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.dist import quant as Q
     cfg = get_config("llama2-7b")
     gen = torch.Generator().manual_seed(5)
-    leaves = [("layer", s, torch.float32) for s in group_shapes(cfg, "layer")]
-    leaves += [("layer", s, torch.bfloat16)
-               for s in group_shapes(cfg, "layer")]
-    leaves += [("head", (cfg.d_model, cfg.vocab_padded), torch.float32)]
+    leaves = [(s, torch.float32) for s in group_shapes(cfg, "layer")]
+    leaves += [(s, torch.bfloat16) for s in group_shapes(cfg, "layer")]
+    leaves += [((cfg.d_model, cfg.vocab_padded), torch.float32)]
+    out = []
+    for fmt in Q.QUANT_FORMATS:
+        for shape, dt in leaves:
+            w = (torch.randn(shape, generator=gen) / shape[-2] ** 0.5).to(dt)
+            out.append((fmt, w, Q.quantize_leaf(w, fmt)))
+    return out
+
+
+def phase_quant_codes(torch, cpu=None):
+    """The codec on the card and on the CPU from the same weights
+    (``quant_codes_cpu``'s leaves, in both formats; ``cpu`` is that CPU
+    half, run here when None): codes and scales must be equal."""
+    from repro_torch.dist import quant as Q
     t0 = time.perf_counter()
     n_el = 0
-    for fmt in Q.QUANT_FORMATS:
-        for _, shape, dt in leaves:
-            w = (torch.randn(shape, generator=gen) / shape[-2] ** 0.5).to(dt)
-            cpu = Q.quantize_leaf(w, fmt)
-            card = Q.quantize_leaf(w.to("cuda"), fmt)
-            for key in ("q", "s"):
-                if not torch.equal(cpu[key], card[key].cpu()):
-                    raise RuntimeError(f"{fmt} {key} of a {tuple(shape)} "
-                                       f"{dt} leaf: card differs from CPU")
-            if card["t"].dtype != dt or tuple(card["t"].shape) != tuple(
-                    cpu["t"].shape):
-                raise RuntimeError("templates differ")
-            n_el += w.numel()
-            del w, cpu, card
+    cpu = cpu or quant_codes_cpu(torch)
+    for fmt, w, want in cpu:
+        card = Q.quantize_leaf(w.to("cuda"), fmt)
+        for key in ("q", "s"):
+            if not torch.equal(want[key], card[key].cpu()):
+                raise RuntimeError(f"{fmt} {key} of a {tuple(w.shape)} "
+                                   f"{w.dtype} leaf: card differs from CPU")
+        if card["t"].dtype != w.dtype or tuple(card["t"].shape) != tuple(
+                want["t"].shape):
+            raise RuntimeError("templates differ")
+        n_el += w.numel()
+        del card
     emit("codes_card_vs_cpu", formats=list(Q.QUANT_FORMATS),
-         leaves=len(leaves), elements=n_el, equal=True,
+         leaves=len(cpu) // len(Q.QUANT_FORMATS), elements=n_el, equal=True,
          seconds=time.perf_counter() - t0)
+    cpu.clear()
 
 
 def quant_train_side(torch, cfg, params, dev: str) -> dict:
@@ -3855,8 +3897,8 @@ def _nf4_steps(torch, cfg, params, batches, timer, dq, quant, tag) -> None:
                          timer=timer)
         row["dequant_kernel_ms"], row["dequant_launches"] = dq.take()
         row["pinned_bundle_bytes"] = pinned_bundle_bytes(torch, runner)
-        emit(tag, arch=cfg.name, fmt=quant.frozen, moments=quant.moments,
-             analytic_pgs_gib=pgs,
+        emit(tag, arch=cfg.name, n_layers=cfg.n_layers, fmt=quant.frozen,
+             moments=quant.moments, analytic_pgs_gib=pgs,
              over_analytic_gib=row["peak_allocated_gib"] - pgs, **row)
     del runner
     gc.collect()
@@ -3874,16 +3916,22 @@ def vlm_batches(cfg, seq, batch, n, device):
     return [data.batch_at(s) for s in range(n)]
 
 
+# Layers of internvl2-26b's NF4 training on the card (at all 48 its two
+# steps took 19.9 s of the whole script's 760.0 on an H100)
+VLM_TRAIN_LAYERS = 16
+
+
 def phase_train_dense_vlm_full(torch):
     """The last dense configs and the vlm backbone at full size, batch
     4 x 512, HiFT m=1, AdamW (fused), random weights from seed 0:
     deepseek-7b fp32 (the embed step, a backward through all 30 layers,
     then the head with its 102,400-row CE blocks), internlm2-1.8b and
-    smollm-360m fp32 (embed and layer 0), and internvl2-26b at full depth
-    under NF4 residency with bf16 moments (its fp32 tree does not fit):
-    the embed step and layer 0 with 256 vision tokens in front of 512 text
-    tokens, the dequant kernel's ms and launches.  Each step's peak beside
-    the analytic P+G+S.  Returns the kernels' launches over the run."""
+    smollm-360m fp32 (embed and layer 0), and internvl2-26b at its width
+    and ``VLM_TRAIN_LAYERS`` of its 48 layers under NF4 residency with
+    bf16 moments (its fp32 tree does not fit): the embed step and layer 0
+    with 256 vision tokens in front of 512 text tokens, the dequant
+    kernel's ms and launches.  Each step's peak beside the analytic P+G+S.
+    Returns the kernels' launches over the run."""
     from repro_torch.configs.registry import get_config
     from repro_torch.core import QuantConfig
     from repro_torch.kernels import dequant_matmul as DM
@@ -3900,7 +3948,8 @@ def phase_train_dense_vlm_full(torch):
                         steps, timer, "train_dense_step")
             del params
         launches["fused_adamw"] += timer.launches()["fused_adamw"]
-    cfg = get_config("internvl2-26b")
+    cfg = dataclasses.replace(get_config("internvl2-26b"),
+                              n_layers=VLM_TRAIN_LAYERS)
     quant = QuantConfig("nf4", "bf16")
     params = encoded_init(torch, cfg, "nf4")
     batches = vlm_batches(cfg, 512, 4, 2, "cuda")
@@ -5069,26 +5118,26 @@ def xlstm_train_breakdown(torch, runner, batch) -> dict:
                 profile=prof_out)
 
 
-def phase_train_xlstm_full(torch, fused_layers=None):
-    """xlstm-1.3b at its published config (48 layers: 42 mLSTM, 6 sLSTM;
-    3,529,631,912 params), random fp32 weights from seed 0, batch 4 x
-    512:
+def phase_train_xlstm_full(torch, n_layers=None):
+    """xlstm-1.3b at its published width (48 layers: 42 mLSTM, 6 sLSTM;
+    3,529,631,912 params) and ``n_layers`` of its layers (None: all 48; a
+    multiple of the 8-layer super-block), random fp32 weights from seed 0,
+    batch 4 x 512:
 
     - HiFT m=1, AdamW (fused, trained in place): the embed step (a
-      backward through all 48 layers), mLSTM 0, sLSTM 0, the last mLSTM
-      (41), sLSTM 5, the head, then the head again (a revisit: its 0.8 GB
+      backward through every layer), mLSTM 0, sLSTM 0, the last mLSTM,
+      the last sLSTM, the head, then the head again (a revisit: its 0.8 GB
       bundle back from pinned host memory): host ms, peak allocated and
       reserved beside the analytic P+G+S, the update kernel's device ms;
       then the embed group again for ``xlstm_train_breakdown``;
-    - one FPFT step (AdamW, fused) at full depth from fresh params: its
-      peak beside the analytic, and the saving measured and analytic;
+    - one FPFT step (AdamW, fused) from fresh params: its peak beside the
+      analytic, and the saving measured and analytic;
     - ``lomo`` (clip 1.0), ``adalomo`` and ``mezo``, one step each: a
       peak more than ``FUSED_ALLOWANCE_GIB`` over the analytic P+G+S
       fails the run;
     - NF4 HiFT (bf16 moments) from a tree encoded leaf by leaf: the embed
       step and mLSTM 0, with the dequant kernel's device ms and launches.
 
-    ``fused_layers``: the depth of the fused and NF4 runs (None: all 48).
     Training launches no scan kernel: the mLSTM trains through the plain
     chunked scan.  Returns the kernels' launches over the HiFT, FPFT and
     NF4 runs."""
@@ -5099,16 +5148,18 @@ def phase_train_xlstm_full(torch, fused_layers=None):
     from repro_torch.kernels import ssm_scan as S
     from repro_torch.models import xlstm as X
     cfg = get_config("xlstm-1.3b")
-    short = dataclasses.replace(cfg, n_layers=fused_layers or cfg.n_layers)
+    cfg = dataclasses.replace(cfg, n_layers=n_layers or cfg.n_layers)
+    n_s = cfg.n_layers // cfg.slstm_every
+    n_m = cfg.n_layers - n_s
     batches = train_batches(cfg, 512, 4, 2, "cuda")
     sched = LRSchedule(base_lr=1e-5)
     secs = {}
     S.reset_launches()
 
-    def fresh(c=cfg):
+    def fresh():
         gc.collect()
         torch.cuda.empty_cache()
-        return X.init(c, torch.Generator(device="cuda").manual_seed(0),
+        return X.init(cfg, torch.Generator(device="cuda").manual_seed(0),
                       device="cuda", dtype=torch.float32)
 
     t0 = time.perf_counter()
@@ -5116,8 +5167,8 @@ def phase_train_xlstm_full(torch, fused_layers=None):
     params = fresh()
     hift_pgs = analytic(cfg).pgs_gb
     rows = []
-    visits = ("embed", "mlstm[0:1]", "slstm[0:1]", "mlstm[41:42]",
-              "slstm[5:6]", "head", "head")
+    visits = ("embed", "mlstm[0:1]", "slstm[0:1]", f"mlstm[{n_m - 1}:{n_m}]",
+              f"slstm[{n_s - 1}:{n_s}]", "head", "head")
     with UpdateTimer(torch) as timer:   # counts the main path's run only
         runner = make_runner(cfg, "hift", params=params, optimizer="adamw",
                              hift=HiFTConfig(m=1), schedule=sched,
@@ -5164,17 +5215,17 @@ def phase_train_xlstm_full(torch, fused_layers=None):
          fpft_host_ms=fpft["host_ms"])
     secs["fpft"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    params = fresh(short)
+    params = fresh()
     for strategy, kw in (("lomo", {"lomo": LOMOConfig(grad_clip=1.0)}),
                          ("adalomo", {}), ("mezo", {})):
-        runner = make_runner(short, strategy, params=params, schedule=sched,
+        runner = make_runner(cfg, strategy, params=params, schedule=sched,
                              device="cuda", **kw)
         st = runner.strategy
-        pgs = analytic(short, st.memory_mode, m=st.memory_m).pgs_gb
+        pgs = analytic(cfg, st.memory_mode, m=st.memory_m).pgs_gb
         row = fused_step(torch, runner, batches[0], base)
-        emit("train_xlstm_step", arch=cfg.name, n_layers=short.n_layers,
+        emit("train_xlstm_step", arch=cfg.name, n_layers=cfg.n_layers,
              strategy=strategy, m=st.memory_m, analytic_pgs_gib=pgs,
-             analytic_m1_pgs_gib=analytic(short, st.memory_mode).pgs_gb,
+             analytic_m1_pgs_gib=analytic(cfg, st.memory_mode).pgs_gb,
              over_analytic_gib=row["peak_allocated_gib"] - pgs, **row)
         if row["peak_allocated_gib"] - pgs > FUSED_ALLOWANCE_GIB:
             raise RuntimeError(f"{cfg.name} {strategy}: peak "
@@ -5188,10 +5239,10 @@ def phase_train_xlstm_full(torch, fused_layers=None):
     secs["fused"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     quant = QuantConfig("nf4", "bf16")
-    params = encoded_init(torch, short, "nf4")
+    params = encoded_init(torch, cfg, "nf4")
     DM.reset_launches()
     with UpdateTimer(torch) as timer, UpdateTimer(torch, DM) as dq:
-        _nf4_steps(torch, short, params, batches, timer, dq, quant,
+        _nf4_steps(torch, cfg, params, batches, timer, dq, quant,
                    "train_xlstm_quant_step")
         launches["fused_adamw"] += timer.launches()["fused_adamw"]
     del params
@@ -5207,19 +5258,19 @@ def phase_train_xlstm_full(torch, fused_layers=None):
     gc.collect()
     torch.cuda.empty_cache()
     emit("train_xlstm_launches", launches=launches, seconds=secs,
-         fused_layers=short.n_layers)
+         n_layers=cfg.n_layers)
     return launches
 
 
-def phase_train_xlstm(torch, cpu=None, fused_layers=None) -> dict:
-    """The xlstm family trained on the card: ``phase_train_xlstm_full``,
-    then the card against the CPU (``cpu``: the CPU half, a
-    ``CpuHalves`` job's result, or run here when None).  Each part's
+def phase_train_xlstm(torch, cpu=None, n_layers=None) -> dict:
+    """The xlstm family trained on the card: ``phase_train_xlstm_full``
+    (at ``n_layers``), then the card against the CPU (``cpu``: the CPU
+    half, a ``CpuHalves`` job's result, or run here when None).  Each part's
     seconds in a line; returns the kernels' launches over the main-path
     runs."""
     secs = {}
     t0 = time.perf_counter()
-    launches = phase_train_xlstm_full(torch, fused_layers)
+    launches = phase_train_xlstm_full(torch, n_layers)
     secs["train_xlstm_full"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     phase_train_xlstm_card_vs_cpu(torch, cpu=cpu)
@@ -5227,6 +5278,449 @@ def phase_train_xlstm(torch, cpu=None, fused_layers=None) -> dict:
     secs["train_xlstm_card_vs_cpu"] = time.perf_counter() - t0
     emit("train_xlstm_seconds", seconds=secs, total=sum(secs.values()))
     return launches
+
+
+# ------------------------------------------------------------ distributed
+
+# Layers and batch of the cross-pod card-against-CPU training: 2 layers of
+# gpt2-large's width, 4 x 64 (two pods of 2 rows)
+DIST_CARD_VS_CPU = dict(n_layers=2, batch=4, seq=64)
+# units a HiFT group of ``phase_train_dist``'s sweeps (4 groups of
+# gpt2-large's 38 units, the first with the embedding, the last with the
+# head: a host-bound step costs about the same at any m, and at m = 6 the
+# sweeps took 24.9 s of the whole script's 760.0 on an H100)
+DIST_M = 10
+# steps after the first sweep: revisits of the first groups (the embed
+# group's and a layer group's), whose bundles' pinned host buffers exist
+# (a first visit pins new ones)
+DIST_REVISITS = 2
+
+
+def dist_train_side(torch, cfg, params, dev: str) -> dict:
+    """One device's side of the cross-pod card-against-CPU training: HiFT
+    m=1 with AdamW over embed, layer 0 and layer 1, then FPFT with AdamW,
+    3 steps each, both under ``CrossPodConfig(pods=2, compress=True)``,
+    from ``params`` (CPU tensors, copied per runner); the losses."""
+    from repro_torch.common.pytree import tree_map
+    from repro_torch.core import CrossPodConfig, LRSchedule, make_runner
+    batches = train_batches(cfg, DIST_CARD_VS_CPU["seq"],
+                            DIST_CARD_VS_CPU["batch"], 3, "cpu")
+    out = {}
+    for strategy in ("hift", "fpft"):
+        runner = make_runner(cfg, strategy,
+                             params=tree_map(lambda t: t.to(dev), params),
+                             optimizer="adamw",
+                             schedule=LRSchedule(base_lr=1e-4),
+                             cross_pod=CrossPodConfig(pods=2, compress=True),
+                             device=dev)
+        out[strategy] = [float(runner.train_step(b)) for b in batches]
+        del runner
+    return out
+
+
+def dist_train_cpu(torch):
+    """The CPU half of the cross-pod card-against-CPU training
+    (``CpuHalves``): the params of seed 0 drawn on the CPU and the CPU's
+    losses."""
+    from repro_torch.configs.registry import get_config
+    cfg = dataclasses.replace(get_config("gpt2-large"),
+                              n_layers=DIST_CARD_VS_CPU["n_layers"])
+    params = host_params(torch, cfg, on_card=False)
+    return params, dist_train_side(torch, cfg, params, "cpu")
+
+
+class CompressTimer:
+    """While in use: CUDA events around each call of the cross-pod
+    reduce's codec (``core.strategy.compress_decompress``, a leaf a
+    call)."""
+
+    def __init__(self, torch):
+        self.torch, self.events = torch, []
+
+    def __enter__(self):
+        from repro_torch.core import strategy as st
+        fn, cuda = st.compress_decompress, self.torch.cuda
+        self._fn = fn
+
+        def timed(*args):
+            e0 = cuda.Event(enable_timing=True)
+            e1 = cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*args)
+            e1.record()
+            self.events.append((e0, e1))
+            return out
+
+        st.compress_decompress = timed
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import strategy as st
+        st.compress_decompress = self._fn
+
+    def take(self) -> float:
+        self.torch.cuda.synchronize()
+        ms = sum(a.elapsed_time(b) for a, b in self.events)
+        self.events.clear()
+        return ms
+
+
+def _sweep(torch, runner, batches, timer) -> list:
+    """``measured_step`` on each batch in turn."""
+    return [measured_step(torch, runner, b, timer) for b in batches]
+
+
+def _by_kind(rows, key="host_ms", revisit=False) -> dict:
+    """Median of ``key`` per group kind over the first visits (or over the
+    revisits)."""
+    kinds = {}
+    for r in rows:
+        if r.get("revisit", False) == revisit:
+            kinds.setdefault(r["kind"], []).append(r[key])
+    return {k: statistics.median(v) for k, v in kinds.items()}
+
+
+def _ef_bytes(state) -> int:
+    return sum(t.numel() * t.element_size() for b in state.opt_state.values()
+               for t in _leaves(b.get("ef", {})))
+
+
+def _leaves(tree):
+    from repro_torch.common.pytree import flatten_with_paths
+    return list(flatten_with_paths(tree).values())
+
+
+def _copy(torch, params):
+    from repro_torch.common.pytree import tree_map
+    return tree_map(lambda t: t.clone(), params)
+
+
+def phase_train_dist(torch, cpu=None) -> dict:
+    """Distributed training on one card.
+
+    a. cross-pod card against CPU, first (it warms the card for the
+       sweeps): 2 layers of gpt2-large, 4 x 64, HiFT and FPFT 3 steps
+       each, losses within rtol 1e-4 (``cpu`` is the CPU half,
+       ``dist_train_cpu``, run here when None);
+    b. ``init_distributed`` through NCCL with a ``FileStore`` in a
+       temporary directory, ``mesh_from_spec("1x1")``; then gpt2-large (36
+       layers, fp32, AdamW, 4 x 512, m = ``DIST_M``), three sweeps (4
+       steps each, a step of each in turn, then ``DIST_REVISITS``
+       revisits) on the same
+       batches from the same params, peaks net of the other two runners'
+       params: plain HiFT, HiFT on the mesh
+       (losses within rtol 1e-6 of the plain sweep's; the ratio of median
+       host ms) and HiFT under ``CrossPodConfig(pods=2, compress=True)``
+       (host ms per group kind beside plain's, peaks beside the memory
+       model's with ``ef_pods=2``, the residual bytes in the bundles, the
+       codec's share of each step by CUDA events around it, a profiled
+       revisit); FPFT cross-pod's peak (its residuals on the card)
+       beside its analytic figure;
+    c. a checkpoint under the mesh of 2 layers of gpt2-large restored with
+       ``restore_state(strategy=)`` onto a fresh mesh-built runner, 2
+       steps bit-equal to the uninterrupted run; deepseek-moe-16b at 2
+       layers under the context: ``moe_ffn_spmd`` at tp = 1 equal to
+       ``moe_ffn`` bit for bit, and 2 HiFT steps on the mesh equal to 2
+       without.
+
+    Returns the fused updates' launches over the sweeps (a, c)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.common.pytree import tree_bytes
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import (CrossPodConfig, HiFTConfig, LRSchedule,
+                                  make_runner)
+    from repro_torch.dist import ctx as dctx
+    from repro_torch.launch.mesh import init_distributed, mesh_from_spec
+    from repro_torch.train import checkpoint as ckpt
+    cfg = get_config("gpt2-large")
+    params = fresh_params(torch, cfg)
+    # a sweep of first visits, then DIST_REVISITS steps that revisit the
+    # first groups (their bundles' pinned buffers reused)
+    k = -(-(cfg.n_layers + 2) // DIST_M)
+    batches = train_batches(cfg, 512, 4, k + DIST_REVISITS, "cuda")
+    cp = CrossPodConfig(pods=2, compress=True)
+    parts, t_part = {}, [time.perf_counter()]
+
+    def part(name):
+        now = time.perf_counter()
+        parts[name] = now - t_part[0]
+        t_part[0] = now
+
+
+    def runner(p, **kw):
+        return make_runner(cfg, "hift", params=p, optimizer="adamw",
+                           hift=HiFTConfig(m=DIST_M),
+                           schedule=LRSchedule(base_lr=1e-5),
+                           device="cuda", **kw)
+
+    phase_dist_card_vs_cpu(torch, cpu)
+    part("card_vs_cpu")
+    # b. the sweeps, a step of each in turn on the same batch, so the three
+    # runners meet the same allocator state (a group's first visit pins
+    # new host buffers for its bundle); the last trains ``params`` in
+    # place, so the others start from copies made first
+    launches = {}
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_dist_")
+    init_distributed(f"file://{tmp.name}/store", 1, 0, device="cuda")
+    try:
+        mesh = mesh_from_spec("1x1")
+        kws = {"plain": {}, "mesh": dict(mesh=mesh),
+               "crosspod": dict(cross_pod=cp)}
+        runners = {name: runner(params if name == "crosspod" else
+                                _copy(torch, params), **kw)
+                   for name, kw in kws.items()}
+        others = (len(runners) - 1) * tree_bytes(params)
+        sweeps = {name: dict(rows=[]) for name in runners}
+        with UpdateTimer(torch) as timer, CompressTimer(torch) as comp:
+            for i, b in enumerate(batches):
+                for name, r in runners.items():
+                    row = measured_step(torch, r, b, timer)
+                    row["revisit"] = i >= k
+                    # the step's own peak: the other runners' params aside
+                    row["peak_memory_bytes"] -= others
+                    row["peak_memory_gib"] = row["peak_memory_bytes"] / 2**30
+                    row["compress_ms"] = comp.take()
+                    sweeps[name]["rows"].append(row)
+            launches = timer.launches()
+        for name, sw in sweeps.items():
+            sw["fused_adamw"] = sum(x["update_launches"] for x in sw["rows"])
+        sweeps["crosspod"]["ef_bytes"] = _ef_bytes(runners["crosspod"].state)
+        prof = phase_dist_profile(torch, runners["crosspod"], batches[0])
+        del runners
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the three runners' pinned bundles (~25 GB) go back to the host:
+        # the moe/encdec phases' CPU child needs that memory later
+        torch._C._host_emptyCache()
+        part("sweeps")
+        plain, cross = sweeps["plain"]["rows"], sweeps["crosspod"]["rows"]
+        model = analytic(cfg, ef_pods=2, m=DIST_M).pgs_gb
+        emit("train_dist_crosspod", arch=cfg.name, n_layers=cfg.n_layers,
+             m=DIST_M, batch=4, seq=512, pods=2, compress=True,
+             step_ms_by_kind=_by_kind(cross),
+             plain_step_ms_by_kind=_by_kind(plain),
+             revisit_step_ms_by_kind=_by_kind(cross, revisit=True),
+             plain_revisit_step_ms_by_kind=_by_kind(plain, revisit=True),
+             compress_ms_by_kind=_by_kind(cross, "compress_ms"),
+             compress_share_by_kind={
+                 k: v / _by_kind(cross)[k]
+                 for k, v in _by_kind(cross, "compress_ms").items()},
+             peak_memory_gib=max(r["peak_memory_gib"] for r in cross),
+             plain_peak_memory_gib=max(r["peak_memory_gib"] for r in plain),
+             analytic_pgs_gib=model,
+             analytic_plain_pgs_gib=analytic(cfg, m=DIST_M).pgs_gb,
+             ef_residual_bytes_in_bundles=sweeps["crosspod"]["ef_bytes"],
+             fused_adamw_launches=sweeps["crosspod"]["fused_adamw"],
+             profile=prof,
+             losses=[r["loss"] for r in cross],
+             plain_losses=[r["loss"] for r in plain])
+        if sweeps["crosspod"]["fused_adamw"] != len(batches):
+            raise RuntimeError("cross-pod HiFT did not run the fused AdamW "
+                               "once a step")
+        def ratio(rows, revisit):
+            return (statistics.median(r["host_ms"] for r in rows
+                                      if r["revisit"] == revisit)
+                    / statistics.median(r["host_ms"] for r in plain
+                                        if r["revisit"] == revisit))
+
+        gap = max(abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in
+                  zip(sweeps["mesh"]["rows"], plain))
+        emit("train_dist_mesh", arch=cfg.name, mesh={"data": 1, "model": 1},
+             backend=dist.get_backend(),
+             step_ms_by_kind=_by_kind(sweeps["mesh"]["rows"]),
+             plain_step_ms_by_kind=_by_kind(plain),
+             revisit_step_ms_by_kind=_by_kind(sweeps["mesh"]["rows"],
+                                              revisit=True),
+             plain_revisit_step_ms_by_kind=_by_kind(plain, revisit=True),
+             median_step_ratio=ratio(sweeps["mesh"]["rows"], False),
+             median_revisit_step_ratio=ratio(sweeps["mesh"]["rows"], True),
+             crosspod_median_step_ratio=ratio(cross, False),
+             crosspod_median_revisit_step_ratio=ratio(cross, True),
+             max_rel_loss_gap=gap, rtol=1e-6,
+             fused_adamw_launches=sweeps["mesh"]["fused_adamw"],
+             peak_memory_gib=max(r["peak_memory_gib"] for r in
+                                 sweeps["mesh"]["rows"]))
+        if gap > 1e-6:
+            raise RuntimeError(f"the 1x1 mesh's losses differ from the "
+                               f"plain sweep's by {gap:.3g} (relative)")
+        if sweeps["mesh"]["fused_adamw"] != len(batches):
+            raise RuntimeError("the mesh's HiFT did not run the fused AdamW "
+                               "once a step")
+        del params, sweeps
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_dist_fpft_peak(torch, cfg, cp)
+        part("fpft_crosspod")
+        phase_dist_checkpoint(torch, mesh, tmp.name)
+        part("checkpoint")
+        phase_dist_moe(torch, mesh, dctx)
+        part("moe")
+    finally:
+        dist.destroy_process_group()
+        tmp.cleanup()
+        torch._C._host_emptyCache()
+    emit("train_dist_seconds", **parts)
+    return launches
+
+
+def phase_dist_profile(torch, runner, batch) -> dict:
+    """``torch.profiler`` over one cross-pod step (the runner's next
+    group, a revisit of a layer), with the device's busy ms and idle
+    share."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        runner.train_step(batch)
+        torch.cuda.synchronize()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+    return dict(group=runner.last_metrics["group"],
+                **profile_summary(prof, host_ms, top=6,
+                                  gemm_ms="gemm", adamw_ms="fused_adamw"))
+
+
+def phase_dist_fpft_peak(torch, cfg, cp) -> None:
+    """FPFT with AdamW at full size, one step plain and one under the
+    cross-pod reduce (its residuals, 2 x the params in fp32, on the card),
+    each from fresh params: the peaks beside the memory model's ``fpft``
+    figures without and with ``ef_pods=2``."""
+    from repro_torch.core import LRSchedule, make_runner
+    batch = train_batches(cfg, 512, 4, 1, "cuda")
+    rows, ef = {}, 0
+    for name, kw in (("plain", {}), ("crosspod", dict(cross_pod=cp))):
+        r = make_runner(cfg, "fpft", params=fresh_params(torch, cfg),
+                        optimizer="adamw", schedule=LRSchedule(base_lr=1e-5),
+                        device="cuda", **kw)
+        with UpdateTimer(torch) as timer:
+            rows[name] = _sweep(torch, r, batch, timer)[0]
+        if name == "crosspod":
+            ef = sum(t.numel() * t.element_size()
+                     for t in _leaves(r.state.extra["ef_residual"]))
+        del r
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit("train_dist_fpft_crosspod", arch=cfg.name, batch=4, seq=512,
+         pods=2, host_ms=rows["crosspod"]["host_ms"],
+         plain_host_ms=rows["plain"]["host_ms"],
+         peak_memory_gib=rows["crosspod"]["peak_memory_gib"],
+         plain_peak_memory_gib=rows["plain"]["peak_memory_gib"],
+         analytic_pgs_gib=analytic(cfg, mode="fpft", ef_pods=2).pgs_gb,
+         analytic_plain_pgs_gib=analytic(cfg, mode="fpft").pgs_gb,
+         ef_residual_bytes=ef, loss=rows["crosspod"]["loss"],
+         plain_loss=rows["plain"]["loss"])
+
+
+def phase_dist_card_vs_cpu(torch, cpu=None) -> None:
+    from repro_torch.configs.registry import get_config
+    cfg = dataclasses.replace(get_config("gpt2-large"),
+                              n_layers=DIST_CARD_VS_CPU["n_layers"])
+    params, host = cpu or dist_train_cpu(torch)
+    card = dist_train_side(torch, cfg, params, "cuda")
+    rel = max(abs(a - b) / abs(a) for s in ("hift", "fpft")
+              for a, b in zip(host[s], card[s]))
+    emit("train_dist_card_vs_cpu", arch=cfg.name, n_layers=cfg.n_layers,
+         **{k: v for k, v in DIST_CARD_VS_CPU.items() if k != "n_layers"},
+         pods=2, cpu_losses=host, cuda_losses=card, max_rel_loss_gap=rel,
+         rtol=1e-4)
+    if rel > 1e-4 or not all(math.isfinite(x) for s in card.values()
+                             for x in s):
+        raise RuntimeError(f"cross-pod card and CPU losses differ: "
+                           f"{host} {card}")
+
+
+def phase_dist_checkpoint(torch, mesh, tmp: str) -> None:
+    """2 layers of gpt2-large, HiFT with AdamW on the 1x1 mesh: a sweep,
+    a checkpoint under the mesh, ``restore_state(strategy=)`` onto a fresh
+    mesh-built runner, 2 steps there and on the uninterrupted runner,
+    bit-equal."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import HiFTConfig, LRSchedule, make_runner
+    from repro_torch.train import checkpoint as ckpt
+    cfg = dataclasses.replace(get_config("gpt2-large"), n_layers=2)
+    batches = train_batches(cfg, 512, 4, cfg.n_layers + 4, "cuda")
+
+    def runner():
+        return make_runner(cfg, "hift", params=fresh_params(torch, cfg),
+                           optimizer="adamw", hift=HiFTConfig(m=1),
+                           schedule=LRSchedule(base_lr=1e-5), device="cuda",
+                           mesh=mesh)
+
+    r = runner()
+    for b in batches[:cfg.n_layers + 2]:
+        r.train_step(b)
+    d = Path(tmp) / "ckpt"
+    t0 = time.perf_counter()
+    ckpt.save_state(d, r.step_count, r.state)
+    save_s = time.perf_counter() - t0
+    gathered = ckpt.save.gathered_leaves
+    fresh = runner()
+    t0 = time.perf_counter()
+    fresh.state = ckpt.restore_state(d, r.step_count,
+                                     strategy=fresh.strategy)
+    restore_s = time.perf_counter() - t0
+    tail = batches[cfg.n_layers + 2:]
+    want = [float(r.train_step(b)) for b in tail]
+    got = [float(fresh.train_step(b)) for b in tail]
+    emit("train_dist_checkpoint", arch=cfg.name, n_layers=cfg.n_layers,
+         mesh={"data": 1, "model": 1}, step=int(r.step_count) - 2,
+         save_s=save_s, restore_s=restore_s, dtensor_leaves=gathered,
+         resumed_losses=got, uninterrupted_losses=want,
+         bit_equal=got == want)
+    if got != want:
+        raise RuntimeError(f"the restored mesh runner left lockstep: {got} "
+                           f"!= {want}")
+    del r, fresh
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_dist_moe(torch, mesh, dctx) -> None:
+    """deepseek-moe-16b at 2 layers: layer 0's moe FFN on a 4 x 512 batch
+    of activations under the context (``moe_ffn_spmd`` at tp = 1) against
+    ``moe_ffn``, bit for bit; then a HiFT step of layer 0 (AdamW) with and
+    without the mesh from the same params, losses bit-equal."""
+    from repro_torch.common.pytree import tree_map
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import HiFTConfig, LRSchedule, make_runner
+    from repro_torch.models import get_family
+    from repro_torch.models import moe as M
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b"), n_layers=2)
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = get_family(cfg).init(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    p0 = tree_map(lambda t: t[0], params["layers"]["moe"])
+    x = torch.randn(4, 512, cfg.d_model, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(1))
+    with torch.no_grad():
+        want = M.moe_ffn(p0, x, cfg)
+        with dctx.activation_sharding(mesh, ("data",)):
+            got = M.moe_ffn_auto(p0, x, cfg)
+    batches = train_batches(cfg, 512, 4, 2, "cuda")
+    losses = {}
+    for name, kw in (("mesh", dict(mesh=mesh)), ("plain", {})):
+        r = make_runner(cfg, "hift",
+                        params=params if name == "plain" else
+                        _copy(torch, params), optimizer="adamw",
+                        hift=HiFTConfig(m=1, strategy="top2down"),
+                        schedule=LRSchedule(base_lr=1e-5), device="cuda",
+                        **kw)
+        losses[name] = [float(r.train_step(b)) for b in batches]
+        del r
+    emit("train_dist_moe", arch=cfg.name, n_layers=2, tokens=4 * 512,
+         spmd_equals_moe_ffn=bool(torch.equal(got, want)),
+         max_abs_err=float((got - want).abs().max()),
+         mesh_losses=losses["mesh"], plain_losses=losses["plain"])
+    if not torch.equal(got, want) or losses["mesh"] != losses["plain"]:
+        raise RuntimeError("moe_ffn_spmd at tp = 1 is not moe_ffn bit for "
+                           f"bit: {losses}")
+    del params, x, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def cpu_side(path: str, families: str) -> int:
@@ -5271,19 +5765,22 @@ class CpuHalves:
             for name, fn in jobs:
                 t0 = time.perf_counter()
                 try:
-                    self._out[name] = (True, fn(), time.perf_counter() - t0)
+                    ok, value = True, fn()
                 except BaseException as e:      # handed to take()
-                    self._out[name] = (False, e, time.perf_counter() - t0)
+                    ok, value = False, e
+                self._out[name] = (ok, value, t0, time.perf_counter())
                 self._done[name].set()
 
         threading.Thread(target=run, daemon=True).start()
 
     def take(self, name: str):
+        """Also emits the job's seconds, when it started (seconds since
+        the import) and how long the take waited for it."""
         t0 = time.perf_counter()
         self._done[name].wait()
-        ok, value, secs = self._out.pop(name)
-        emit("cpu_half", job=name, seconds=secs,
-             wait_s=time.perf_counter() - t0)
+        ok, value, start, end = self._out.pop(name)
+        emit("cpu_half", job=name, seconds=end - start,
+             started_at_s=start - _START, wait_s=time.perf_counter() - t0)
         if not ok:
             raise value
         return value
@@ -5463,9 +5960,11 @@ def main(argv=None) -> int:
 
     import torch
     ap = argparse.ArgumentParser(description="Drive the port on one card.")
-    ap.add_argument("--only", choices=["moe_vlm", "encdec", "xlstm"],
-                    help="build, then run only the moe/vlm, the encdec or "
-                    "the xlstm phase (no result line)")
+    ap.add_argument("--only", choices=["moe_vlm", "encdec", "xlstm",
+                                       "dist"],
+                    help="build, then run only the moe/vlm, the encdec, "
+                    "the xlstm or the distributed-training phase (no "
+                    "result line)")
     ap.add_argument("--cpu-side", metavar="PATH", help=argparse.SUPPRESS)
     ap.add_argument("--cpu-side-families", default="moe",
                     help=argparse.SUPPRESS)
@@ -5497,9 +5996,11 @@ def main(argv=None) -> int:
         ("train_card_vs_cpu_neo",
          lambda: train_card_vs_cpu_cpu(torch, "gpt-neo-2.7b")),
         ("train_fused_card_vs_cpu", lambda: fused_train_cpu(torch)),
+        ("quant_codes", lambda: quant_codes_cpu(torch)),
         ("train_quant_card_vs_cpu", lambda: quant_train_cpu(torch)),
         ("train_hybrid_card_vs_cpu", lambda: hybrid_train_cpu(torch)),
         ("train_xlstm_card_vs_cpu", lambda: xlstm_train_cpu(torch)),
+        ("train_dist_card_vs_cpu", lambda: dist_train_cpu(torch)),
         ("serve_xlstm_card_vs_cpu", lambda: xlstm_serve_side(torch, "cpu"))])
     t0 = time.perf_counter()
     libs = build.build_all()
@@ -5518,8 +6019,12 @@ def main(argv=None) -> int:
                                f"SASS: {inst}")
     if args.only == "xlstm":
         phase_xlstm(torch)
-        phase_train_xlstm(torch)            # the fused and NF4 runs at 48
+        phase_train_xlstm(torch)            # every run at 48 layers
         phase_serve_xlstm_card_vs_cpu(torch, xlstm_serve_side(torch, "cpu"))
+    elif args.only == "dist":
+        t0 = time.perf_counter()
+        phase_train_dist(torch)
+        emit("seconds", laps={"train_dist": time.perf_counter() - t0})
     elif args.only:
         {"moe_vlm": phase_moe_vlm, "encdec": phase_encdec}[args.only](torch)
     if args.only:
@@ -5561,8 +6066,6 @@ def main(argv=None) -> int:
                               n_layers=16).items():
         launches[name] = launches.get(name, 0) + n
     lap("full_size_fp32")
-    phase_quant_codes(torch)
-    lap("quant_codes")
     phase_hybrid_card_vs_cpu(torch)
     lap("hybrid_card_vs_cpu")
     # the scan's main paths: zamba2-2.7b served at full size in bf16 and
@@ -5580,19 +6083,21 @@ def main(argv=None) -> int:
     rows.update(wide_rows)
     launches.update(wide_launches)
     lap("xlstm")
-    # the card-against-CPU training phases take their CPU halves: dense
-    # HiFT, the fused-backward and zeroth-order strategies (no hand-written
-    # kernel lies on their path: the reference's updates there are plain),
-    # quantized HiFT and hybrid training
+    # the card-against-CPU phases take their CPU halves, each where the
+    # halves' thread has had the time to draw it (they run one after
+    # another, ~380 s in all on an H100's host): dense HiFT, the
+    # fused-backward and zeroth-order strategies (no hand-written kernel
+    # lies on their path: the reference's updates there are plain), the
+    # codec and quantized HiFT; hybrid training's after the pipelined
+    # phase, and before the streamed one's pinned moments
     phase_train_card_vs_cpu(torch, cpu=cpu.take("train_card_vs_cpu"))
     lap("train_card_vs_cpu")
     phase_train_fused_card_vs_cpu(torch, cpu.take("train_fused_card_vs_cpu"))
     lap("train_fused_card_vs_cpu")
+    phase_quant_codes(torch, cpu.take("quant_codes"))
+    lap("quant_codes")
     phase_train_quant_card_vs_cpu(torch, cpu.take("train_quant_card_vs_cpu"))
     lap("train_quant_card_vs_cpu")
-    phase_train_hybrid_card_vs_cpu(
-        torch, cpu=cpu.take("train_hybrid_card_vs_cpu"))
-    lap("train_hybrid_card_vs_cpu")
     sides = None
     try:
         launches.update(phase_train_full(torch))
@@ -5612,29 +6117,37 @@ def main(argv=None) -> int:
         lap("train_paper_configs")
         for phase in (phase_train_optimizer_matrix,
                       phase_train_fpft_vs_hift_full, phase_train_balanced,
-                      phase_train_checkpoint, phase_train_pipelined,
-                      phase_train_streamed):
+                      phase_train_checkpoint, phase_train_pipelined):
             for name, n in phase(torch).items():
                 launches[name] += n
             lap(phase.__name__[len("phase_"):])
-        # xlstm training: the fused AdamW and, under NF4 residency, the
-        # dequant kernel; the mLSTM trains through the plain chunked scan,
-        # as the reference trains through its jnp scan.  Here, before the
-        # moe/encdec child starts, its card-against-CPU part takes its CPU
-        # half (8 layers' 3 GB of params held since) and frees it: at the
-        # script's end the child's ~30 GB beside it left the host 7.9 GiB
-        # in moe_vlm.  The fused and NF4 runs at 16 of the 48 layers, to
-        # keep the script near half its limit (``--only xlstm``: at 48).
-        for name, n in phase_train_xlstm(
-                torch, cpu.take("train_xlstm_card_vs_cpu"),
-                fused_layers=16).items():
-            launches[name] = launches.get(name, 0) + n
-        lap("train_xlstm")
+        phase_train_hybrid_card_vs_cpu(
+            torch, cpu=cpu.take("train_hybrid_card_vs_cpu"))
+        lap("train_hybrid_card_vs_cpu")
+        for name, n in phase_train_streamed(torch).items():
+            launches[name] += n
+        lap("train_streamed")
         # the moe and encdec training's CPU sides, in a child process beside
         # the last full-size training phases, whose host cores are otherwise
         # idle; not before: beside train_streamed's pinned moments the
-        # child's ~30 GB left the host 8 GiB
+        # child's ~30 GB left the host 8 GiB.  From here, not after
+        # train_xlstm: on a slower H100 host the child's moe side (143.9
+        # s) kept moe_vlm waiting 32.6 s for it
         sides = CpuSide(("moe", "encdec"))
+        # xlstm training: the fused AdamW and, under NF4 residency, the
+        # dequant kernel; the mLSTM trains through the plain chunked scan,
+        # as the reference trains through its jnp scan.  Its card-against-
+        # CPU part takes its CPU half (8 layers' 3 GB of params held since)
+        # and frees it: at the script's end the child's ~30 GB beside it
+        # left the host 7.9 GiB in moe_vlm.  Every run at 16 of the 48
+        # layers, to keep the script near half its limit (at 48 the HiFT
+        # and FPFT runs took 73.6 s of the whole script's 760.0 on an H100;
+        # ``--only xlstm``: at 48).
+        for name, n in phase_train_xlstm(
+                torch, cpu.take("train_xlstm_card_vs_cpu"),
+                n_layers=16).items():
+            launches[name] = launches.get(name, 0) + n
+        lap("train_xlstm")
         phase_train_fused_full(torch)
         lap("train_fused_full")
         quant = phase_train_quant_full(torch)
@@ -5665,6 +6178,15 @@ def main(argv=None) -> int:
     phase_serve_xlstm_card_vs_cpu(torch,
                                   cpu.take("serve_xlstm_card_vs_cpu"))
     lap("serve_xlstm_card_vs_cpu")
+    # distributed training at a world of one, last: its three runners pin
+    # ~25 GB of bundles, which beside the moe/encdec child's ~30 GB left
+    # the host's 96 GiB short in moe_vlm; the cross-pod
+    # reduce at full width, the 1x1 NCCL mesh, its checkpoint and moe's
+    # expert-parallel path, the fused AdamW (row 4) on each
+    for name, n in phase_train_dist(
+            torch, cpu.take("train_dist_card_vs_cpu")).items():
+        launches[name] = launches.get(name, 0) + n
+    lap("train_dist")
     emit("seconds", laps=laps, host_min_available_gib=low)
     emit("done", seconds=time.perf_counter() - start)
 

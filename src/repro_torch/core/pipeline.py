@@ -53,7 +53,11 @@ chunk is copied back into the same host view, so a step copies no whole
 tree.
 
 The placement primitives :func:`host_put` and :func:`device_put` live
-here; ``core.strategy`` re-exports them.
+here; ``core.strategy`` re-exports them.  Under a ``mesh=`` a bundle's
+leaves are DTensors: both move each leaf's local shard and re-wrap it
+under the same placements, on the host mesh (``dist.shardings.
+host_mesh``) in pinned memory and back on the device mesh, so the
+pipeline's copies, events and pinned-buffer reuse act on the shards.
 """
 from __future__ import annotations
 
@@ -62,6 +66,7 @@ from collections import deque
 from typing import Any, Callable, Mapping, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.common.pytree import (flatten_with_paths, tree_map,
                                        unflatten_from_paths)
@@ -83,6 +88,9 @@ def host_put(tree: PyTree, into: Optional[PyTree] = None) -> PyTree:
     old = flatten_with_paths(into) if into is not None else {}
     out = {}
     for path, t in flatten_with_paths(tree).items():
+        if isinstance(t, DTensor):
+            out[path] = _host_shard(t, old.get(path))
+            continue
         if t.device.type != "cuda":
             out[path] = t
             continue
@@ -95,13 +103,28 @@ def host_put(tree: PyTree, into: Optional[PyTree] = None) -> PyTree:
     return unflatten_from_paths(out)
 
 
+def _host_shard(t: DTensor, into) -> DTensor:
+    """A DTensor's shard in pinned host memory (into ``into``'s shard when
+    it fits), on the host mesh with the same placements."""
+    from repro_torch.dist import shardings as S
+    loc = t.to_local()
+    if loc.device.type != "cuda":
+        return t
+    prev = into.to_local() if isinstance(into, DTensor) else None
+    host = host_put({"x": loc}, into=None if prev is None else {"x": prev})
+    return S.wrap(host["x"], S.host_mesh(t.device_mesh),
+                  tuple(t.placements), t.shape)
+
+
 def device_put(tree: PyTree, device: torch.device) -> PyTree:
     """Floating leaves to ``device`` (asynchronous from pinned memory, on
     the current stream); integer leaves — optimizer step counts — stay on
-    the host."""
+    the host.  A host DTensor's shard goes to its device mesh."""
     if device.type == "cpu":
         return tree
-    return tree_map(lambda t: t.to(device, non_blocking=True)
+    from repro_torch.dist import shardings as S
+    return tree_map(lambda t: S.on_device(t) if isinstance(t, DTensor)
+                    else t.to(device, non_blocking=True)
                     if t.is_floating_point() else t, tree)
 
 
@@ -130,6 +153,8 @@ def pinned_trees(trees: list) -> list:
 
 def _cuda_tensors(obj) -> list:
     """The CUDA tensors in a nest of dicts, tuples and lists."""
+    if isinstance(obj, DTensor):
+        obj = obj.to_local()
     if isinstance(obj, torch.Tensor):
         return [obj] if obj.device.type == "cuda" else []
     if isinstance(obj, Mapping):

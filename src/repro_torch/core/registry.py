@@ -92,11 +92,14 @@ def make_runner(cfg, strategy: str = "hift", *, params: Any = None,
     ``stream_window``: ``fpft_streamed``'s chunk size in bytes
     (``StreamConfig.chunk_bytes``).
 
-    ``mesh`` and ``cross_pod`` are not ported yet and raise, as does a
-    family outside ``TRAINED_FAMILIES``.
+    ``mesh``: a ``DeviceMesh`` (``repro_torch.launch.mesh.mesh_from_spec``
+    after ``init_distributed``): params and optimizer state shard over its
+    ``model`` axis and batches over its data axes (``dist.shardings``).
+    ``cross_pod``: a ``CrossPodConfig`` (hift, hift_pipelined, lisa, fpft,
+    fpft_streamed).  A family outside ``TRAINED_FAMILIES`` raises.
     Remaining kwargs go to the strategy (``schedule``, ``policy``,
-    ``loss_fn``, ``hift=``, ``lisa=``, ``stream=``, ``mezo=``, ``lomo=``,
-    ``adalomo=``)."""
+    ``loss_fn``, ``param_sharding_fn``, ``hift=``, ``lisa=``, ``stream=``,
+    ``mezo=``, ``lomo=``, ``adalomo=``)."""
     import torch
 
     from repro_torch.common.device import resolve_device

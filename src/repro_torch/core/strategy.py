@@ -55,11 +55,36 @@ active group trains from an fp32 master in its bundle and is re-encoded
 after its update.  ``moments="bf16"`` (HiFT and FPFT) stores the optimizer
 moments in bf16.
 
-Not ported yet (they raise): ``mesh=``, ``cross_pod=`` and
-``param_sharding_fn=``.
+Cross-pod data parallelism (:class:`CrossPodConfig`, reference
+``core/strategy.py:181-306``): the batch splits into ``pods`` chunks whose
+gradients are taken one at a time, each passed through the int8
+error-feedback codec (``dist.compress``) and summed in fp32; the per-pod
+fp32 residuals ride the active group's bundle under ``"ef"`` (grouped
+strategies) or ``extra["ef_residual"]`` (``fpft``, ``fpft_streamed``), so
+they offload, pipeline and checkpoint with everything else.  ``lomo``,
+``adalomo`` and ``mezo`` have no whole gradient tree to compress and
+refuse it.
+
+Sharded steps (``mesh=``, a ``torch.distributed`` ``DeviceMesh`` from
+``launch.mesh.mesh_from_spec``; one process a device): params and
+optimizer state are DTensors under the placement rules of
+``dist.shardings`` (``param_sharding_fn(tree, mesh) -> spec tree``
+overrides the param rule).  A step gathers the params it reads to full
+tensors, runs the forward and backward on the rank's rows of the batch,
+takes the mean of each gradient over the data axes, and keeps the rank's
+shard of it for the update, which runs on local shards (the fused update
+kernels included).  The grouped strategies keep their resident tree
+replicated, as the reference does; the active group's bundle is sharded
+over ``model``.  ``mezo``, ``lomo`` and ``adalomo`` step on the gathered
+tree (every rank draws the same noise, reduces each gradient over the data
+axes as soon as it exists) and keep their shards.  Each step opens the
+activation context (``dist.ctx``), so the moe layer takes its
+expert-parallel path.  On a mesh of one rank a step computes exactly what
+it computes with no mesh.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Optional
 
@@ -79,6 +104,9 @@ from repro_torch.core.pipeline import (BundlePipeline, ChunkLayout,
                                        pinned_trees)
 from repro_torch.core.registry import register_strategy
 from repro_torch.core.scheduler import LRSchedule
+from repro_torch.dist import ctx as dctx
+from repro_torch.dist import shardings as S
+from repro_torch.dist.compress import compress_decompress, init_residuals
 from repro_torch.dist.quant import (QUANT_FORMATS, dequantize_tree,
                                     quantize_tree, tree_logical_size)
 from repro_torch.models import get_family
@@ -135,6 +163,10 @@ def write_back(params: PyTree, new_active: PyTree, group: Group) -> PyTree:
         else:
             out[key] = sub
     return out
+
+
+def _any_sharded(tree: PyTree) -> bool:
+    return any(S.is_sharded(t) for t in flatten_with_paths(tree).values())
 
 
 def _batch_to(batch: dict, device: torch.device) -> dict:
@@ -211,6 +243,18 @@ class AdaLomoConfig:
 
 
 @dataclasses.dataclass
+class CrossPodConfig:
+    """Cross-pod data parallelism: the global batch splits into ``pods``
+    equal chunks whose partial gradients are reduced into one update.  With
+    ``compress`` each pod's partial passes through the int8 error-feedback
+    codec (``dist.compress``) before the reduce, and the per-pod fp32
+    residuals become training state (FPFT: ``extra["ef_residual"]``;
+    grouped strategies: the active group's bundle under ``"ef"``)."""
+    pods: int = 2
+    compress: bool = True
+
+
+@dataclasses.dataclass
 class StreamConfig:
     """Chunk-granular state streaming (``core.pipeline.ChunkStream``).
 
@@ -267,6 +311,62 @@ class QuantConfig:
     def moment_dtype(self) -> Optional[torch.dtype]:
         """The dtype ``moments`` resolves to (None = fp32 default)."""
         return torch.bfloat16 if self.moments else None
+
+
+def crosspod_reduce(loss_and_grad: Callable, params: PyTree, batch,
+                    residuals: PyTree, cross_pod: CrossPodConfig):
+    """The cross-pod gradient reduce, with the int8 error-feedback codec
+    on the wire when ``cross_pod.compress``.
+
+    The batch splits into ``pods`` equal leading-dim chunks, one a pod;
+    each pod's gradient is computed in turn (``loss_and_grad(chunk) ->
+    (loss, grads)``), so only one pod's gradient tree is live beside the
+    fp32 sum.  Compressed, pod i's partial round-trips through
+    ``dist.compress`` with slice i of the stacked ``residuals`` (EF-SGD),
+    leaf by leaf.  Returns ``(grads, new_residuals, mean_loss)``: ``sum /
+    pods`` in each param's dtype, the new stacked residuals (``residuals``
+    as given when compression is off) and the pods' mean loss in fp32.
+    On the card the residuals are updated in place (the step consumes its
+    input state); on the CPU new ones are returned."""
+    pods = cross_pod.pods
+
+    def chunk(x):
+        if x.shape[0] % pods:
+            raise ValueError(
+                f"cross-pod reduce needs a batch divisible by pods={pods}; "
+                f"got leading dim {x.shape[0]}")
+        return x.reshape((pods, x.shape[0] // pods) + tuple(x.shape[1:]))
+
+    pod_batch = {k: chunk(v) for k, v in batch.items()}
+    flat_r = flatten_with_paths(residuals) if cross_pod.compress else {}
+    in_place = any(t.device.type == "cuda" for t in flat_r.values())
+    new_res = {p: [] for p in flat_r}
+    g_sum, l_sum = None, None
+    for i in range(pods):
+        loss, g = loss_and_grad({k: v[i] for k, v in pod_batch.items()})
+        g = flatten_with_paths(g)
+        for p in g:
+            if cross_pod.compress:
+                g[p], r = compress_decompress(g[p], flat_r[p][i])
+                if in_place:
+                    flat_r[p][i].copy_(r)
+                else:
+                    new_res[p].append(r)
+                del r
+            if g_sum is None:
+                g[p] = g[p].float()
+            else:
+                g_sum[p].add_(g[p].float())
+        g_sum = g if g_sum is None else g_sum
+        l_sum = loss.float() if l_sum is None else l_sum + loss.float()
+        del g
+    flat_p = flatten_with_paths(params)
+    grads = unflatten_from_paths({p: x.div_(pods).to(flat_p[p].dtype)
+                                  for p, x in g_sum.items()})
+    if cross_pod.compress and not in_place:
+        residuals = unflatten_from_paths({
+            p: torch.stack(rs) for p, rs in new_res.items()})
+    return grads, residuals, l_sum / pods
 
 
 # -------------------------------------------------------------- TrainState
@@ -330,16 +430,25 @@ class Strategy:
     # encode (grouped strategies), a moment tree to narrow
     supports_quant_frozen = False
     supports_quant_moments = False
+    # whether the step takes a CrossPodConfig (a whole gradient tree to
+    # reduce), and why not, appended to the refusal when non-empty
+    supports_cross_pod = False
+    cross_pod_unsupported_reason = ""
 
     def __init__(self, cfg, optimizer: Optional[Optimizer], *,
                  schedule: Optional[LRSchedule] = None, policy: Policy = FP32,
                  loss_fn: Optional[Callable] = None, device="cuda",
                  mesh=None, param_sharding_fn: Optional[Callable] = None,
-                 cross_pod=None, quant: Optional[QuantConfig] = None):
-        for what, val in (("mesh=", mesh), ("cross_pod=", cross_pod),
-                          ("param_sharding_fn=", param_sharding_fn)):
-            if val is not None:
-                raise NotImplementedError(f"{what} is not ported yet")
+                 cross_pod: Optional[CrossPodConfig] = None,
+                 quant: Optional[QuantConfig] = None):
+        if cross_pod is not None and not self.supports_cross_pod:
+            msg = f"strategy {self.name!r} does not support cross_pod"
+            if self.cross_pod_unsupported_reason:
+                msg = f"{msg}: {self.cross_pod_unsupported_reason}"
+            raise ValueError(msg)
+        self.cross_pod = cross_pod
+        self.mesh = mesh
+        self.param_sharding_fn = param_sharding_fn
         if quant is not None:
             if quant.frozen and not self.supports_quant_frozen:
                 raise ValueError(
@@ -357,7 +466,96 @@ class Strategy:
         self.schedule = schedule if schedule is not None else LRSchedule()
         self.policy = policy
         self.loss_fn = loss_fn or self.model.loss_fn
+        # the family's loss is a mean over labelled targets; a caller's
+        # loss_fn is averaged over the data ranks as it is
+        self._token_mean_loss = loss_fn is None
         self.device = resolve_device(device)
+        if mesh is not None:
+            self._check_mesh(optimizer)
+
+    # ------------------------------------------------------------ sharding
+
+    def _check_mesh(self, optimizer) -> None:
+        """Refuse what the sharded step does not cover."""
+        mesh = self.mesh
+        if mesh.device_type != self.device.type:
+            raise ValueError(
+                f"mesh of {mesh.device_type!r} devices for a strategy on "
+                f"{self.device.type!r}; init_distributed(device=...) and "
+                "make_runner(device=...) must agree")
+        if self.quant is not None and self.quant.frozen:
+            raise NotImplementedError(
+                "quant.frozen under mesh= is not ported: the codec records "
+                "of the resident tree have no placement rule yet")
+        if S.model_size(mesh) > 1 and optimizer is not None and (
+                optimizer.name == "adafactor" or optimizer.grad_clip):
+            raise NotImplementedError(
+                f"optimizer {optimizer.name!r} under a model axis > 1: its "
+                "update couples a leaf's elements (factored moments, a "
+                "global-norm clip) and runs on local shards here; use "
+                "adamw/sgd/sgdm/adagrad without grad_clip")
+
+    def param_shardings(self, tree: PyTree) -> PyTree:
+        """The spec tree (``dist.shardings``) a params-shaped tree takes in
+        a step: ``param_sharding_fn(tree, mesh)`` when given, else the
+        structural rule."""
+        if self.param_sharding_fn is not None:
+            return self.param_sharding_fn(tree, self.mesh)
+        return S.param_shardings(tree, self.mesh)
+
+    def resident_param_shardings(self, tree: PyTree) -> PyTree:
+        """Where the full param tree lives between steps (the in-step
+        placement; the grouped strategies replicate it)."""
+        return self.param_shardings(tree)
+
+    @property
+    def _cross_pod_on(self) -> bool:
+        return self.cross_pod is not None and self.cross_pod.pods > 1
+
+    def place_params(self, params: PyTree) -> PyTree:
+        """``params`` on the device; under a mesh as DTensors on their
+        resident placement (each rank keeps its slice)."""
+        params = self._place(params)
+        if self.mesh is None:
+            return params
+        return S.shard(params, self.resident_param_shardings(params),
+                       self.mesh)
+
+    def _rows(self, batch: dict) -> dict:
+        """The batch on the device, as this rank's rows under a mesh (in
+        the step's context, where the family's own loss weighs the rank
+        by its labelled targets: ``dist.ctx.weigh_by_targets``)."""
+        batch = _batch_to(batch, self.device)
+        if self.mesh is None:
+            return batch
+        rows = S.data_shard(batch, self.mesh)
+        if self._token_mean_loss and "labels" in rows:
+            dctx.weigh_by_targets(rows["labels"])
+        return rows
+
+    def _ctx(self):
+        """The activation context a step runs in (none without a mesh)."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return dctx.activation_sharding(self.mesh, S.data_axes(self.mesh))
+
+    def _grads(self, loss_of: Callable, params: PyTree, batch,
+               residuals: PyTree = None):
+        """``(grads, residuals, loss)`` of ``loss_of(params, rows)`` over
+        the whole ``batch`` (host or device tensors): under a mesh each
+        rank differentiates its rows and the loss and gradients are
+        averaged over the data axes; under ``cross_pod`` through
+        :func:`crosspod_reduce`, one pod chunk at a time."""
+        def lg(b):
+            loss, g = _value_and_grad(lambda p: loss_of(p, self._rows(b)),
+                                      params)
+            return dctx.data_mean(loss), dctx.data_mean(g)
+
+        if self._cross_pod_on:
+            return crosspod_reduce(lg, params, _batch_to(batch, self.device),
+                                   residuals, self.cross_pod)
+        loss, grads = lg(batch)
+        return grads, residuals, loss
 
     def init(self, params: PyTree, rng=None) -> TrainState:
         """The strategy's :class:`TrainState` of ``params``.  ``rng`` (a
@@ -392,6 +590,10 @@ class Strategy:
         pinned = self.offload_optimizer and self.device.type == "cuda"
         if torch.cuda.is_available() and torch.cuda.is_initialized():
             torch.cuda.synchronize()
+        tree = state.to_tree()
+        if _any_sharded(tree):
+            # a live sharded state: its full tensors first (a collective)
+            state = TrainState.from_tree(S.gather(tree))
 
         def opt_leaf(t):
             if not t.is_floating_point():
@@ -403,10 +605,27 @@ class Strategy:
             extra["order"] = np.asarray(extra["order"], np.int64)
         if "rng" in extra:
             extra["rng"] = np.asarray(extra["rng"], np.uint32)
-        return TrainState(
+        if "ef_residual" in extra:
+            extra["ef_residual"] = self._place(extra["ef_residual"])
+        placed = TrainState(
             params=tree_map(lambda t: t.to(self.device), state.params),
             opt_state=tree_map(opt_leaf, state.opt_state),
             step=int(state.step), extra=extra)
+        return self._sharded(placed)
+
+    def _sharded(self, state: TrainState) -> TrainState:
+        """``state`` (full tensors on the device) under this strategy's
+        placements: the identity without a mesh."""
+        return state if self.mesh is None else self._shard_state(state)
+
+    def _shard_state(self, state: TrainState) -> TrainState:
+        """A placed state of full tensors -> DTensors where this strategy
+        keeps them under its mesh: here the params on their resident
+        placement (a grouped strategy's bundles are sharded at their
+        group's next visit)."""
+        return dataclasses.replace(state, params=S.shard(
+            state.params, self.resident_param_shardings(state.params),
+            self.mesh))
 
     def peak_trainable_params(self, params: PyTree) -> int:
         """Max #params trainable in any single step (paper Fig. 6e)."""
@@ -430,10 +649,16 @@ class _GroupedStrategy(Strategy):
     memory_mode = "hift"
     supports_quant_frozen = True
     supports_quant_moments = True
+    supports_cross_pod = True
 
     @property
     def _quant_frozen(self) -> Optional[str]:
         return self.quant.frozen if self.quant is not None else None
+
+    def resident_param_shardings(self, tree: PyTree) -> PyTree:
+        # between steps the tree is mostly frozen weights: replicated, so a
+        # step's frozen majority moves no data
+        return S.replicated(tree, self.mesh)
 
     def _setup_groups(self, m: int) -> None:
         self.units = self.model.unit_spec(self.cfg)
@@ -471,6 +696,9 @@ class _GroupedStrategy(Strategy):
             params = tree_cast(params, policy.param_dtype)
         if self._quant_frozen is not None:
             params = quantize_tree(params, self._quant_frozen)
+        if self.mesh is not None:
+            params = S.shard(params, S.replicated(params, self.mesh),
+                             self.mesh)
         return params
 
     def _cut(self, group: Group) -> Optional[int]:
@@ -485,20 +713,33 @@ class _GroupedStrategy(Strategy):
         from the group's bf16 params."""
         if self._quant_frozen is not None:
             master = tree_cast(dequantize_tree(active), torch.float32)
-            return {"opt": self.optimizer.init(master), "master": master}
-        if self.policy.master_active_group_only:
+            bundle = {"opt": self.optimizer.init(master), "master": master}
+        elif self.policy.master_active_group_only:
             master = tree_cast(active, torch.float32)
-            return {"opt": self.optimizer.init(master), "master": master}
-        return {"opt": self.optimizer.init(active)}
+            bundle = {"opt": self.optimizer.init(master), "master": master}
+        else:
+            bundle = {"opt": self.optimizer.init(active)}
+        if self._cross_pod_on and self.cross_pod.compress:
+            # the group's per-pod EF residuals ride its bundle, so offload,
+            # pipelining and checkpoints cover them
+            bundle["ef"] = init_residuals(bundle.get("master", active),
+                                          self.cross_pod.pods)
+        return bundle
 
     def _train_group(self, gi: int, active: PyTree, frozen: PyTree,
-                     bundle: PyTree, batch, lr: float):
+                     bundle: PyTree, batch, lr: float,
+                     local: Callable = lambda tree: tree):
+        """One group's step on full ``active``/``frozen`` trees.  Under a
+        mesh ``bundle`` holds the rank's shards (its ``"ef"`` the full
+        residuals) and ``local(tree)`` takes the rank's shard of a tree
+        shaped like ``active``: the gradients and the params are cut to it
+        before the update, which runs on shards."""
         group = self.groups[gi]
         cut = self._cut(group)
         cfg, opt, policy = self.cfg, self.optimizer, self.policy
 
-        def loss_of(a):
-            return self.loss_fn(cfg, merge_params(a, frozen, group), batch,
+        def loss_of(a, rows):
+            return self.loss_fn(cfg, merge_params(a, frozen, group), rows,
                                 cut=cut, compute_dtype=policy.compute_dtype)
 
         qf = self._quant_frozen
@@ -507,7 +748,9 @@ class _GroupedStrategy(Strategy):
         # through their views)
         work = active if qf is None else tree_cast(bundle["master"],
                                                    policy.param_dtype)
-        loss, grads = _value_and_grad(loss_of, work)
+        grads, ef, loss = self._grads(loss_of, work, batch, bundle.get("ef"))
+        grads = local(grads)
+        ef = {"ef": ef} if "ef" in bundle else {}
         if "master" in bundle:
             # grads are w.r.t. the working params; the fp32 master takes the
             # update and the resident slice its cast (re-encoded if quant)
@@ -516,14 +759,30 @@ class _GroupedStrategy(Strategy):
             new_active = tree_cast(new_master, policy.param_dtype)
             if qf is not None:
                 new_active = quantize_tree(new_active, qf)
-            return new_active, {"opt": new_st, "master": new_master}, loss
-        new_active, new_st = opt.update(grads, bundle["opt"], active, lr)
-        return new_active, {"opt": new_st}, loss
+            return new_active, {"opt": new_st, "master": new_master,
+                                **ef}, loss
+        new_active, new_st = opt.update(grads, bundle["opt"], local(active),
+                                        lr)
+        return new_active, {"opt": new_st, **ef}, loss
+
+    def _bundle_specs(self, bundle: PyTree, active: PyTree,
+                      a_specs: PyTree) -> PyTree:
+        """A bundle's specs: its moments and master mirror the active
+        group's in-step specs, its ``"ef"`` the same shifted past the pods
+        dim."""
+        return S.mirror_specs(
+            bundle, {p: tuple(t.shape) for p, t in
+                     flatten_with_paths(active).items()},
+            flatten_with_paths(a_specs), self.mesh)
 
     def _group_step(self, state: TrainState, batch, gi: int, lr: float,
                     next_gis: Optional[list] = None):
         group = self.groups[gi]
-        active, frozen = split_params(state.params, group)
+        mesh = self.mesh
+        # under a mesh the resident tree is replicated: its local tensors
+        # are the full tree
+        params = state.params if mesh is None else S.local(state.params)
+        active, frozen = split_params(params, group)
         key = str(gi)
         stored = state.opt_state.get(key)
         pipe = self._pipeline
@@ -536,8 +795,32 @@ class _GroupedStrategy(Strategy):
             bundle = pipe.fetch(key, stored)
         else:
             bundle = device_put(stored, self.device)
-        new_active, new_bundle, loss = self._train_group(
-            gi, active, frozen, bundle, _batch_to(batch, self.device), lr)
+        local = lambda tree: tree      # noqa: E731
+        if mesh is not None:
+            a_specs = self.param_shardings(active)
+            shapes = {p: tuple(t.shape) for p, t in
+                      flatten_with_paths(active).items()}
+            if not _any_sharded(bundle):
+                # a new bundle, or a restored host one: shard it
+                bundle = S.shard(bundle,
+                                 self._bundle_specs(bundle, active, a_specs),
+                                 mesh)
+            like = bundle
+            bundle = S.local(bundle)
+            if "ef" in like:
+                bundle["ef"] = S.gather(like["ef"])
+            local = lambda tree: S.local_tree(tree, a_specs, mesh)  # noqa
+        with self._ctx():
+            new_active, new_bundle, loss = self._train_group(
+                gi, active, frozen, bundle, batch, lr, local=local)
+        if mesh is not None:
+            ef = new_bundle.pop("ef", None)
+            new_bundle = S.rewrap(new_bundle, like)
+            if ef is not None:
+                new_bundle["ef"] = S.reshard_like(ef, like["ef"])
+            # the updated shards back to the full (replicated) resident
+            new_active = S.gather(S.wrap_tree(new_active, a_specs, shapes,
+                                              mesh))
         if pipe is not None and next_gis:
             # the step above is enqueued, not done: start the coming
             # groups' uploads now so they run beside its compute (depth-1
@@ -564,7 +847,10 @@ class _GroupedStrategy(Strategy):
                           else host_put(new_bundle, into=stored))
         opt_state = dict(state.opt_state)
         opt_state[key] = new_bundle
-        return write_back(state.params, new_active, group), opt_state, loss
+        new_params = write_back(params, new_active, group)
+        if mesh is not None:
+            new_params = S.rewrap(new_params, state.params)
+        return new_params, opt_state, loss
 
     def peak_trainable_params(self, params: PyTree) -> int:
         # a codec record counts as the leaf it encodes
@@ -715,24 +1001,72 @@ class FPFTStrategy(Strategy):
     # every param trains every step (no frozen tree to encode), but the
     # moment tree may be narrowed
     supports_quant_moments = True
+    supports_cross_pod = True
 
     def init(self, params: PyTree, rng=None) -> TrainState:
         params = self._place(params)
         if self.policy.name == "bf16":
             params = tree_cast(params, self.policy.param_dtype)
-        return TrainState(params, self.optimizer.init(params), 0, {})
+        extra = {}
+        if self._cross_pod_on and self.cross_pod.compress:
+            # per-pod EF residuals are training state: they checkpoint (and
+            # resize) with everything else
+            extra["ef_residual"] = init_residuals(params, self.cross_pod.pods)
+        return self._sharded(TrainState(params, self.optimizer.init(params),
+                                        0, extra))
+
+    def _mirror(self, tree: PyTree, params: PyTree, specs: PyTree) -> PyTree:
+        return S.mirror_specs(tree, {p: tuple(t.shape) for p, t in
+                                     flatten_with_paths(params).items()},
+                              flatten_with_paths(specs), self.mesh)
+
+    def _shard_state(self, state: TrainState) -> TrainState:
+        """The params under the param rule, the optimizer state and EF
+        residuals mirroring it."""
+        specs = self.param_shardings(state.params)
+        extra = dict(state.extra or {})
+        if "ef_residual" in extra:
+            extra["ef_residual"] = S.shard(
+                extra["ef_residual"],
+                self._mirror(extra["ef_residual"], state.params, specs),
+                self.mesh)
+        return TrainState(
+            S.shard(state.params, specs, self.mesh),
+            S.shard(state.opt_state,
+                    self._mirror(state.opt_state, state.params, specs),
+                    self.mesh),
+            state.step, extra)
+
+    def _update(self, params: PyTree, grads: PyTree, opt_state: PyTree,
+                lr: float):
+        return self.optimizer.update(grads, opt_state, params, lr)
 
     def step(self, state: TrainState, batch) -> tuple[TrainState, Metrics]:
         step = int(state.step)
         lr = self.schedule.at_cycle(step)
-        batch = _batch_to(batch, self.device)
-        cfg, dtype = self.cfg, self.policy.compute_dtype
-        loss, grads = _value_and_grad(
-            lambda p: self.loss_fn(cfg, p, batch, compute_dtype=dtype),
-            state.params)
-        params, opt_state = self.optimizer.update(grads, state.opt_state,
-                                                  state.params, lr)
-        return (TrainState(params, opt_state, step + 1, state.extra),
+        cfg, dtype, mesh = self.cfg, self.policy.compute_dtype, self.mesh
+        extra = state.extra
+        res = (extra or {}).get("ef_residual")
+        params = state.params
+        with self._ctx():
+            grads, new_res, loss = self._grads(
+                lambda p, rows: self.loss_fn(cfg, p, rows,
+                                             compute_dtype=dtype),
+                params if mesh is None else S.gather(params), batch,
+                res if mesh is None or res is None else S.gather(res))
+        if res is not None:
+            extra = dict(extra)
+            extra["ef_residual"] = S.reshard_like(new_res, res)
+        if mesh is None:
+            params, opt_state = self._update(params, grads, state.opt_state,
+                                             lr)
+        else:
+            grads = S.local_tree(grads, S.specs_of(params), mesh)
+            new_p, new_o = self._update(S.local(params), grads,
+                                        S.local(state.opt_state), lr)
+            params = S.rewrap(new_p, params)
+            opt_state = S.rewrap(new_o, state.opt_state)
+        return (TrainState(params, opt_state, step + 1, extra),
                 {"loss": loss, "lr": lr, "strategy": self.name})
 
 
@@ -772,6 +1106,11 @@ class StreamedFPFTStrategy(FPFTStrategy):
 
     def __init__(self, cfg, optimizer, *, stream: Optional[StreamConfig] = None,
                  **kw):
+        if kw.get("mesh") is not None:
+            raise NotImplementedError(
+                "fpft_streamed under mesh=: the chunk stream over DTensor "
+                "shards (the reference's chunk_window_shardings) is not "
+                "ported; use fpft")
         super().__init__(cfg, optimizer, **kw)
         self.stream = stream if stream is not None else StreamConfig()
         if not getattr(optimizer, "stream_safe", False):
@@ -829,7 +1168,10 @@ class StreamedFPFTStrategy(FPFTStrategy):
             state, _ = self._split_state(self.optimizer.init(one), one)
             for key, view in views.items():
                 view[path].copy_(state[key]["x"], non_blocking=True)
-        return TrainState(params, {**resident, **host}, 0, {})
+        extra = {}
+        if self._cross_pod_on and self.cross_pod.compress:
+            extra["ef_residual"] = init_residuals(params, self.cross_pod.pods)
+        return TrainState(params, {**resident, **host}, 0, extra)
 
     def place_state(self, state: TrainState) -> TrainState:
         """As :meth:`Strategy.place_state`, with the streamed moment trees
@@ -881,18 +1223,9 @@ class StreamedFPFTStrategy(FPFTStrategy):
         new_opt.update(zip(skeys, stream.end()))
         return (params if card else layout.combine(p_chunks)), new_opt
 
-    def step(self, state: TrainState, batch) -> tuple[TrainState, Metrics]:
-        step = int(state.step)
-        lr = self.schedule.at_cycle(step)
-        batch = _batch_to(batch, self.device)
-        cfg, dtype = self.cfg, self.policy.compute_dtype
-        loss, grads = _value_and_grad(
-            lambda p: self.loss_fn(cfg, p, batch, compute_dtype=dtype),
-            state.params)
-        params, opt_state = self._streamed_update(state.params, grads,
-                                                  state.opt_state, lr)
-        return (TrainState(params, opt_state, step + 1, state.extra),
-                {"loss": loss, "lr": lr, "strategy": self.name})
+    def _update(self, params: PyTree, grads: PyTree, opt_state: PyTree,
+                lr: float):
+        return self._streamed_update(params, grads, opt_state, lr)
 
 
 # ------------------------------------------------------------------- MeZO
@@ -926,7 +1259,7 @@ class MeZOStrategy(Strategy):
     def init(self, params: PyTree, rng=None) -> TrainState:
         if rng is None:
             rng = prng_key(self.mezo.seed)
-        return TrainState(self._place(params), {}, 0,
+        return TrainState(self.place_params(params), {}, 0,
                           {"rng": np.asarray(rng, np.uint32)})
 
     def step(self, state: TrainState, batch) -> tuple[TrainState, Metrics]:
@@ -934,17 +1267,28 @@ class MeZOStrategy(Strategy):
         rng = np.asarray(state.extra["rng"], np.uint32)
         lr = self.schedule.at_cycle(step)
         cfg, dtype = self.cfg, self.policy.compute_dtype
-        params, loss = mezo_step(
-            lambda p, b: self.loss_fn(cfg, p, b, compute_dtype=dtype),
-            _own(state.params), _batch_to(batch, self.device),
-            (*(int(w) for w in rng), step), lr, self.mezo.eps,
-            stacked=self._stacked,
-            noise=self._noise(rng, step) if self._noise else None)
+        # under a mesh every rank perturbs the gathered tree with the same
+        # z, averages its rows' losses over the data axes, and keeps its
+        # shard of the update
+        with self._ctx():
+            params, loss = mezo_step(
+                lambda p, b: dctx.data_mean(
+                    self.loss_fn(cfg, p, b, compute_dtype=dtype)),
+                _own(_gathered(state.params)), self._rows(batch),
+                (*(int(w) for w in rng), step), lr, self.mezo.eps,
+                stacked=self._stacked,
+                noise=self._noise(rng, step) if self._noise else None)
+        params = S.reshard_like(params, state.params)
         return (TrainState(params, state.opt_state, step + 1, state.extra),
                 {"loss": loss, "lr": lr, "strategy": self.name})
 
     def peak_grad_params(self, params: PyTree) -> int:
         return 0            # two forward passes, no backward at all
+
+
+def _gathered(tree: PyTree) -> PyTree:
+    """The full tensors of a (possibly) sharded tree."""
+    return S.gather(tree) if _any_sharded(tree) else tree
 
 
 def _own(tree: PyTree) -> PyTree:
@@ -1034,9 +1378,10 @@ def _head(head_loss_fn: Callable, hp: PyTree, emb: _Leaves,
         nh, ne = len(head.list), len(emb.list)
         gs = torch.autograd.grad(loss, head.list + emb.list + [h],
                                  allow_unused=True, retain_graph=retain)
-        return head.grads(gs[:nh]), emb.grads(gs[nh:nh + ne]), gs[-1]
+        return (dctx.data_mean(head.grads(gs[:nh])),
+                dctx.data_mean(emb.grads(gs[nh:nh + ne])), gs[-1])
 
-    return loss.detach(), vjp
+    return dctx.data_mean(loss.detach()), vjp
 
 
 def _sgd_tree(params: PyTree, grads: Optional[PyTree], lr, scale,
@@ -1092,11 +1437,11 @@ def _lomo_fused_body(cfg, pieces, grad_clip: float,
             with torch.enable_grad():
                 out = block_fn(lyr.tree, x)
             *g, dx = torch.autograd.grad(out, lyr.list + [x], dh)
-            return lyr.grads(g), dx
+            return dctx.data_mean(lyr.grads(g)), dx
 
         def gather_vjp(dh0, retain):
-            return emb.grads(torch.autograd.grad(
-                h0, emb.list, dh0, allow_unused=True, retain_graph=retain))
+            return dctx.data_mean(emb.grads(torch.autograd.grad(
+                h0, emb.list, dh0, allow_unused=True, retain_graph=retain)))
 
         def norm_sweep():
             g_head, g_emb_h, dh = head_vjp(True)
@@ -1194,7 +1539,7 @@ def _pieces_reverse(pieces: LomoPieces, sp, stages, emb: _Leaves, saved,
             ins = lyr.list + sh.list + ([side] if side is not None else [])
             gs = torch.autograd.grad(out, ins + [x], dh, allow_unused=True)
             nl, ns = len(lyr.list), len(sh.list)
-            g_layer, dh = lyr.grads(gs[:nl]), gs[-1]
+            g_layer, dh = dctx.data_mean(lyr.grads(gs[:nl])), gs[-1]
             g_sh = _tadd(g_sh, sh.grads(gs[nl:nl + ns]))
             if side is not None:
                 dside = _tadd(dside, gs[nl + ns])
@@ -1210,7 +1555,7 @@ def _pieces_reverse(pieces: LomoPieces, sp, stages, emb: _Leaves, saved,
                                  allow_unused=True, retain_graph=retain)
         g_emb = _tadd(g_emb, emb.grads(gs[:len(emb.list)]))
         dh = gs[-1] if prev else None
-    return g_emb, g_sh, sq
+    return dctx.data_mean(g_emb), dctx.data_mean(g_sh), sq
 
 
 def _lomo_pieces_body(cfg, pieces: LomoPieces, grad_clip: float,
@@ -1275,11 +1620,11 @@ def _segment_pullback(cfg, loss_fn: Callable, compute_dtype, params, batch):
         out, o = {}, 0
         for key in keys:
             n = len(segs[key].list)
-            out[key] = segs[key].grads(gs[o:o + n])
+            out[key] = dctx.data_mean(segs[key].grads(gs[o:o + n]))
             o += n
         return out
 
-    return loss.detach(), keys, pullback
+    return dctx.data_mean(loss.detach()), keys, pullback
 
 
 def _lomo_generic_body(cfg, loss_fn: Callable, compute_dtype,
@@ -1504,12 +1849,24 @@ class _FusedBackwardStrategy(Strategy):
     place; on the CPU it updates copies and leaves its input state
     untouched."""
 
+    # the reference's text, word for word
+    cross_pod_unsupported_reason = (
+        "the fused backward consumes each piece's gradient inside the "
+        "reverse scan, so no whole-gradient tree ever exists for the "
+        "cross-pod reduce to compress (a per-piece reduce hook is a "
+        "ROADMAP item); use fpft/fpft_streamed — or the grouped "
+        "hift/lisa — for compressed cross-pod data parallelism")
+
     def __init__(self, cfg, optimizer=None, *,
                  stream: Optional[StreamConfig] = None, **kw):
         # quant and cross_pod reach the base class, which rejects them: the
         # fused backward has no frozen tree to encode, no moment tree to
         # narrow and no whole-gradient tree to reduce
         super().__init__(cfg, optimizer, **kw)
+        if stream is not None and self.mesh is not None:
+            raise NotImplementedError(
+                f"{self.name} stream= under mesh=: the segment window over "
+                "DTensor shards is not ported")
         loss_fn = kw.get("loss_fn")
         self._fused = loss_fn is None and hasattr(self.model, "lomo_pieces")
         self._pieces = None
@@ -1591,14 +1948,15 @@ class LOMOStrategy(_FusedBackwardStrategy):
                                     lomo=self.lomo, pieces=self._pieces)
 
     def init(self, params: PyTree, rng=None) -> TrainState:
-        return TrainState(self._resident(params), {}, 0, {})
+        return self._sharded(TrainState(self._resident(params), {}, 0, {}))
 
     def step(self, state: TrainState, batch) -> tuple[TrainState, Metrics]:
         step = int(state.step)
         lr = self.schedule.at_cycle(step)
-        params = _own(self._stream_in(state.params, "p"))
-        params, loss, gnorm = self._body(params,
-                                         _batch_to(batch, self.device), lr)
+        params = _own(_gathered(self._stream_in(state.params, "p")))
+        with self._ctx():
+            params, loss, gnorm = self._body(params, self._rows(batch), lr)
+        params = S.reshard_like(params, state.params)
         params = self._stream_out(params, "p", state.params)
         return (TrainState(params, state.opt_state, step + 1, state.extra),
                 {"loss": loss, "lr": lr, "strategy": self.name,
@@ -1631,18 +1989,32 @@ class AdaLomoStrategy(_FusedBackwardStrategy):
 
     def init(self, params: PyTree, rng=None) -> TrainState:
         params = self._resident(params)
-        return TrainState(params, adalomo_init_opt_state(self.cfg, params),
-                          0, {})
+        return self._sharded(TrainState(
+            params, adalomo_init_opt_state(self.cfg, params), 0, {}))
+
+    def _shard_state(self, state: TrainState) -> TrainState:
+        # the factored moments take the structural rule on their own shapes
+        moments = state.opt_state["moments"]
+        return TrainState(
+            S.shard(state.params, self.param_shardings(state.params),
+                    self.mesh),
+            {**state.opt_state, "moments": S.shard(
+                moments, S.param_shardings(moments, self.mesh), self.mesh)},
+            state.step, state.extra)
 
     def step(self, state: TrainState, batch) -> tuple[TrainState, Metrics]:
         step = int(state.step)
         lr = self.schedule.at_cycle(step)
         opt = state.opt_state
-        params = _own(self._stream_in(state.params, "p"))
-        moments = _own(self._stream_in(opt["moments"], "m"))
-        params, new_opt, loss, gnorm = self._body(
-            params, {"moments": moments, "count": opt["count"]},
-            _batch_to(batch, self.device), lr)
+        params = _own(_gathered(self._stream_in(state.params, "p")))
+        moments = _own(_gathered(self._stream_in(opt["moments"], "m")))
+        with self._ctx():
+            params, new_opt, loss, gnorm = self._body(
+                params, {"moments": moments, "count": opt["count"]},
+                self._rows(batch), lr)
+        params = S.reshard_like(params, state.params)
+        new_opt["moments"] = S.reshard_like(new_opt["moments"],
+                                            opt["moments"])
         new_opt["moments"] = self._stream_out(new_opt["moments"], "m",
                                               opt["moments"])
         params = self._stream_out(params, "p", state.params)

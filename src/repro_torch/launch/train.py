@@ -16,6 +16,10 @@ hift_pipelined, lisa, fpft, fpft_streamed, mezo, lomo, adalomo).
     ... --arch internvl2-26b ...      # vlm family
     ... --arch seamless-m4t-large-v2 ...   # encdec family
     ... --arch xlstm-1.3b ...         # xlstm family
+    ... --crosspod-pods 2 [--crosspod-exact]   # the cross-pod reduce
+    # one process a device, joined through a FileStore (or host:port):
+    ... --device cpu --mesh 2x2 --coordinator file:///tmp/store \
+        --num-processes 4 --process-id $i      # i = 0..3, gloo
 
 The reference's flags for the ported surface (``--fpft`` its deprecated
 alias for ``--strategy fpft``), plus ``--device`` (default
@@ -30,6 +34,15 @@ encdec family ``src_embeds`` (B, --seq, d_model), standard normal from a
 ``torch.Generator`` seeded by ``--seed`` and the step
 (``data.synthetic.VisionStubLM``, ``SourceStubLM``; the reference draws
 ``jax.random``).
+
+Distributed flags as the reference's: ``--coordinator`` (``host:port``
+or an ``init_method`` URL such as ``file:///path``) with
+``--num-processes`` and ``--process-id`` joins a ``torch.distributed``
+group (NCCL on the card, gloo with ``--device cpu``); ``--mesh DxM`` (or
+``name=size`` pairs) shards the steps over a ``DeviceMesh`` of the first
+D*M ranks.  One process drives one device, so ``--local-devices`` above
+1 is refused.  Every process builds the same weights and batches from
+``--seed``.
 """
 from __future__ import annotations
 
@@ -40,8 +53,8 @@ import torch
 from repro_torch.common.device import resolve_device
 from repro_torch.common.pytree import tree_size
 from repro_torch.configs.registry import get_config
-from repro_torch.core import (AdaLomoConfig, HiFTConfig, LiSAConfig,
-                              LOMOConfig, LRSchedule, MeZOConfig,
+from repro_torch.core import (AdaLomoConfig, CrossPodConfig, HiFTConfig,
+                              LiSAConfig, LOMOConfig, LRSchedule, MeZOConfig,
                               make_runner, registry)
 from repro_torch.data.synthetic import (DataConfig, PrefetchIterator,
                                         SourceStubLM, SyntheticLM,
@@ -90,6 +103,29 @@ def main(argv=None):
                     help="fpft_streamed chunk size in bytes "
                          "(StreamConfig.chunk_bytes); the device-resident "
                          "optimizer window is pipeline-depth chunks")
+    ap.add_argument("--mesh", default=None,
+                    help="device mesh for sharded steps: DxM (data x model, "
+                         "e.g. 2x4) or name=size pairs (data=2,model=4) over "
+                         "the first D*M ranks of the process group")
+    ap.add_argument("--coordinator", default=None,
+                    help="host:port of process 0 (or an init_method URL, "
+                         "e.g. file:///tmp/store): joins a torch.distributed "
+                         "job; every process runs this same command with "
+                         "its own --process-id")
+    ap.add_argument("--num-processes", type=int, default=None,
+                    help="total process count of the multi-process job")
+    ap.add_argument("--process-id", type=int, default=None,
+                    help="this process's rank in [0, num_processes)")
+    ap.add_argument("--local-devices", type=int, default=None,
+                    help="devices per process; one process drives one "
+                         "device, so only 1 is accepted")
+    ap.add_argument("--crosspod-pods", type=int, default=0,
+                    help=">=2 splits each batch into that many pod chunks "
+                         "and reduces per-pod gradients "
+                         "(fpft/fpft_streamed/hift/lisa)")
+    ap.add_argument("--crosspod-exact", action="store_true",
+                    help="cross-pod reduce WITHOUT int8 EF compression "
+                         "(default compresses the wire)")
     ap.add_argument("--optimizer", default="adamw")
     ap.add_argument("--policy", default="fp32",
                     choices=["fp32", "mixed", "mixed_hi", "bf16"])
@@ -105,17 +141,48 @@ def main(argv=None):
 
     strategy = "fpft" if args.fpft else args.strategy
     device = resolve_device(args.device)
+    if args.coordinator:
+        if args.num_processes is None or args.process_id is None:
+            ap.error("--coordinator requires --num-processes and "
+                     "--process-id")
+        import torch.distributed as dist
+
+        from repro_torch.launch.mesh import init_distributed
+        init_distributed(args.coordinator, args.num_processes,
+                         args.process_id,
+                         local_device_count=args.local_devices,
+                         device=device.type)
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+        print(f"distributed: process {dist.get_rank()}/"
+              f"{dist.get_world_size()}, {dist.get_backend()} backend")
+    elif args.local_devices is not None and args.local_devices > 1:
+        ap.error("--local-devices: one process drives one device; start "
+                 "one process a device with --coordinator")
     cfg = get_config(args.arch, smoke=args.smoke)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = get_family(cfg).init(cfg, gen, device=device)
     n = tree_size(params)
     print(f"[{cfg.name}] {n/1e6:.1f}M params, family={cfg.family}")
 
+    mesh = None
+    if args.mesh:
+        from repro_torch.dist.shardings import sizes
+        from repro_torch.launch.mesh import mesh_from_spec
+        mesh = mesh_from_spec(args.mesh)
+        print(f"mesh {sizes(mesh)} over {mesh.size()} {mesh.device_type} "
+              "ranks")
+
     sched = LRSchedule(base_lr=args.lr, kind="cosine",
                        total_cycles=max(args.steps, 1))
     kw = {"schedule": sched, "policy": get_policy(args.policy),
           "fused_update": args.fused_update, "device": device,
           "pipeline_depth": args.pipeline_depth}
+    if mesh is not None:
+        kw["mesh"] = mesh
+    if args.crosspod_pods and args.crosspod_pods >= 2:
+        kw["cross_pod"] = CrossPodConfig(pods=args.crosspod_pods,
+                                         compress=not args.crosspod_exact)
     if args.stream_window is not None:
         kw["stream_window"] = args.stream_window
     if strategy in ("hift", "hift_pipelined"):

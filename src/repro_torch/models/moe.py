@@ -37,9 +37,11 @@ Differences from JAX, all deliberate:
 - the buffer is filled by writing each kept route to its own slot; a
   dropped route adds zeros at ``expert * C`` in the reference, which
   leaves that slot's value as it is;
-- ``moe_ffn_auto`` always takes :func:`moe_ffn`: no sharding context
-  exists in the port (the expert-parallel ``moe_ffn_spmd`` waits for
-  distributed training);
+- ``moe_ffn_spmd`` sums the model ranks' outputs with one all-reduce
+  (the reference's ``psum`` inside ``shard_map``), and its backward sums
+  the gradients of the tokens, router logits and expert stacks over the
+  model group, so each rank holds the whole gradient for the data-axis
+  reduce that follows;
 - serving's param and cache conventions are ``models.transformer``'s
   (params already in the compute dtype, caches updated in place, a host
   int ``"pos"``).
@@ -107,7 +109,11 @@ def moe_ffn_init(gen: torch.Generator, cfg: ArchConfig, *, lead=(),
 def _route(p, xt: torch.Tensor, cfg: ArchConfig):
     """Top-k routing of tokens xt (N, d): normalised gates (N, K) fp32 and
     expert ids (N, K), the reference's fp32 softmax and ``top_k``."""
-    logits = L.linear(xt, p["router"]).float()
+    return _gates(L.linear(xt, p["router"]).float(), cfg)
+
+
+def _gates(logits: torch.Tensor, cfg: ArchConfig):
+    """Normalised top-k gates and expert ids of fp32 router logits."""
     probs = torch.softmax(logits, dim=-1)
     gate_vals, expert_ids = torch.topk(probs, cfg.top_k, dim=-1)
     gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
@@ -130,60 +136,174 @@ def capacity(n: int, cfg: ArchConfig) -> int:
                          * cfg.capacity_factor))
 
 
-def moe_ffn(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """x (B, S, D) -> (B, S, D): top-k routing with capacity drop."""
-    b, s, d = x.shape
-    n = b * s
-    E, K = cfg.n_experts, cfg.top_k
-    xt = x.reshape(n, d)
-    gate_vals, expert_ids = _route(p, xt, cfg)
-
+def _dispatch(xt: torch.Tensor, gate_vals: torch.Tensor,
+              expert_ids: torch.Tensor, wg, wu, wd, cfg: ArchConfig,
+              e_base: int, e_local: int) -> torch.Tensor:
+    """The routed experts' output (n, d) over the expert range [e_base,
+    e_base + e_local): sort-based packing with the capacity of all n
+    tokens over all E experts, routes to other experts parked past the
+    range (they add nothing); ``wg``/``wu``/``wd`` hold the range's
+    stacks.  The whole range (``moe_ffn``, and ``moe_ffn_spmd`` at tp = 1)
+    parks nothing and runs none of the parking ops."""
+    n, d = xt.shape
+    K = cfg.top_k
+    part = not (e_base == 0 and e_local == cfg.n_experts)
     # ---- sort-based dispatch (stable: ties keep token order) ----
     C = capacity(n, cfg)
-    flat_expert = expert_ids.reshape(-1)                      # (N*K,)
+    flat_expert = expert_ids.reshape(-1)
+    if part:
+        flat_expert = flat_expert - e_base                    # local ids
+        mine = (flat_expert >= 0) & (flat_expert < e_local)
+        flat_expert = torch.where(mine, flat_expert, e_local)  # park foreign
     sorted_expert, order = torch.sort(flat_expert, stable=True)
-    counts = torch.bincount(sorted_expert, minlength=E)
+    counts = torch.bincount(sorted_expert, minlength=e_local + part)
     seg_start = torch.cumsum(counts, 0) - counts
-    within = torch.arange(n * K, device=x.device) - seg_start[sorted_expert]
+    within = torch.arange(n * K, device=xt.device) - seg_start[sorted_expert]
     keep = within < C
+    if part:
+        keep = keep & (sorted_expert < e_local)
     slot = sorted_expert * C + torch.where(keep, within, 0)
     sorted_token = order // K
     # the buffer row of every slot: the token routed there, or row n (of
-    # zeros); dropped routes write to a spare last slot (no host sync)
-    row_token = torch.full((E * C + 1,), n, dtype=torch.long,
-                           device=x.device)
-    row_token[torch.where(keep, slot, E * C)] = sorted_token
+    # zeros); dropped and foreign routes write to a spare last slot (no
+    # host sync)
+    row_token = torch.full((e_local * C + 1,), n, dtype=torch.long,
+                           device=xt.device)
+    row_token[torch.where(keep, slot, e_local * C)] = sorted_token
     xpad = torch.cat([xt, xt.new_zeros((1, d))])
-    buffer = xpad[row_token[:-1]].reshape(E, C, d)
+    buffer = xpad[row_token[:-1]].reshape(e_local, C, d)
 
     # ---- expert FFN (batched products) ----
-    g = F.silu(torch.bmm(buffer, _stack(p["w_gate"], x.dtype)))
-    u = torch.bmm(buffer, _stack(p["w_up"], x.dtype))
-    out_buf = torch.bmm(g * u, _stack(p["w_down"], x.dtype)).reshape(E * C,
-                                                                     d)
+    g = F.silu(torch.bmm(buffer, _stack(wg, xt.dtype)))
+    u = torch.bmm(buffer, _stack(wu, xt.dtype))
+    out_buf = torch.bmm(g * u, _stack(wd, xt.dtype)).reshape(e_local * C, d)
 
     # ---- combine: each route back to its (token, slot), summed over the
     # token's slots in increasing expert order ----
     inv = torch.empty_like(order)
-    inv[order] = torch.arange(n * K, device=x.device)
+    inv[order] = torch.arange(n * K, device=xt.device)
     keep_nk = keep[inv].reshape(n, K)
-    gate = (gate_vals * keep_nk).to(x.dtype)                  # (N, K)
+    gate = (gate_vals * keep_nk).to(xt.dtype)                 # (N, K)
+    if part:
+        # a foreign route reads row 0 (its gate is 0)
+        slot = torch.where(sorted_expert < e_local, slot, 0)
     contrib = out_buf[slot[inv]].reshape(n, K, d) * gate[..., None]
     by_expert = torch.argsort(expert_ids, dim=-1)
     contrib = contrib.gather(1, by_expert[..., None].expand(n, K, d))
     out = contrib[:, 0]
     for k in range(1, K):
         out = out + contrib[:, k]
+    return out
 
+
+def moe_ffn(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """x (B, S, D) -> (B, S, D): top-k routing with capacity drop."""
+    b, s, d = x.shape
+    xt = x.reshape(b * s, d)
+    gate_vals, expert_ids = _route(p, xt, cfg)
+    out = _dispatch(xt, gate_vals, expert_ids, p["w_gate"], p["w_up"],
+                    p["w_down"], cfg, 0, cfg.n_experts)
     if cfg.n_shared_experts > 0:
         out = out + L.swiglu(p["shared"], xt)
     return out.reshape(b, s, d)
 
 
+def _local_dispatch_ffn(xt, logits, wg, wu, wd, cfg: ArchConfig,
+                        e_base: int, e_local: int) -> torch.Tensor:
+    """Dispatch xt (n, d) to THIS rank's experts [e_base, e_base +
+    e_local) (the reference's signature): routes from the fp32 router
+    ``logits``, the local capacity of n tokens, foreign ids parked; the
+    stacks ``wg``/``wu``/``wd`` hold the rank's experts only."""
+    gate_vals, expert_ids = _gates(logits, cfg)
+    return _dispatch(xt, gate_vals, expert_ids, wg, wu, wd, cfg, e_base,
+                     e_local)
+
+
+class _ModelSum(torch.autograd.Function):
+    """All-reduce (sum) over the model group forward; the identity
+    backward (everything after the sum is replicated over the group)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        from repro_torch.dist.shardings import model_sum_
+        return model_sum_(t.clone(), mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _ModelCopy(torch.autograd.Function):
+    """The identity forward; the backward sums the gradient over the model
+    group (each rank's copy feeds only its own experts)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.mesh = mesh
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.dist.shardings import model_sum_
+        return model_sum_(g.contiguous().clone(), ctx.mesh), None
+
+
+def moe_ffn_spmd(p, x, cfg: ArchConfig):
+    """Expert parallelism over the active context's model axis.
+
+    Tokens arrive as the rank's data rows (a plain tensor; a DTensor's
+    local shard, re-wrapped on the way out); each of the ``tp`` model
+    ranks owns ``E / tp`` experts, packs only its own assignments with the
+    local capacity ``C = ceil(n_local * K / E * capacity_factor)`` and
+    runs them; one all-reduce over the model group sums the ranks'
+    outputs, and the shared experts are added after it.  Under autograd the
+    tokens, router logits and expert stacks enter through an operator
+    whose backward sums over the model group, so every rank ends with the
+    whole gradient.  Falls back to :func:`moe_ffn` where ``tp`` does not
+    divide ``E``."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.dist import ctx as dctx
+    from repro_torch.dist import shardings as S
+
+    mesh, maxis = dctx.mesh(), dctx.model_axis()
+    tp = S.sizes(mesh).get(maxis, 1) if maxis is not None else 1
+    if cfg.n_experts % tp != 0:
+        return moe_ffn(p, x, cfg)
+    like = x if isinstance(x, DTensor) else None
+    if like is not None:
+        x = x.to_local()
+    e_local = cfg.n_experts // tp
+    e_base = (mesh.get_local_rank(maxis) * e_local) if tp > 1 else 0
+    b, s, d = x.shape
+    xt = x.reshape(b * s, d)
+    logits = L.linear(xt, p["router"]).float()
+    stacks = [p[k] for k in ("w_gate", "w_up", "w_down")]
+    if tp > 1:
+        if torch.is_grad_enabled():
+            xt = _ModelCopy.apply(xt, mesh)
+            logits = _ModelCopy.apply(logits, mesh)
+            stacks = [_ModelCopy.apply(w, mesh) for w in stacks]
+        stacks = [w[e_base:e_base + e_local] for w in stacks]
+    out = _local_dispatch_ffn(xt, logits, *stacks, cfg, e_base, e_local)
+    if tp > 1:
+        out = _ModelSum.apply(out, mesh)
+    if cfg.n_shared_experts > 0:
+        out = out + L.swiglu(p["shared"], x.reshape(b * s, d))
+    out = out.reshape(b, s, d)
+    if like is not None:
+        out = DTensor.from_local(out, like.device_mesh, like.placements,
+                                 run_check=False)
+    return out
+
+
 def moe_ffn_auto(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """The reference's dispatcher: the expert-parallel path under an
-    active sharding context, else :func:`moe_ffn`.  The port has no
-    sharding context, so it is always :func:`moe_ffn`."""
+    """The expert-parallel :func:`moe_ffn_spmd` under an active sharding
+    context (``dist.ctx``; a strategy step under ``mesh=`` opens one),
+    else :func:`moe_ffn`."""
+    from repro_torch.dist import ctx as dctx
+    if dctx.active():
+        return moe_ffn_spmd(p, x, cfg)
     return moe_ffn(p, x, cfg)
 
 

@@ -115,7 +115,8 @@ def adafactor(eps1: float = 1e-30, eps2: float = 1e-3,
                 {"moments": rebuild(paths, [o[1] for o in out]),
                  "count": count})
 
-    return Optimizer("adafactor", init, update, state_bytes_per_param=0.01)
+    return Optimizer("adafactor", init, update, state_bytes_per_param=0.01,
+                     grad_clip=grad_clip)
 
 
 def _moment_at(moments, path: str) -> dict:

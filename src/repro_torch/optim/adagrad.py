@@ -32,4 +32,5 @@ def adagrad(eps: float = 1e-10, weight_decay: float = 0.0,
 
     return Optimizer("adagrad", init, update,
                      state_bytes_per_param=float(mdt.itemsize),
-                     stream_safe=not grad_clip and not use_fused)
+                     stream_safe=not grad_clip and not use_fused,
+                     grad_clip=grad_clip)

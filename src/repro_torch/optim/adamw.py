@@ -42,4 +42,5 @@ def adamw(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
 
     return Optimizer("adamw", init, update,
                      state_bytes_per_param=2.0 * mdt.itemsize,
-                     stream_safe=not grad_clip and not use_fused)
+                     stream_safe=not grad_clip and not use_fused,
+                     grad_clip=grad_clip)

@@ -36,6 +36,8 @@ class Optimizer(NamedTuple):
     # True when update() is elementwise with no cross-leaf coupling (no
     # global-norm clip), the contract a chunk-streamed update relies on
     stream_safe: bool = False
+    # the global-norm clip threshold the update applies (0 = none)
+    grad_clip: float = 0.0
 
 
 def moment_dtype_of(moment_dtype) -> torch.dtype:

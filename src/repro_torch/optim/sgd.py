@@ -24,7 +24,8 @@ def sgd(weight_decay: float = 0.0, grad_clip: float = 0.0) -> Optimizer:
         return rebuild(paths, new), {"count": state["count"] + 1}
 
     return Optimizer("sgd", init, update, state_bytes_per_param=0.0,
-                     stream_safe=not grad_clip)
+                     stream_safe=not grad_clip,
+                     grad_clip=grad_clip)
 
 
 def sgdm(momentum: float = 0.9, weight_decay: float = 0.0,
@@ -52,4 +53,5 @@ def sgdm(momentum: float = 0.9, weight_decay: float = 0.0,
 
     return Optimizer("sgdm", init, update,
                      state_bytes_per_param=float(mdt.itemsize),
-                     stream_safe=not grad_clip and not use_fused)
+                     stream_safe=not grad_clip and not use_fused,
+                     grad_clip=grad_clip)

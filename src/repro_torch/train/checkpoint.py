@@ -36,6 +36,7 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.common.pytree import flatten_with_paths, unflatten_from_paths
 
@@ -280,11 +281,33 @@ def save(ckpt_dir, step: int, state: PyTree, keep: int = 3,
     """Write the checkpoint of ``step``.  Every leaf is first copied to the
     host (after the card is synchronised), so with ``async_write=True`` the
     returned writer thread (join it before exit) encodes and writes a
-    snapshot that later in-place steps cannot touch."""
+    snapshot that later in-place steps cannot touch.
+
+    A state trained under ``mesh=`` holds DTensor leaves: each is gathered
+    whole (``full_tensor()``, the counterpart of the reference's
+    ``_fetch``) on the calling thread, before any writer starts.  That is a
+    collective, so every process of the job calls :func:`save`; process 0
+    alone writes the files, and the synchronous path ends in a barrier so
+    no process can restore a half-written step (the async path skips it,
+    as the reference's does)."""
+    import torch.distributed as dist
+
+    from repro_torch.dist.elastic import gather_to_host
+
     ckpt_dir = Path(ckpt_dir)
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()
+    flat = flatten_with_paths(state)
+    save.gathered_leaves = sum(isinstance(x, DTensor)
+                               for x in flat.values())
+    if save.gathered_leaves:
+        state = gather_to_host(state)
     snap = _snapshot(state)
+    multi = dist.is_initialized() and dist.get_world_size() > 1
+    if multi and dist.get_rank() != 0:
+        if not async_write:
+            dist.barrier()
+        return None
 
     def _write():
         tmp = ckpt_dir / f".tmp_step_{step}_{time.time_ns()}"
@@ -303,7 +326,12 @@ def save(ckpt_dir, step: int, state: PyTree, keep: int = 3,
         t.start()
         return t
     _write()
+    if multi:
+        dist.barrier()
     return None
+
+
+save.gathered_leaves = 0   # DTensor leaves the last save gathered
 
 
 def _gc(ckpt_dir: Path, keep: int) -> None:
@@ -349,11 +377,9 @@ def save_state(ckpt_dir, step: int, state, keep: int = 3,
 def restore_state(ckpt_dir, step: int, *, mesh=None, strategy=None):
     """Inverse of :func:`save_state`: a ``TrainState`` of CPU tensors (the
     step an int, ``extra["order"]`` an int64 numpy array, ``extra["rng"]``
-    a uint32 one).  The elastic resize onto another mesh
-    (``mesh=``/``strategy=``) is not ported yet."""
-    if mesh is not None or strategy is not None:
-        raise NotImplementedError("restore_state(mesh=..., strategy=...) "
-                                  "(the elastic resize) is not ported yet")
+    a uint32 one).  ``strategy=`` (an instance built for the target mesh)
+    or ``mesh=`` take the elastic resize (``dist.elastic.resize_state``):
+    the state lands on the new layout, whatever mesh it was saved from."""
     from repro_torch.core.strategy import TrainState
     tree = restore(ckpt_dir, step)
     extra = dict(tree.get("extra") or {})
@@ -362,7 +388,11 @@ def restore_state(ckpt_dir, step: int, *, mesh=None, strategy=None):
     if "rng" in extra:
         extra["rng"] = np.asarray(extra["rng"], np.uint32)
     tree["extra"] = extra
-    return TrainState.from_tree(tree)
+    state = TrainState.from_tree(tree)
+    if mesh is not None or strategy is not None:
+        from repro_torch.dist.elastic import resize_state
+        state = resize_state(state, strategy=strategy, mesh=mesh)
+    return state
 
 
 def restore_latest(ckpt_dir, like: PyTree = None):

@@ -366,5 +366,7 @@ def test_quant_is_rejected():
         with pytest.raises(ValueError, match="does not support"):
             make_runner(cfg, strategy, device="cpu",
                         quant=QuantConfig(frozen="nf4"))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        make_runner(cfg, "lomo", device="cpu", cross_pod=object())
+    from repro_torch.core import CrossPodConfig
+    with pytest.raises(ValueError, match="does not support cross_pod: the "
+                                         "fused backward"):
+        make_runner(cfg, "lomo", device="cpu", cross_pod=CrossPodConfig())

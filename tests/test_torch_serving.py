@@ -391,7 +391,10 @@ def test_port_imports_neither_jax_nor_repro():
         "'repro_torch.configs.internvl2_26b', "
         "'repro_torch.models.encdec', "
         "'repro_torch.configs.seamless_m4t_large_v2', "
-        "'repro_torch.models.xlstm', 'repro_torch.configs.xlstm_1_3b']\n"
+        "'repro_torch.models.xlstm', 'repro_torch.configs.xlstm_1_3b', "
+        "'repro_torch.dist.compress', 'repro_torch.dist.shardings', "
+        "'repro_torch.dist.ctx', 'repro_torch.dist.elastic', "
+        "'repro_torch.launch.mesh']\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('msgpack', 'zstandard'))\n"
         "assert not bad, bad\n"

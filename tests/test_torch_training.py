@@ -231,11 +231,15 @@ def test_to_tree_from_tree_round_trip():
 
 
 def test_unported_options_raise():
+    from repro_torch.core import CrossPodConfig
     _, cfg = _cfgs("llama2-7b")
     params = bridge.to_torch(_np_params("llama2-7b"))
-    for kw in ({"mesh": object()}, {"cross_pod": object()}):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            make_runner(cfg, "hift", params=params, device="cpu", **kw)
+    # mesh= and cross_pod= are ported (tests/test_torch_distributed.py,
+    # tests/test_torch_crosspod.py); what is left of them raises
+    with pytest.raises(NotImplementedError, match="fpft_streamed under "
+                                                  "mesh="):
+        make_runner(cfg, "fpft_streamed", params=params, device="cpu",
+                    optimizer="sgd", mesh=object())
     # the pipeline and the stream are ported; a stream window still
     # applies to fpft_streamed only
     with pytest.raises(ValueError, match="does not apply to 'hift'"):
@@ -246,9 +250,9 @@ def test_unported_options_raise():
     with pytest.raises(ValueError, match="unknown or not yet ported"):
         make_runner(cfg, "no-such-strategy", params=params, device="cpu")
     for name in ("mezo", "lomo", "adalomo"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
+        with pytest.raises(ValueError, match="does not support cross_pod"):
             make_runner(cfg, name, params=params, device="cpu",
-                        cross_pod=object())
+                        cross_pod=CrossPodConfig(pods=2))
     with pytest.raises(ValueError, match="no fused update kernel"):
         make_runner(cfg, "hift", params=params, optimizer="sgd",
                     fused_update=True, device="cpu")
