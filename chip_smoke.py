@@ -257,6 +257,20 @@ Phases, one JSON line each:
    (at tp = 1 both run the same whole-range dispatch: the check holds the
    context's path, not the model-axis split, which only the gloo tests
    reach).  Its fused AdamW launches join row 4's count.
+22. ``mesh=`` serving at a world of one (``phase_serve_mesh``, run right
+   after phase 4's bf16 run, on its tree; ``--only serve_mesh`` builds
+   and runs only it, with a tree of its own): ``init_distributed``
+   through NCCL with a ``FileStore`` and a 1x1 ``DeviceMesh``; llama2-7b
+   bf16 at full size, both engines on phase 4's prompts with 16 new
+   tokens, without and then with the mesh: tokens bit-equal, each
+   engine's median decode-step host ms, the gathered tree's extra bytes
+   (0 at 1x1); rows 0-1 and 2-3 as two batch-2 engines against one
+   batch-4 engine, printed only; zamba2-2.7b (6 layers), xlstm-1.3b (8),
+   seamless-m4t-large-v2 (1 + 1), deepseek-moe-16b and internvl2-26b (2)
+   in bf16, without and with the mesh, bit-equal; then the serve
+   launcher at llama2-7b's full size in fp32, without and with ``--mesh
+   1x1``, the same tokens.  Kernels 1, 2, 3, 8b and 8wb (and 1f, 2f on
+   the launcher) are counted over the mesh's runs.
 
 The CPU halves of the in-process card-against-CPU phases (6, 8a, the
 fused training, 10's codes, the quantized and hybrid training, then 20b's
@@ -684,14 +698,19 @@ def phase_kernels(torch, cases=None):
 # ------------------------------------------------------------ phases 3, 4
 
 def serve_both(torch, cfg, params, prompts, max_new, dtype, device,
-               slots, prefill_bucket, max_blocks=None):
-    """Greedy tokens from both engines, with host-clock timings."""
+               slots, prefill_bucket, max_blocks=None, mesh=None,
+               step_ms=None):
+    """Greedy tokens from both engines (on ``mesh`` when given), with
+    host-clock timings; ``step_ms``, a list, takes each of
+    ``ServeEngine``'s decode steps' host ms, each step synchronised
+    (``StepTimer``)."""
     from repro_torch.serve.engine import ContinuousServeEngine, ServeEngine
     from repro_torch.serve.scheduler import ServeRequest
     ceng = ContinuousServeEngine(cfg, params, slots=slots, block_size=16,
                                  prefill_bucket=prefill_bucket,
                                  max_blocks_per_slot=max_blocks,
-                                 compute_dtype=dtype, device=device)
+                                 compute_dtype=dtype, device=device,
+                                 mesh=mesh)
     reqs = [ServeRequest(prompt=list(map(int, p)), max_new_tokens=max_new)
             for p in prompts]
     t0 = time.perf_counter()
@@ -703,13 +722,34 @@ def serve_both(torch, cfg, params, prompts, max_new, dtype, device,
     batch = min(slots, len(prompts))
     max_len = max(len(p) for p in prompts) + max_new
     eng = ServeEngine(cfg, params, max_len=max_len, batch=batch,
-                      compute_dtype=dtype, device=device)
+                      compute_dtype=dtype, device=device, mesh=mesh)
+    if step_ms is not None:
+        eng.model = StepTimer(torch, eng.model, step_ms)
     t0 = time.perf_counter()
     fixed = []
     for i in range(0, len(prompts), batch):
         fixed += eng.generate(prompts[i:i + batch], max_new_tokens=max_new)
     t_fixed = time.perf_counter() - t0
     return ceng, cont, fixed, t_cont, t_fixed
+
+
+class StepTimer:
+    """A family module whose ``decode_step`` ends in a synchronise and
+    appends its host ms to ``ms`` (``ServeEngine`` synchronises only at
+    the end of a call)."""
+
+    def __init__(self, torch, model, ms: list):
+        self.torch, self.model, self.ms = torch, model, ms
+
+    def __getattr__(self, name):
+        return getattr(self.model, name)
+
+    def decode_step(self, *a, **kw):
+        t0 = time.perf_counter()
+        out = self.model.decode_step(*a, **kw)
+        self.torch.cuda.synchronize()
+        self.ms.append(1e3 * (time.perf_counter() - t0))
+        return out
 
 
 def phase_card_vs_cpu(torch):
@@ -766,13 +806,31 @@ def phase_card_vs_cpu(torch):
                            "prefill kernel")
 
 
+def attention_launches(K, dtype: str) -> dict:
+    """The attention kernels' counts by instantiation (``instance``)."""
+    tc = K.flash_attention.launches_tc
+    return {instance("flash_attention", dtype):
+            tc if dtype == "bfloat16" else K.flash_attention.launches - tc,
+            "flash_decode": K.flash_decode.launches,
+            "paged_flash_decode": K.paged_flash_decode.launches}
+
+
+def full_prompts(cfg) -> list:
+    """``phase_full``'s 8 prompts of 32-512 tokens, from seed 0."""
+    rng = np.random.default_rng(0)
+    plens = [int(n) for n in rng.integers(32, 513, 8)]
+    return [rng.integers(0, cfg.vocab, n) for n in plens]
+
+
 def phase_full(torch, dtype: str = "bfloat16", max_new: int = 32,
-               n_layers=None):
+               n_layers=None, keep=None):
     """llama2-7b at full width, both engines, in ``dtype``: bf16
     (``full_size``, full depth), or fp32 (``full_size_fp32``), the
     launcher's default, whose prefill runs ``flash_attention_fp32``, at
     ``n_layers`` (None: full depth).  Returns the attention kernels'
-    launches over the run by instantiation (``instance``)."""
+    launches over the run by instantiation (``instance``); ``keep``, a
+    dict, takes the config, the tree and the prompts for a later phase
+    (``phase_serve_mesh``)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import flash_attention as K
     from repro_torch.models import transformer as T
@@ -787,19 +845,15 @@ def phase_full(torch, dtype: str = "bfloat16", max_new: int = 32,
                     device="cuda", dtype=dt)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    rng = np.random.default_rng(0)
-    plens = [int(n) for n in rng.integers(32, 513, 8)]
-    prompts = [rng.integers(0, cfg.vocab, n) for n in plens]
+    prompts = full_prompts(cfg)
+    plens = [len(p) for p in prompts]
     torch.cuda.reset_peak_memory_stats()
     K.reset_launches()                   # count the main path's run only
     ceng, cont, fixed, t_cont, t_fixed = serve_both(
         torch, cfg, params, prompts, max_new, dt, "cuda", slots=4,
         prefill_bucket=32, max_blocks=-(-(512 + max_new) // 16))
     prefill = instance("flash_attention", dtype)
-    launches = {prefill: K.flash_attention.launches_tc
-                if dtype == "bfloat16" else
-                K.flash_attention.launches - K.flash_attention.launches_tc,
-                **{fn.__name__: fn.launches for fn in K.KERNELS[1:]}}
+    launches = attention_launches(K, dtype)
     split = {fn.__name__: fn.launches_split for fn in K.KERNELS[1:]}
     if launches[prefill] != K.flash_attention.launches:
         raise RuntimeError(f"{dtype} serving ran the other prefill kernel "
@@ -835,6 +889,8 @@ def phase_full(torch, dtype: str = "bfloat16", max_new: int = 32,
         raise RuntimeError(f"kernels never launched on the main path: "
                            f"{missing}")
     phase_profile(torch, cfg, params, prompts[:4], dt)
+    if keep is not None:
+        keep.update(cfg=cfg, params=params, prompts=prompts)
     del ceng, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -5723,6 +5779,309 @@ def phase_dist_moe(torch, mesh, dctx) -> None:
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------- mesh= serving
+
+SERVE_MESH_NEW = 16          # llama2-7b's new tokens a request
+SERVE_MESH_FAMILY_NEW = 8    # the other families'
+# each other family at 2 layers, or at the fewest its structure allows:
+# zamba2's shared block comes every 6 layers, xlstm's sLSTM every 8;
+# seamless as 1 encoder + 1 decoder layer
+SERVE_MESH_FAMILIES = (("zamba2-2.7b", 6), ("xlstm-1.3b", 8),
+                       ("seamless-m4t-large-v2", 2),
+                       ("deepseek-moe-16b", 2), ("internvl2-26b", 2))
+# the kernels each family's serving must launch (bf16)
+SERVE_MESH_KERNELS = {"zamba2-2.7b": ("ssm_scan_bf16", "flash_attention",
+                                      "flash_decode"),
+                      "xlstm-1.3b": ("ssm_scan_wide_bf16",)}
+
+
+def gathered_extra_bytes(params) -> int:
+    """The bytes a gather of a placed tree allocates: leaves whose full
+    tensor is not the rank's own shard."""
+    from repro_torch.common.pytree import flatten_with_paths
+    from repro_torch.dist import shardings as S
+    full = flatten_with_paths(S.gather(params))
+    mine = flatten_with_paths(S.local(params))
+    return sum(t.numel() * t.element_size() for p, t in full.items()
+               if t.data_ptr() != mine[p].data_ptr())
+
+
+def first_divergence(a: list, b: list) -> list:
+    """Each row's first index where two generations differ (its length
+    where none does)."""
+    return [next((i for i, (x, y) in enumerate(zip(r, q)) if x != y),
+                 len(r)) for r, q in zip(a, b)]
+
+
+def greedy_rows(torch, cfg, params, tokens, pad, max_len: int, new: int,
+                dt) -> tuple:
+    """``ServeEngine.generate``'s loop (dense family) on rows already
+    padded: their greedy tokens and the prefill's logits."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import greedy_sample
+    cache = T.init_cache(cfg, tokens.shape[0], max_len, dtype=dt,
+                         device="cuda")
+    first, cache = T.prefill(cfg, params, {"tokens": tokens, "pad": pad},
+                             cache, dt)
+    toks = [greedy_sample(first[:, -1])]
+    for _ in range(new - 1):
+        logits, cache = T.decode_step(cfg, params, cache,
+                                      toks[-1].reshape(-1, 1).long(), dt)
+        toks.append(greedy_sample(logits[:, -1]))
+    return torch.stack(toks, dim=1).tolist(), first
+
+
+def serve_mesh_full(torch, mesh, full=None) -> dict:
+    """(a) llama2-7b bf16 at full size, both engines without and with
+    ``mesh`` in turns (plain, mesh, mesh, plain) on ``phase_full``'s
+    prompts (its tree, popped from ``full``, or a fresh one),
+    ``SERVE_MESH_NEW`` new tokens: bit-equal tokens, the decode steps'
+    median host ms of each, the gathered tree's extra bytes; the
+    attention kernels' launches over the mesh's runs.
+    Then (d), printed only: rows 0-1 and 2-3 as two batch-2 engines
+    against one batch-4 engine, and the same rows split with the four's
+    padding, as two data ranks would run them (tokens, the first
+    divergence, the prefill logits' largest difference)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as K
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import ServeEngine
+    dt, new = torch.bfloat16, SERVE_MESH_NEW
+    if full:
+        cfg, params, prompts = full.pop("cfg"), full.pop("params"), \
+            full.pop("prompts")
+    else:
+        cfg = get_config("llama2-7b")
+        params = T.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                       device="cuda", dtype=dt)
+        prompts = full_prompts(cfg)
+    # turns plain, mesh, mesh, plain: the host-bound steps drift with the
+    # CPU halves' thread beside them
+    turns = {"plain": [], "mesh": []}
+    for i, (name, m) in enumerate((("plain", None), ("mesh", mesh),
+                                   ("mesh", mesh), ("plain", None))):
+        step_ms = []
+        if i == 1:
+            K.reset_launches()           # count the mesh's runs only
+        ceng, cont, fixed, t_cont, t_fixed = serve_both(
+            torch, cfg, params, prompts, new, dt, "cuda", slots=4,
+            prefill_bucket=32, max_blocks=-(-(512 + new) // 16), mesh=m,
+            step_ms=step_ms)
+        turns[name].append(dict(
+            tokens=(cont, fixed), wall_s=(t_cont, t_fixed),
+            step_ms=([1e3 * x for x in ceng.decode_seconds], step_ms)))
+        if i == 2:
+            launches = attention_launches(K, "bfloat16")
+            fp32_prefill = K.flash_attention.launches - \
+                launches["flash_attention"]
+            extra = gathered_extra_bytes(ceng.params)
+        del ceng
+
+    def median(name, e):
+        return statistics.median(x for t in turns[name]
+                                 for x in t["step_ms"][e])
+
+    want = turns["plain"][0]["tokens"]
+    equal = {e: all(t["tokens"][i] == want[i] for ts in turns.values()
+                    for t in ts)
+             for i, e in enumerate(("continuous", "fixed"))}
+    emit("serve_mesh_full", arch=cfg.name, n_layers=cfg.n_layers,
+         dtype="bfloat16", mesh={"data": 1, "model": 1},
+         prompt_lens=[len(p) for p in prompts], new_tokens=new,
+         turns="plain mesh mesh plain", tokens_equal=equal,
+         gathered_extra_bytes=extra, launches=launches,
+         **{f"{e}_{k}": v for i, e in enumerate(("continuous", "fixed"))
+            for k, v in (
+                ("step_ms_median_plain", median("plain", i)),
+                ("step_ms_median_mesh", median("mesh", i)),
+                ("step_ratio", median("mesh", i) / median("plain", i)),
+                ("turn_step_ms_medians", {
+                    name: [statistics.median(t["step_ms"][i]) for t in ts]
+                    for name, ts in turns.items()}),
+                ("turn_wall_s", {name: [t["wall_s"][i] for t in ts]
+                                 for name, ts in turns.items()}))})
+    if not all(equal.values()):
+        raise RuntimeError(f"the 1x1 mesh's tokens differ from the plain "
+                           f"engines': {equal}")
+    if extra != 0:
+        raise RuntimeError(f"the 1x1 mesh's gather copied {extra} bytes")
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing or fp32_prefill:
+        raise RuntimeError(f"the mesh's serving missed kernels {missing} "
+                           f"or ran the fp32 prefill {fp32_prefill} times: "
+                           f"{launches}")
+    # (d) rows split as two data ranks would hold them, printed only
+    four = prompts[:4]
+    plen = max(len(p) for p in four)
+    eng4 = ServeEngine(cfg, params, max_len=plen + new, batch=4,
+                       compute_dtype=dt, device="cuda")
+    eng2 = ServeEngine(cfg, params, max_len=plen + new, batch=2,
+                       compute_dtype=dt, device="cuda")
+    whole = eng4.generate(four, new)
+    halves = eng2.generate(four[:2], new) + eng2.generate(four[2:], new)
+    toks = torch.tensor(np.stack([np.pad(p, (plen - len(p), 0))
+                                  for p in four]), device="cuda")
+    pad = torch.tensor([plen - len(p) for p in four], dtype=torch.int32,
+                       device="cuda")
+    rows = {n: greedy_rows(torch, cfg, eng4.params, toks[lo:hi],
+                           pad[lo:hi], plen + new, new, dt)
+            for n, (lo, hi) in (("all", (0, 4)), ("0:2", (0, 2)),
+                                ("2:4", (2, 4)))}
+    split = rows["0:2"][0] + rows["2:4"][0]
+    gap = float((torch.cat([rows["0:2"][1], rows["2:4"][1]])
+                 - rows["all"][1]).abs().max())
+    emit("serve_mesh_rows", arch=cfg.name, dtype="bfloat16",
+         prompt_lens=[len(p) for p in four], new_tokens=new,
+         engines_equal=whole == halves,
+         engines_first_divergence=first_divergence(whole, halves),
+         split_equal=split == rows["all"][0],
+         split_first_divergence=first_divergence(rows["all"][0], split),
+         split_prefill_logits_max_abs_diff=gap,
+         note="engines: two batch-2 engines, each pair padded to its own "
+              "longest prompt; split: the rows with the four's padding, "
+              "as a data split keeps it, through generate's loop")
+    del eng4, eng2, params, rows
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def serve_mesh_family(torch, mesh, arch: str, n_layers: int) -> dict:
+    """(b) ``arch`` at full width and ``n_layers``, bf16, random weights
+    from seed 0, ``ServeEngine`` at batch 4 (ragged prompts of 16-128
+    tokens, ``SERVE_MESH_FAMILY_NEW`` new tokens) without and then with
+    ``mesh``: bit-equal tokens; the kernels' launches over the mesh's
+    run."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as K
+    from repro_torch.kernels import ssm_scan as SK
+    from repro_torch.models import get_family
+    from repro_torch.serve.engine import ServeEngine
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    if cfg.family == "encdec":
+        cfg = dataclasses.replace(cfg, enc_layers=1, dec_layers=1)
+    dt, new = torch.bfloat16, SERVE_MESH_FAMILY_NEW
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = get_family(cfg).init(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda",
+        dtype=dt)
+    rng = np.random.default_rng(29)
+    plens = [int(n) for n in rng.integers(16, 129, 4)]
+    prompts = [rng.integers(1, cfg.vocab, n) for n in plens]
+    kw = {}
+    if cfg.family == "encdec":
+        kw["src_embeds"] = torch.randn(
+            (4, 128, cfg.d_model), device="cuda",
+            generator=torch.Generator(device="cuda").manual_seed(99))
+    out = {}
+    for name, m in (("plain", None), ("mesh", mesh)):
+        eng = ServeEngine(cfg, params, batch=4, compute_dtype=dt,
+                          max_len=cfg.vision_tokens + max(plens) + new,
+                          device="cuda", mesh=m)
+        if m is not None:
+            K.reset_launches()           # count the mesh's run only
+            SK.reset_launches()
+        t0 = time.perf_counter()
+        out[name] = eng.generate(prompts, max_new_tokens=new, **kw)
+        torch.cuda.synchronize()
+        out[f"{name}_wall_s"] = time.perf_counter() - t0
+        del eng
+    launches = {**attention_launches(K, "bfloat16"),
+                "ssm_scan_bf16": SK.ssm_scan.launches_bf16,
+                "ssm_scan_wide_bf16": SK.ssm_scan.launches_wide_bf16}
+    launches = {k: n for k, n in launches.items() if n}
+    want = SERVE_MESH_KERNELS.get(arch, ("flash_attention", "flash_decode"))
+    emit("serve_mesh_family", arch=arch, n_layers=n_layers, dtype="bfloat16",
+         mesh={"data": 1, "model": 1}, prompt_lens=plens, new_tokens=new,
+         tokens_equal=out["mesh"] == out["plain"], launches=launches,
+         wall_s={k: out[f"{k}_wall_s"] for k in ("plain", "mesh")})
+    if out["mesh"] != out["plain"]:
+        raise RuntimeError(f"{arch}: the 1x1 mesh's tokens differ: {out}")
+    if any(launches.get(k, 0) == 0 for k in want) or \
+            K.flash_attention.launches != K.flash_attention.launches_tc or \
+            SK.ssm_scan.launches != SK.ssm_scan.launches_bf16 or \
+            SK.ssm_scan.launches_wide != SK.ssm_scan.launches_wide_bf16:
+        raise RuntimeError(f"{arch}: the mesh's serving launched {launches}, "
+                           f"wanted {want} in bf16")
+    del params
+    return launches
+
+
+def serve_mesh_launcher(torch) -> dict:
+    """(c) ``launch/serve.py --arch llama2-7b --no-smoke --requests 4
+    --max-new 8`` (fp32: the prefill runs ``flash_attention_fp32``)
+    without and then with ``--mesh 1x1``, its own world of one: the same
+    tokens; the attention kernels' launches over the mesh's run."""
+    from repro_torch.kernels import flash_attention as K
+    from repro_torch.launch import serve as launch_serve
+    argv = ["--arch", "llama2-7b", "--no-smoke", "--requests", "4",
+            "--max-new", "8"]
+    outs, wall = {}, {}
+    for name, extra in (("plain", []), ("mesh", ["--mesh", "1x1"])):
+        gc.collect()
+        torch.cuda.empty_cache()
+        if extra:
+            K.reset_launches()           # count the mesh's run only
+        t0 = time.perf_counter()
+        outs[name] = launch_serve.main(argv + extra)
+        wall[name] = time.perf_counter() - t0
+    launches = {k: n for k, n in attention_launches(K, "float32").items()
+                if n}
+    emit("serve_mesh_launcher", argv=argv, mesh="1x1", dtype="float32",
+         tokens_equal=outs["mesh"] == outs["plain"], launches=launches,
+         wall_s=wall)
+    if outs["mesh"] != outs["plain"]:
+        raise RuntimeError(f"the launcher's --mesh 1x1 tokens differ: {outs}")
+    if set(launches) != {"flash_attention_fp32", "flash_decode"}:
+        raise RuntimeError(f"the launcher under --mesh launched {launches}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_serve_mesh(torch, full=None) -> dict:
+    """``mesh=`` serving at a world of one: ``init_distributed`` through
+    NCCL with a ``FileStore`` in a temporary directory and a 1x1
+    ``DeviceMesh``; (a) and (d) ``serve_mesh_full`` on ``full``'s tree,
+    (b) ``serve_mesh_family`` for each of ``SERVE_MESH_FAMILIES``; then,
+    the group left, (c) ``serve_mesh_launcher``, which joins a world of
+    its own.  Returns the kernels' launches over the mesh's runs by
+    instantiation."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_distributed, mesh_from_spec
+    parts, t_part = {}, [time.perf_counter()]
+
+    def part(name):
+        now = time.perf_counter()
+        parts[name] = now - t_part[0]
+        t_part[0] = now
+
+    def add(counts):
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_serve_mesh_")
+    init_distributed(f"file://{tmp.name}/store", 1, 0, device="cuda")
+    try:
+        mesh = mesh_from_spec("1x1")
+        launches = serve_mesh_full(torch, mesh, full)
+        part("full")
+        for arch, n in SERVE_MESH_FAMILIES:
+            add(serve_mesh_family(torch, mesh, arch, n))
+            part(arch)
+    finally:
+        dist.destroy_process_group()
+        tmp.cleanup()
+    add(serve_mesh_launcher(torch))
+    part("launcher")
+    emit("serve_mesh_seconds", **parts)
+    return launches
+
+
 def cpu_side(path: str, families: str) -> int:
     """The CPU sides of the moe and encdec card-against-CPU training, of
     each of ``families`` (comma-separated) in turn, pickled to ``path`` as
@@ -5961,10 +6320,10 @@ def main(argv=None) -> int:
     import torch
     ap = argparse.ArgumentParser(description="Drive the port on one card.")
     ap.add_argument("--only", choices=["moe_vlm", "encdec", "xlstm",
-                                       "dist"],
+                                       "dist", "serve_mesh"],
                     help="build, then run only the moe/vlm, the encdec, "
-                    "the xlstm or the distributed-training phase (no "
-                    "result line)")
+                    "the xlstm, the distributed-training or the mesh "
+                    "serving phase (no result line)")
     ap.add_argument("--cpu-side", metavar="PATH", help=argparse.SUPPRESS)
     ap.add_argument("--cpu-side-families", default="moe",
                     help=argparse.SUPPRESS)
@@ -6021,10 +6380,13 @@ def main(argv=None) -> int:
         phase_xlstm(torch)
         phase_train_xlstm(torch)            # every run at 48 layers
         phase_serve_xlstm_card_vs_cpu(torch, xlstm_serve_side(torch, "cpu"))
-    elif args.only == "dist":
+    elif args.only in ("dist", "serve_mesh"):
         t0 = time.perf_counter()
-        phase_train_dist(torch)
-        emit("seconds", laps={"train_dist": time.perf_counter() - t0})
+        phase = {"dist": phase_train_dist,
+                 "serve_mesh": phase_serve_mesh}[args.only]
+        phase(torch)
+        emit("seconds", laps={phase.__name__[len("phase_"):]:
+                              time.perf_counter() - t0})
     elif args.only:
         {"moe_vlm": phase_moe_vlm, "encdec": phase_encdec}[args.only](torch)
     if args.only:
@@ -6058,8 +6420,14 @@ def main(argv=None) -> int:
     lap("kernels_hybrid")
     phase_card_vs_cpu(torch)
     lap("card_vs_cpu")
-    launches = phase_full(torch)
+    tree = {}
+    launches = phase_full(torch, keep=tree)
     lap("full_size")
+    # mesh= serving at a world of one, on full_size's tree: both engines,
+    # every other family at 2 layers (or a super-block), the launcher
+    for name, n in phase_serve_mesh(torch, tree).items():
+        launches[name] = launches.get(name, 0) + n
+    lap("serve_mesh")
     # the launcher's default path: fp32 serving at full width, half depth
     # (the whole script's time: full depth took 15.4 s of 933.1 in PR 22)
     for name, n in phase_full(torch, "float32", max_new=16,
@@ -6081,7 +6449,8 @@ def main(argv=None) -> int:
     # card-against-CPU comparison comes last
     wide_rows, wide_launches = phase_xlstm(torch)
     rows.update(wide_rows)
-    launches.update(wide_launches)
+    for name, n in wide_launches.items():     # serve_mesh's are counted
+        launches[name] = launches.get(name, 0) + n
     lap("xlstm")
     # the card-against-CPU phases take their CPU halves, each where the
     # halves' thread has had the time to draw it (they run one after

@@ -1,5 +1,5 @@
 """Placement rules on the (data, model) ``DeviceMesh`` (port of
-``repro.dist.shardings``, up to its serving section).
+``repro.dist.shardings``).
 
 A *spec* is a tuple of DTensor placements, one per mesh dim
 (``Shard(d)`` or ``Replicate()``); a spec tree mirrors a tensor tree.  The
@@ -17,7 +17,9 @@ every family's tree:
   shards, the rest follows the param rule;
 - a bundle ``{"opt", "master"?, "ef"?}``: the param rule leaf-wise, its
   ``"ef"`` the pods-leading rule;
-- the streamed chunk window: a 1-d chunk over ``model`` when it divides.
+- the streamed chunk window: a 1-d chunk over ``model`` when it divides;
+- decode caches, layout-agnostic: the data axes on the first non-leading
+  dim they divide, ``model`` on the largest remaining dim it divides.
 
 The strategies place a bundle, FPFT's moments and EF residuals with
 :func:`mirror_specs`: each leaf takes the specs of the param it mirrors,
@@ -37,7 +39,11 @@ out_shardings)`` pairs for its jitted steps (``group_step_shardings``,
 places its arguments itself with the helpers below (gather the params to
 full tensors for the forward, take the rank's rows of the batch, reduce
 each gradient over the data axes and keep the rank's shard for the
-update), so none of the compositions has a counterpart.
+update), so none of the compositions has a counterpart.  The serving
+pair, :func:`prefill_step_shardings` and :func:`decode_step_shardings`,
+is kept as spec trees, held to the reference's; the engines
+(``serve.engine``) split the rows by the batch rule and keep each rank's
+rows' cache whole (ROADMAP, deliberate differences).
 """
 from __future__ import annotations
 
@@ -180,6 +186,55 @@ def chunk_window_shardings(chunks: PyTree, mesh) -> PyTree:
         return replicated_spec(mesh)
 
     return tree_map(one, chunks)
+
+
+def cache_shardings(cache: PyTree, mesh) -> PyTree:
+    """Decode caches, layout-agnostic: leaves may be (n_layers, B, ...) or
+    (B, ...).  The first non-leading dim the data size divides takes the
+    data axes (the batch dim of a layers-first layout), then the largest
+    remaining non-leading dim the model size divides takes ``model``;
+    leaves of fewer than 2 dims (``pos``) replicate."""
+    axes, dsize, msize = data_axes(mesh), data_size(mesh), model_size(mesh)
+
+    def one(t):
+        ndim = getattr(t, "ndim", 0)
+        if ndim < 2:
+            return replicated_spec(mesh)
+        dim_axes: dict = {}
+        if axes and dsize > 1:
+            for i in range(1, ndim):
+                if t.shape[i] >= dsize and t.shape[i] % dsize == 0:
+                    dim_axes[i] = axes
+                    break
+        if msize > 1:
+            cands = [i for i in range(1, ndim) if i not in dim_axes
+                     and t.shape[i] >= msize and t.shape[i] % msize == 0]
+            if cands:
+                dim_axes[max(cands, key=lambda i: t.shape[i])] = _MODEL_AXIS
+        return _spec(mesh, dim_axes)
+
+    return tree_map(one, cache)
+
+
+def prefill_step_shardings(mesh, params: PyTree, batch: PyTree,
+                           cache: PyTree, logits: PyTree):
+    """``(in, out)`` spec trees of the serving prefill ``prefill(params,
+    batch, cache) -> (logits, cache)``: params as the trainer places them,
+    the prompts and logits by the batch rule, the cache by the cache rule,
+    the same in and out."""
+    c = cache_shardings(cache, mesh)
+    return ((param_shardings(params, mesh), batch_shardings(batch, mesh), c),
+            (batch_shardings(logits, mesh), c))
+
+
+def decode_step_shardings(mesh, params: PyTree, cache: PyTree,
+                          tokens: PyTree, logits: PyTree):
+    """``(in, out)`` spec trees of the serving decode step ``decode(params,
+    cache, tokens) -> (logits, cache)``: the cache the same in and out,
+    tokens and logits by the batch rule."""
+    c = cache_shardings(cache, mesh)
+    return ((param_shardings(params, mesh), c, batch_shardings(tokens, mesh)),
+            (batch_shardings(logits, mesh), c))
 
 
 def mirror_specs(tree: PyTree, like_shapes: dict, like_specs: dict,
@@ -404,3 +459,17 @@ def data_shard(batch: PyTree, mesh) -> PyTree:
     leading dim does not divide stays whole on every rank)."""
     specs = batch_shardings(batch, mesh)
     return local_tree(batch, specs, mesh)
+
+
+def data_gather(t: torch.Tensor, mesh) -> torch.Tensor:
+    """Inverse of :func:`data_shard` for one tensor split by the batch
+    rule: every data rank's rows, in the global order, on every rank (an
+    all-gather over each data axis above 1, the innermost first).  A
+    collective over the data axes."""
+    for a in reversed(data_axes(mesh)):
+        n = sizes(mesh)[a]
+        if n > 1:
+            parts = [torch.empty_like(t) for _ in range(n)]
+            dist.all_gather(parts, t.contiguous(), group=mesh.get_group(a))
+            t = torch.cat(parts)
+    return t

@@ -4,7 +4,7 @@
 One process drives one device: a mesh of ``data x model`` ranks is that
 many processes joined by :func:`init_distributed` (NCCL between cards,
 gloo between CPU processes).  :func:`mesh_from_spec` is the builder behind
-the train launcher's ``--mesh`` flag: ``"2x4"`` (data x model) or
+the launchers' ``--mesh`` flag: ``"2x4"`` (data x model) or
 ``"data=2,model=4"`` both give a (data=2, model=4)
 ``torch.distributed.device_mesh.DeviceMesh`` over the first 8 ranks.
 
@@ -45,6 +45,43 @@ def init_distributed(coordinator: str, num_processes: int, process_id: int,
     url = coordinator if "://" in coordinator else f"tcp://{coordinator}"
     dist.init_process_group(backend, init_method=url,
                             world_size=num_processes, rank=process_id)
+
+
+def add_process_flags(ap) -> None:
+    """The launchers' multi-process flags (one process a device)."""
+    ap.add_argument("--coordinator", default=None,
+                    help="host:port of process 0 (or an init_method URL, "
+                         "e.g. file:///tmp/store): joins a torch.distributed "
+                         "job; every process runs this same command with "
+                         "its own --process-id")
+    ap.add_argument("--num-processes", type=int, default=None,
+                    help="total process count of the multi-process job")
+    ap.add_argument("--process-id", type=int, default=None,
+                    help="this process's rank in [0, num_processes)")
+    ap.add_argument("--local-devices", type=int, default=None,
+                    help="devices per process; one process drives one "
+                         "device, so only 1 is accepted")
+
+
+def join_from_flags(ap, args, device: torch.device) -> torch.device:
+    """Join the job that :func:`add_process_flags`' flags name, when
+    ``--coordinator`` is given, and return the device this process
+    drives (on the card, the one ``init_distributed`` picked); refuse the
+    flags' misuse through ``ap.error``."""
+    if args.coordinator:
+        if args.num_processes is None or args.process_id is None:
+            ap.error("--coordinator requires --num-processes and "
+                     "--process-id")
+        init_distributed(args.coordinator, args.num_processes,
+                         args.process_id,
+                         local_device_count=args.local_devices,
+                         device=device.type)
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+    elif args.local_devices is not None and args.local_devices > 1:
+        ap.error("--local-devices: one process drives one device; start "
+                 "one process a device with --coordinator")
+    return device
 
 
 def device_type() -> str:

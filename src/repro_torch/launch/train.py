@@ -59,6 +59,7 @@ from repro_torch.core import (AdaLomoConfig, CrossPodConfig, HiFTConfig,
 from repro_torch.data.synthetic import (DataConfig, PrefetchIterator,
                                         SourceStubLM, SyntheticLM,
                                         VisionStubLM)
+from repro_torch.launch.mesh import add_process_flags, join_from_flags
 from repro_torch.models import get_family
 from repro_torch.optim.mixed_precision import get_policy
 from repro_torch.train.loop import LoopConfig, train
@@ -107,18 +108,7 @@ def main(argv=None):
                     help="device mesh for sharded steps: DxM (data x model, "
                          "e.g. 2x4) or name=size pairs (data=2,model=4) over "
                          "the first D*M ranks of the process group")
-    ap.add_argument("--coordinator", default=None,
-                    help="host:port of process 0 (or an init_method URL, "
-                         "e.g. file:///tmp/store): joins a torch.distributed "
-                         "job; every process runs this same command with "
-                         "its own --process-id")
-    ap.add_argument("--num-processes", type=int, default=None,
-                    help="total process count of the multi-process job")
-    ap.add_argument("--process-id", type=int, default=None,
-                    help="this process's rank in [0, num_processes)")
-    ap.add_argument("--local-devices", type=int, default=None,
-                    help="devices per process; one process drives one "
-                         "device, so only 1 is accepted")
+    add_process_flags(ap)
     ap.add_argument("--crosspod-pods", type=int, default=0,
                     help=">=2 splits each batch into that many pod chunks "
                          "and reduces per-pod gradients "
@@ -140,25 +130,11 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     strategy = "fpft" if args.fpft else args.strategy
-    device = resolve_device(args.device)
+    device = join_from_flags(ap, args, resolve_device(args.device))
     if args.coordinator:
-        if args.num_processes is None or args.process_id is None:
-            ap.error("--coordinator requires --num-processes and "
-                     "--process-id")
         import torch.distributed as dist
-
-        from repro_torch.launch.mesh import init_distributed
-        init_distributed(args.coordinator, args.num_processes,
-                         args.process_id,
-                         local_device_count=args.local_devices,
-                         device=device.type)
-        if device.type == "cuda":
-            device = torch.device("cuda", torch.cuda.current_device())
         print(f"distributed: process {dist.get_rank()}/"
               f"{dist.get_world_size()}, {dist.get_backend()} backend")
-    elif args.local_devices is not None and args.local_devices > 1:
-        ap.error("--local-devices: one process drives one device; start "
-                 "one process a device with --coordinator")
     cfg = get_config(args.arch, smoke=args.smoke)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = get_family(cfg).init(cfg, gen, device=device)

@@ -21,7 +21,23 @@ Deliberate differences from JAX: a request that could never be admitted
 ``ValueError`` instead of looping forever; the continuous engine refuses
 the vlm family at construction, where the reference's admits it and then
 fails in its first prefill (its ``_start`` passes no ``vision_embeds``).
-Distributed serving (``mesh=``) is not ported yet.
+
+Both take ``mesh=``, a ``torch.distributed`` ``DeviceMesh`` whose device
+type is the engine's (one process a device, ``launch.mesh``), and both
+``from_train_state`` take a state that a mesh built, DTensor leaves and
+all.  Under a mesh the params are placed by ``dist.shardings``'
+``param_shardings``, as the trainer places them, and gathered to full
+tensors once a ``generate`` or ``run`` call (no copy where a leaf
+replicates, as every leaf does at a model size of 1): the model runs on
+plain tensors, through the kernels, as without a mesh.
+:class:`ServeEngine` splits the batch's rows over the data axes by the
+batch rule (every data rank runs every row where the batch does not
+divide, and for the moe family, whose experts' capacity couples a
+batch's rows), builds its rows' cache whole and gathers the sampled tokens
+over the data axes once at the end, so every rank returns every prompt's
+tokens; the model axis repeats its rows' compute.  The reference splits
+the cache's sequence or state dim over ``model`` and leaves the compute
+to GSPMD (ROADMAP, deliberate differences).
 """
 from __future__ import annotations
 
@@ -35,6 +51,7 @@ from repro_torch.common.device import resolve_device
 from repro_torch.common.pytree import (flatten_with_paths,
                                        unflatten_from_paths)
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import shardings as S
 from repro_torch.models import get_family
 from repro_torch.serve.kv_cache import PagedKVCache
 from repro_torch.serve.scheduler import Scheduler, ServeRequest
@@ -42,6 +59,10 @@ from repro_torch.serve.scheduler import Scheduler, ServeRequest
 PyTree = Any
 
 _PAD_FAMILIES = ("dense", "vlm")   # families whose prefill masks left pad
+# families whose prefill couples a batch's rows: the moe layer's expert
+# capacity is shared by all the batch's tokens, so a rank's rows alone
+# would drop other routes; under a mesh their rows are not split
+_ROW_COUPLED = ("moe",)
 
 
 def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
@@ -67,12 +88,20 @@ NORM_LEAVES = ("scale", "bias")
 
 
 def _place(params: PyTree, device: torch.device, dtype,
-           keep_fp32: tuple = ()) -> PyTree:
+           keep_fp32: tuple = (), mesh=None) -> PyTree:
     """Params on ``device``, floating leaves cast to ``dtype`` — once, here
     — except the norms' ``NORM_LEAVES`` and the leaves named in
     ``keep_fp32`` (the family's ``FP32_LEAVES``: per-head scalars the
-    reference reads in fp32), which stay fp32.  Leaves already in place
-    are shared with the caller, not copied."""
+    reference reads in fp32), which stay fp32.  A DTensor leaf (a state
+    that a mesh built) is gathered to its full tensor first: a collective,
+    which every rank of its mesh runs.  Under ``mesh`` the result is
+    placed by ``param_shardings``, each rank keeping its shard.  Leaves
+    already in place are shared with the caller, not copied."""
+    if mesh is not None and mesh.device_type != device.type:
+        raise ValueError(
+            f"mesh of {mesh.device_type!r} devices for an engine on "
+            f"{device.type!r}; init_distributed(device=...) and the "
+            "engine's device must agree")
     keep_fp32 = NORM_LEAVES + tuple(keep_fp32)
 
     def leaf(path, t):
@@ -80,30 +109,38 @@ def _place(params: PyTree, device: torch.device, dtype,
             return t.to(device)
         keep = path.split("/")[-1] in keep_fp32
         return t.to(device=device, dtype=torch.float32 if keep else dtype)
-    return unflatten_from_paths({path: leaf(path, t) for path, t in
-                                 flatten_with_paths(params).items()})
+    placed = unflatten_from_paths({
+        path: leaf(path, t) for path, t in
+        flatten_with_paths(S.gather(params)).items()})
+    if mesh is None:
+        return placed
+    return S.shard(placed, S.param_shardings(placed, mesh), mesh)
 
 
 class ServeEngine:
     def __init__(self, cfg: ArchConfig, params: PyTree, max_len: int = 512,
                  batch: int = 4, compute_dtype=torch.float32,
-                 sample_fn: Callable = greedy_sample, device="cuda"):
+                 sample_fn: Callable = greedy_sample, device="cuda",
+                 mesh=None):
         self.cfg = cfg
         self.model = get_family(cfg)
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.params = _place(params, self.device, compute_dtype,
-                             getattr(self.model, "FP32_LEAVES", ()))
+                             getattr(self.model, "FP32_LEAVES", ()), mesh)
         self.max_len = max_len
         self.batch = batch
         self.compute_dtype = compute_dtype
         self.sample_fn = sample_fn
 
     @classmethod
-    def from_train_state(cls, cfg: ArchConfig, state, **kw):
+    def from_train_state(cls, cfg: ArchConfig, state, *, mesh=None, **kw):
         """One-call train→serve handoff: pull params out of a TrainState
         (anything with ``.params``), a ``{"params": ...}`` dict or bare
-        params, and stand up an engine."""
-        return cls(cfg, _extract_params(state), **kw)
+        params, and stand up an engine.  ``mesh=None`` serves full tensors
+        on the engine's device (a state that a mesh built is gathered); a
+        mesh places them by the serving rules (at most a reshard)."""
+        return cls(cfg, _extract_params(state), mesh=mesh, **kw)
 
     def generate(self, prompts, max_new_tokens: int = 16,
                  src_embeds: Optional[torch.Tensor] = None
@@ -119,7 +156,9 @@ class ServeEngine:
         family's state has a constant size, so ``max_len`` does not bound
         its generation, as in the reference.  Sampled
         tokens stay on the device and reach the host in one copy at the
-        end."""
+        end.  Under a mesh every rank of it calls this with the same
+        arguments: each runs its data rows and all get every prompt's
+        tokens."""
         if len(prompts) > self.batch:
             raise ValueError(f"{len(prompts)} prompts for batch {self.batch}")
         encdec = self.cfg.family == "encdec"
@@ -155,22 +194,29 @@ class ServeEngine:
         if encdec:
             batch_in["src_embeds"] = torch.as_tensor(src_embeds).to(dev)
             kw["enc_len"] = src_embeds.shape[1]
+        if self.mesh is not None and self.cfg.family not in _ROW_COUPLED:
+            batch_in = S.data_shard(batch_in, self.mesh)
+        rows = batch_in["tokens"].shape[0]
         if xlstm:
-            cache = self.model.init_cache(self.cfg, self.batch, device=dev)
+            cache = self.model.init_cache(self.cfg, rows, device=dev)
         else:
-            cache = self.model.init_cache(self.cfg, self.batch, self.max_len,
+            cache = self.model.init_cache(self.cfg, rows, self.max_len,
                                           dtype=cdt, device=dev, **kw)
-        logits, cache = self.model.prefill(self.cfg, self.params, batch_in,
+        params = S.gather(self.params)     # once a call, freed at its end
+        logits, cache = self.model.prefill(self.cfg, params, batch_in,
                                            cache, self.compute_dtype)
         tok = self.sample_fn(logits[:, -1])
         toks = [tok]
         for _ in range(max_new_tokens - 1):
-            cur = tok.reshape(self.batch, 1).long()
+            cur = tok.reshape(rows, 1).long()
             logits, cache = self.model.decode_step(
-                self.cfg, self.params, cache, cur, self.compute_dtype)
+                self.cfg, params, cache, cur, self.compute_dtype)
             tok = self.sample_fn(logits[:, -1])
             toks.append(tok)
-        all_toks = torch.stack(toks, dim=1).cpu().numpy()   # (B, max_new)
+        toks = torch.stack(toks, dim=1)                    # (rows, max_new)
+        if rows < self.batch:
+            toks = S.data_gather(toks, self.mesh)
+        all_toks = toks.cpu().numpy()                      # (B, max_new)
         return [list(map(int, all_toks[i])) for i in range(len(prompts))]
 
 
@@ -182,13 +228,21 @@ class ContinuousServeEngine:
     (its table width).  Prompts are left-padded up to a power-of-2 multiple
     of ``prefill_bucket``; correctness relies on the pad mask the prefill
     threads through attention, not on the pad content.
+
+    Under ``mesh=`` the params are placed as :class:`ServeEngine` places
+    them and gathered once a :meth:`run` call; every rank runs every slot
+    over its own page pool, as the reference runs this engine without
+    shardings.  The scheduler decides on the sampled tokens alone, which
+    are equal on every rank (the same params, requests and kernels), so
+    the ranks stay in step without a collective.
     """
 
     def __init__(self, cfg: ArchConfig, params: PyTree, *, slots: int = 4,
                  block_size: int = 16, n_blocks: Optional[int] = None,
                  max_blocks_per_slot: Optional[int] = None,
                  prefill_bucket: int = 32, compute_dtype=torch.float32,
-                 sample_fn: Callable = greedy_sample, device="cuda"):
+                 sample_fn: Callable = greedy_sample, device="cuda",
+                 mesh=None):
         if cfg.family != "dense":
             raise ValueError(
                 "continuous batching serves the dense family, not "
@@ -199,7 +253,8 @@ class ContinuousServeEngine:
         self.cfg = cfg
         self.model = get_family(cfg)
         self.device = resolve_device(device)
-        self.params = _place(params, self.device, compute_dtype)
+        self.mesh = mesh
+        self.params = _place(params, self.device, compute_dtype, mesh=mesh)
         self.slots = slots
         self.block_size = block_size
         self.prefill_bucket = prefill_bucket
@@ -222,9 +277,9 @@ class ContinuousServeEngine:
         self.decode_seconds: list[float] = []         # host clock, per step
 
     @classmethod
-    def from_train_state(cls, cfg: ArchConfig, state, **kw):
+    def from_train_state(cls, cfg: ArchConfig, state, *, mesh=None, **kw):
         """Same handoff contract as :meth:`ServeEngine.from_train_state`."""
-        return cls(cfg, _extract_params(state), **kw)
+        return cls(cfg, _extract_params(state), mesh=mesh, **kw)
 
     # -- internals -----------------------------------------------------------
     def _bucket(self, plen: int) -> int:
@@ -239,7 +294,7 @@ class ContinuousServeEngine:
     def _admit(self, slot: int, req: ServeRequest) -> bool:
         return self.cache.admit(slot, self._budget(req))
 
-    def _start(self, slot: int, req: ServeRequest) -> None:
+    def _start(self, slot: int, req: ServeRequest, params: PyTree) -> None:
         """Prefill one admitted request and park it in ``slot``."""
         t0 = time.perf_counter()
         plen = len(req.prompt)
@@ -253,7 +308,7 @@ class ContinuousServeEngine:
                                       device=dev)
         batch_in = {"tokens": toks,
                     "pad": torch.tensor([pad], dtype=torch.int32, device=dev)}
-        logits, cache = self.model.prefill(self.cfg, self.params, batch_in,
+        logits, cache = self.model.prefill(self.cfg, params, batch_in,
                                            cache, self.compute_dtype)
         tok = self.sample_fn(logits[:, -1])
         # (L, 1, bucket, KV, hd) -> the slot's pages
@@ -267,13 +322,13 @@ class ContinuousServeEngine:
             self.scheduler.stats.n_finished += 1
             self.cache.release(slot)
 
-    def _fill(self) -> None:
+    def _fill(self, params: PyTree) -> None:
         while True:
             placed = self.scheduler.fill(self._admit)
             if not placed:
                 break
             for slot, req in placed:
-                self._start(slot, req)
+                self._start(slot, req, params)
             # _start may free slots again (1-token requests) — loop until
             # no placement happens, then decode.
 
@@ -297,13 +352,14 @@ class ContinuousServeEngine:
                     f"{self.cache.allocator.n_usable}")
         for r in requests:
             self.scheduler.submit(r)
-        self._fill()
+        params = S.gather(self.params)     # once a call, freed at its end
+        self._fill(params)
         dev = self.device
         while self.scheduler.has_work:
             t0 = time.perf_counter()
             lengths = self.cache.lengths
             logits, _, _ = self.model.paged_decode_step(
-                self.cfg, self.params, self.cache.k_pool, self.cache.v_pool,
+                self.cfg, params, self.cache.k_pool, self.cache.v_pool,
                 self.cache.block_tables, torch.from_numpy(lengths).to(dev),
                 torch.from_numpy(self.cache.pads).to(dev),
                 torch.from_numpy(self._cur).to(dev), self.compute_dtype)
@@ -318,5 +374,5 @@ class ContinuousServeEngine:
                 self.cache.set_length(slot, int(lengths[slot]) + 1)
             for slot in finished:
                 self.cache.release(slot)
-            self._fill()
+            self._fill(params)
         return requests
