@@ -256,7 +256,14 @@ Phases, one JSON line each:
    tp = 1 equal to ``moe_ffn`` bit for bit at deepseek-moe-16b's width
    (at tp = 1 both run the same whole-range dispatch: the check holds the
    context's path, not the model-axis split, which only the gloo tests
-   reach).  Its fused AdamW launches join row 4's count.
+   reach); then the options the mesh refused before: NF4 fp32 HiFT
+   (kernel 7) and int8 Mixed^Hi HiFT with bf16 moments (kernel 7b) at
+   gpt2-large's full width, each plain and on the mesh, a sweep in turns,
+   losses and resident codes bit-equal and the mesh's launches of rows 7
+   and 7b equal to plain's; ``fpft_streamed`` at full width, 2 steps,
+   params and pinned host moments bit-equal; ``lomo`` and ``adalomo``
+   with ``stream=`` at 2 layers, bit-equal.  Its fused AdamW launches
+   join row 4's count, its dequant launches rows 7's and 7b's.
 22. ``mesh=`` serving at a world of one (``phase_serve_mesh``, run right
    after phase 4's bf16 run, on its tree; ``--only serve_mesh`` builds
    and runs only it, with a tree of its own): ``init_distributed``
@@ -5477,9 +5484,15 @@ def phase_train_dist(torch, cpu=None) -> dict:
        steps bit-equal to the uninterrupted run; deepseek-moe-16b at 2
        layers under the context: ``moe_ffn_spmd`` at tp = 1 equal to
        ``moe_ffn`` bit for bit, and 2 HiFT steps on the mesh equal to 2
-       without.
+       without;
+    d. quantized HiFT at full width on the mesh against plain
+       (``phase_dist_quant``: NF4 through kernel 7, Mixed^Hi + int8
+       through kernel 7b), then ``fpft_streamed`` at full width and
+       ``lomo``/``adalomo`` with ``stream=`` at 2 layers
+       (``phase_dist_stream``), each bit-equal to no mesh.
 
-    Returns the fused updates' launches over the sweeps (a, c)."""
+    Returns the fused updates' launches over the sweeps (b) and the
+    launches of rows 7, 7b and 4 in part d."""
     import tempfile
 
     import torch.distributed as dist
@@ -5614,6 +5627,13 @@ def phase_train_dist(torch, cpu=None) -> dict:
         part("checkpoint")
         phase_dist_moe(torch, mesh, dctx)
         part("moe")
+        # d. the last options the mesh refused: quantized residency
+        # (kernels 7/7b on a sharded step), the streamed strategies
+        for name, n in phase_dist_quant(torch, mesh).items():
+            launches[name] = launches.get(name, 0) + n
+        part("quant")
+        phase_dist_stream(torch, mesh)
+        part("stream")
     finally:
         dist.destroy_process_group()
         tmp.cleanup()
@@ -5777,6 +5797,182 @@ def phase_dist_moe(torch, mesh, dctx) -> None:
     del params, x, got, want
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def phase_dist_quant(torch, mesh) -> dict:
+    """Part (d)(i) of ``phase_train_dist``: gpt2-large at full width (36
+    layers, 4 x 512, HiFT m = ``DIST_M``, AdamW) with quantized residency,
+    fp32 + ``QuantConfig(frozen="nf4")`` (every frozen projection through
+    kernel 7, fp32 x) and then Mixed^Hi + ``QuantConfig(frozen="int8",
+    moments="bf16")`` (kernel 7b, bf16 x), each plain and on the 1x1 mesh
+    from the same params, a step of each in turn for one sweep.  The
+    losses and the resident codes and scales after the sweep must be
+    bit-equal, and the mesh's launches of rows 7 and 7b equal plain's and
+    above 0.  Returns the part's launches of rows 7, 7b and 4."""
+    from repro_torch.common.pytree import flatten_with_paths
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import (HiFTConfig, LRSchedule, QuantConfig,
+                                  make_runner)
+    from repro_torch.dist import shardings as S
+    from repro_torch.kernels import dequant_matmul as DM
+    from repro_torch.optim.mixed_precision import get_policy
+    cfg = get_config("gpt2-large")
+    k = -(-(cfg.n_layers + 2) // DIST_M)
+    batches = train_batches(cfg, 512, 4, k, "cuda")
+    plan = (("fp32", QuantConfig(frozen="nf4")),
+            ("mixed_hi", QuantConfig(frozen="int8", moments="bf16")))
+    rows = {"plain": [], "mesh": []}
+    counts = {name: {"dequant_matmul": 0, "dequant_matmul_bf16": 0,
+                     "fused_adamw": 0} for name in rows}
+    codes_equal = True
+    with UpdateTimer(torch, DM) as dq, UpdateTimer(torch) as timer:
+        for policy, quant in plan:
+            params = fresh_params(torch, cfg)
+            # each runner from its own tensors: the leaves no codec
+            # encodes (1-d, the final norm's) stay the caller's, and the
+            # first update of their group writes them in place on the card
+            runners = {name: make_runner(
+                cfg, "hift", params=params if name == "mesh" else
+                _copy(torch, params), optimizer="adamw",
+                hift=HiFTConfig(m=DIST_M), policy=get_policy(policy),
+                quant=quant, schedule=LRSchedule(base_lr=1e-5),
+                device="cuda", **kw)
+                for name, kw in (("plain", {}), ("mesh", dict(mesh=mesh)))}
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+            for b in batches:
+                for name, r in runners.items():
+                    tc0 = DM.dequant_matmul.launches_tc
+                    dq.take()
+                    row = measured_step(torch, r, b, timer)
+                    _, n = dq.take()
+                    tc = DM.dequant_matmul.launches_tc - tc0
+                    row.update(policy=policy, quant=quant.frozen,
+                               dequant_launches=n - tc,
+                               dequant_launches_tc=tc)
+                    rows[name].append(row)
+                    counts[name]["dequant_matmul"] += n - tc
+                    counts[name]["dequant_matmul_bf16"] += tc
+                    counts[name]["fused_adamw"] += row["update_launches"]
+            plain = flatten_with_paths(runners["plain"].params)
+            meshed = flatten_with_paths(S.local(runners["mesh"].params))
+            same = plain.keys() == meshed.keys() and all(
+                torch.equal(t, meshed[p]) for p, t in plain.items())
+            emit("train_dist_quant_codes", arch=cfg.name, policy=policy,
+                 quant=quant.frozen, leaves=len(plain), bit_equal=same)
+            codes_equal = codes_equal and same
+            del runners, plain, meshed
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch._C._host_emptyCache()
+    ratio = statistics.median(
+        m["host_ms"] / p["host_ms"] for m, p in zip(rows["mesh"],
+                                                    rows["plain"]))
+    losses = {name: [r["loss"] for r in rs] for name, rs in rows.items()}
+    emit("train_dist_quant", arch=cfg.name, n_layers=cfg.n_layers,
+         m=DIST_M, batch=4, seq=512, mesh={"data": 1, "model": 1},
+         plan=[f"{pol}/{q.frozen}/{q.moments or 'fp32'}" for pol, q in plan],
+         mesh_losses=losses["mesh"], plain_losses=losses["plain"],
+         step_ms=[r["host_ms"] for r in rows["mesh"]],
+         plain_step_ms=[r["host_ms"] for r in rows["plain"]],
+         median_step_ratio=ratio, codes_bit_equal=codes_equal,
+         launches=counts)
+    if losses["mesh"] != losses["plain"] or not codes_equal:
+        raise RuntimeError(f"quantized HiFT on the 1x1 mesh left the plain "
+                           f"run: {losses}, codes equal {codes_equal}")
+    for kernel in ("dequant_matmul", "dequant_matmul_bf16"):
+        if counts["mesh"][kernel] != counts["plain"][kernel] or \
+                not counts["mesh"][kernel]:
+            raise RuntimeError(f"{kernel}: {counts['mesh'][kernel]} "
+                               f"launches on the mesh, "
+                               f"{counts['plain'][kernel]} plain")
+    return {kernel: counts["plain"][kernel] + counts["mesh"][kernel]
+            for kernel in counts["mesh"]}
+
+
+def phase_dist_stream(torch, mesh) -> None:
+    """Part (d)(ii) of ``phase_train_dist``: gpt2-large ``fpft_streamed``
+    (fp32, AdamW, 64 MiB chunks, depth 3, 2 steps) plain and on the 1x1
+    mesh from the same params, the params and the pinned host moments
+    bit-equal; then ``lomo`` and ``adalomo`` with ``stream=`` at 2 layers
+    of its width, plain and on the mesh, 2 steps, bit-equal."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import LRSchedule, StreamConfig, make_runner
+    from repro_torch.dist import shardings as S
+    cfg = get_config("gpt2-large")
+    batches = train_batches(cfg, 512, 4, 2, "cuda")
+    params = fresh_params(torch, cfg)
+    kw = dict(optimizer="adamw", schedule=LRSchedule(base_lr=1e-5),
+              device="cuda", stream_window=STREAM_WINDOW,
+              pipeline_depth=STREAM_DEPTH)
+    runners = {"mesh": make_runner(cfg, "fpft_streamed",
+                                   params=_copy(torch, params), mesh=mesh,
+                                   **kw),
+               "plain": make_runner(cfg, "fpft_streamed", params=params,
+                                    **kw)}
+    del params
+    out = {name: [] for name in runners}
+    for b in batches:
+        for name, r in runners.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = float(r.train_step(b))
+            torch.cuda.synchronize()
+            out[name].append(dict(loss=loss, host_ms=1e3 * (
+                time.perf_counter() - t0)))
+    plain, meshed = runners["plain"], runners["mesh"]
+    bad = (_host_trees_unequal(torch, plain.params, S.local(meshed.params))
+           + _host_trees_unequal(torch, plain.opt_state,
+                                 S.local(meshed.opt_state)))
+    stats = dataclasses.asdict(meshed.strategy.stream_stats)
+    pinned = all(t.is_pinned() for t in _leaves(S.local(meshed.opt_state))
+                 if t.is_floating_point())
+    emit("train_dist_stream", arch=cfg.name, n_layers=cfg.n_layers,
+         mesh={"data": 1, "model": 1}, stream_window=STREAM_WINDOW,
+         depth=STREAM_DEPTH,
+         mesh_losses=[x["loss"] for x in out["mesh"]],
+         plain_losses=[x["loss"] for x in out["plain"]],
+         step_ms=[x["host_ms"] for x in out["mesh"]],
+         plain_step_ms=[x["host_ms"] for x in out["plain"]],
+         unequal_leaves=bad, moments_pinned=pinned, stream_stats=stats,
+         plain_stream_stats=dataclasses.asdict(plain.strategy.stream_stats))
+    if bad or not pinned or [x["loss"] for x in out["mesh"]] != \
+            [x["loss"] for x in out["plain"]]:
+        raise RuntimeError(f"fpft_streamed on the 1x1 mesh left the plain "
+                           f"run: {out}, unequal {bad[:4]}, pinned {pinned}")
+    del runners, plain, meshed
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch._C._host_emptyCache()
+    cut = dataclasses.replace(cfg, n_layers=2)
+    batches = train_batches(cut, 512, 4, 2, "cuda")
+    for strategy in ("lomo", "adalomo"):
+        params = fresh_params(torch, cut)
+        got = {}
+        for name, extra in (("mesh", dict(mesh=mesh)), ("plain", {})):
+            r = make_runner(cut, strategy, params=params if name == "plain"
+                            else _copy(torch, params),
+                            schedule=LRSchedule(base_lr=1e-5),
+                            stream=StreamConfig(), device="cuda", **extra)
+            losses = [float(r.train_step(b)) for b in batches]
+            torch.cuda.synchronize()
+            got[name] = (losses, S.gather(r.params), r.opt_state)
+        bad = _host_trees_unequal(torch, got["plain"][1], got["mesh"][1])
+        if strategy == "adalomo":
+            bad += _host_trees_unequal(torch,
+                                       got["plain"][2]["moments"],
+                                       S.gather(got["mesh"][2]["moments"]))
+        emit("train_dist_stream_fused", arch=cut.name, n_layers=2,
+             strategy=strategy, mesh_losses=got["mesh"][0],
+             plain_losses=got["plain"][0], unequal_leaves=bad)
+        if bad or got["mesh"][0] != got["plain"][0]:
+            raise RuntimeError(f"{strategy} stream= on the 1x1 mesh left the "
+                               f"plain run: {got['mesh'][0]} "
+                               f"{got['plain'][0]}, unequal {bad[:4]}")
+        del got, params
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------- mesh= serving

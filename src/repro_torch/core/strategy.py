@@ -73,14 +73,24 @@ overrides the param rule).  A step gathers the params it reads to full
 tensors, runs the forward and backward on the rank's rows of the batch,
 takes the mean of each gradient over the data axes, and keeps the rank's
 shard of it for the update, which runs on local shards (the fused update
-kernels included).  The grouped strategies keep their resident tree
-replicated, as the reference does; the active group's bundle is sharded
-over ``model``.  ``mezo``, ``lomo`` and ``adalomo`` step on the gathered
-tree (every rank draws the same noise, reduces each gradient over the data
-axes as soon as it exists) and keep their shards.  Each step opens the
-activation context (``dist.ctx``), so the moe layer takes its
-expert-parallel path.  On a mesh of one rank a step computes exactly what
-it computes with no mesh.
+kernels included).  An optimizer whose update couples a leaf's elements
+or all leaves (``adafactor``, any ``grad_clip``) updates whole tensors
+under a model axis above 1 instead: FPFT gathers the params and the state
+and keeps each rank's shard of the result, a grouped strategy keeps the
+bundle whole.  The grouped strategies keep their resident tree
+replicated, as the reference does, codec records included; the active
+group's bundle is sharded over ``model``.  Under quantized residency the
+in-step specs are those of the dense tree the active records decode to:
+the forward runs on the gathered master, and the updated master is
+gathered before it is re-encoded, so the codes are the whole leaf's.
+``fpft_streamed`` streams the rank's shards of its moments, held in
+pinned host memory on the host mesh; ``lomo``/``adalomo`` with
+``stream=`` move each segment's shards through their window.  ``mezo``,
+``lomo`` and ``adalomo`` step on the gathered tree (every rank draws the
+same noise, reduces each gradient over the data axes as soon as it
+exists) and keep their shards.  Each step opens the activation context
+(``dist.ctx``), so the moe layer takes its expert-parallel path.  On a
+mesh of one rank a step computes exactly what it computes with no mesh.
 """
 from __future__ import annotations
 
@@ -108,7 +118,8 @@ from repro_torch.dist import ctx as dctx
 from repro_torch.dist import shardings as S
 from repro_torch.dist.compress import compress_decompress, init_residuals
 from repro_torch.dist.quant import (QUANT_FORMATS, dequantize_tree,
-                                    quantize_tree, tree_logical_size)
+                                    is_quantized, quant_shape, quantize_tree,
+                                    tree_logical_size)
 from repro_torch.models import get_family
 from repro_torch.models.base import (LomoPieces, layer_at, stack_len,
                                      unit_first_depth)
@@ -471,29 +482,29 @@ class Strategy:
         self._token_mean_loss = loss_fn is None
         self.device = resolve_device(device)
         if mesh is not None:
-            self._check_mesh(optimizer)
+            self._check_mesh()
 
     # ------------------------------------------------------------ sharding
 
-    def _check_mesh(self, optimizer) -> None:
-        """Refuse what the sharded step does not cover."""
+    def _check_mesh(self) -> None:
+        """The mesh's devices must be the strategy's: every option of the
+        reference runs under a mesh here too."""
         mesh = self.mesh
         if mesh.device_type != self.device.type:
             raise ValueError(
                 f"mesh of {mesh.device_type!r} devices for a strategy on "
                 f"{self.device.type!r}; init_distributed(device=...) and "
                 "make_runner(device=...) must agree")
-        if self.quant is not None and self.quant.frozen:
-            raise NotImplementedError(
-                "quant.frozen under mesh= is not ported: the codec records "
-                "of the resident tree have no placement rule yet")
-        if S.model_size(mesh) > 1 and optimizer is not None and (
-                optimizer.name == "adafactor" or optimizer.grad_clip):
-            raise NotImplementedError(
-                f"optimizer {optimizer.name!r} under a model axis > 1: its "
-                "update couples a leaf's elements (factored moments, a "
-                "global-norm clip) and runs on local shards here; use "
-                "adamw/sgd/sgdm/adagrad without grad_clip")
+
+    @property
+    def _coupled_update(self) -> bool:
+        """True when the update must see whole tensors: a model axis above
+        1 and an optimizer that couples a leaf's elements (Adafactor's
+        factored moments) or all leaves (a global-norm clip)."""
+        opt = self.optimizer
+        return (self.mesh is not None and S.model_size(self.mesh) > 1
+                and opt is not None
+                and (opt.name == "adafactor" or bool(opt.grad_clip)))
 
     def param_shardings(self, tree: PyTree) -> PyTree:
         """The spec tree (``dist.shardings``) a params-shaped tree takes in
@@ -728,12 +739,16 @@ class _GroupedStrategy(Strategy):
 
     def _train_group(self, gi: int, active: PyTree, frozen: PyTree,
                      bundle: PyTree, batch, lr: float,
-                     local: Callable = lambda tree: tree):
-        """One group's step on full ``active``/``frozen`` trees.  Under a
-        mesh ``bundle`` holds the rank's shards (its ``"ef"`` the full
-        residuals) and ``local(tree)`` takes the rank's shard of a tree
-        shaped like ``active``: the gradients and the params are cut to it
-        before the update, which runs on shards."""
+                     local: Callable = lambda tree: tree,
+                     full: Callable = lambda tree: tree):
+        """One group's step on full ``active``/``frozen`` trees; returns
+        the full updated active tree.  Under a mesh ``bundle`` holds the
+        rank's shards (its ``"ef"`` the full residuals), ``local(tree)``
+        takes the rank's shard of a tree shaped like the group's dense
+        params and ``full(tree)`` gathers such shards back: the gradients
+        and the params are cut before the update, which runs on shards,
+        and the master the forward reads and the updated params are
+        gathered."""
         group = self.groups[gi]
         cut = self._cut(group)
         cfg, opt, policy = self.cfg, self.optimizer, self.policy
@@ -744,36 +759,51 @@ class _GroupedStrategy(Strategy):
 
         qf = self._quant_frozen
         # under quantized residency the active group computes from its
-        # master (the frozen records stay encoded; the forward multiplies
-        # through their views)
-        work = active if qf is None else tree_cast(bundle["master"],
+        # whole master (the frozen records stay encoded; the forward
+        # multiplies through their views)
+        work = active if qf is None else tree_cast(full(bundle["master"]),
                                                    policy.param_dtype)
         grads, ef, loss = self._grads(loss_of, work, batch, bundle.get("ef"))
         grads = local(grads)
         ef = {"ef": ef} if "ef" in bundle else {}
         if "master" in bundle:
             # grads are w.r.t. the working params; the fp32 master takes the
-            # update and the resident slice its cast (re-encoded if quant)
+            # update and the resident slice its cast, re-encoded if quant
+            # from the whole leaf (a shard's bounds would cut scale tiles)
             new_master, new_st = opt.update(grads, bundle["opt"],
                                             bundle["master"], lr)
-            new_active = tree_cast(new_master, policy.param_dtype)
+            new_active = full(tree_cast(new_master, policy.param_dtype))
             if qf is not None:
                 new_active = quantize_tree(new_active, qf)
             return new_active, {"opt": new_st, "master": new_master,
                                 **ef}, loss
         new_active, new_st = opt.update(grads, bundle["opt"], local(active),
                                         lr)
-        return new_active, {"opt": new_st, **ef}, loss
+        return full(new_active), {"opt": new_st, **ef}, loss
 
-    def _bundle_specs(self, bundle: PyTree, active: PyTree,
+    def _step_specs(self, active: PyTree) -> tuple[PyTree, dict]:
+        """``(specs, shapes)`` of the active group in a sharded step: the
+        param rule (or ``param_sharding_fn``) on the dense tree the group
+        trains — under quantized residency the master-shaped tree its
+        records decode to, as meta tensors — and its global shapes by path.
+        Every leaf replicates where the update couples elements
+        (``_coupled_update``): the bundle stays whole."""
+        dense = tree_map(
+            lambda r: torch.empty(quant_shape(r), dtype=r["t"].dtype,
+                                  device="meta") if is_quantized(r) else r,
+            active, is_leaf=is_quantized)
+        specs = (S.replicated(dense, self.mesh) if self._coupled_update
+                 else self.param_shardings(dense))
+        return specs, {p: tuple(t.shape) for p, t in
+                       flatten_with_paths(dense).items()}
+
+    def _bundle_specs(self, bundle: PyTree, shapes: dict,
                       a_specs: PyTree) -> PyTree:
         """A bundle's specs: its moments and master mirror the active
-        group's in-step specs, its ``"ef"`` the same shifted past the pods
-        dim."""
-        return S.mirror_specs(
-            bundle, {p: tuple(t.shape) for p, t in
-                     flatten_with_paths(active).items()},
-            flatten_with_paths(a_specs), self.mesh)
+        group's in-step specs (``_step_specs``), its ``"ef"`` the same
+        shifted past the pods dim."""
+        return S.mirror_specs(bundle, shapes, flatten_with_paths(a_specs),
+                              self.mesh)
 
     def _group_step(self, state: TrainState, batch, gi: int, lr: float,
                     next_gis: Optional[list] = None):
@@ -795,32 +825,32 @@ class _GroupedStrategy(Strategy):
             bundle = pipe.fetch(key, stored)
         else:
             bundle = device_put(stored, self.device)
-        local = lambda tree: tree      # noqa: E731
+        local = full = lambda tree: tree      # noqa: E731
         if mesh is not None:
-            a_specs = self.param_shardings(active)
-            shapes = {p: tuple(t.shape) for p, t in
-                      flatten_with_paths(active).items()}
+            a_specs, shapes = self._step_specs(active)
             if not _any_sharded(bundle):
                 # a new bundle, or a restored host one: shard it
                 bundle = S.shard(bundle,
-                                 self._bundle_specs(bundle, active, a_specs),
+                                 self._bundle_specs(bundle, shapes, a_specs),
                                  mesh)
             like = bundle
             bundle = S.local(bundle)
             if "ef" in like:
                 bundle["ef"] = S.gather(like["ef"])
             local = lambda tree: S.local_tree(tree, a_specs, mesh)  # noqa
+            # shards back to full tensors (a replicated leaf's own tensor:
+            # at a model size of 1 nothing is copied)
+            full = lambda tree: S.gather(  # noqa: E731
+                S.wrap_tree(tree, a_specs, shapes, mesh))
         with self._ctx():
             new_active, new_bundle, loss = self._train_group(
-                gi, active, frozen, bundle, batch, lr, local=local)
+                gi, active, frozen, bundle, batch, lr, local=local,
+                full=full)
         if mesh is not None:
             ef = new_bundle.pop("ef", None)
             new_bundle = S.rewrap(new_bundle, like)
             if ef is not None:
                 new_bundle["ef"] = S.reshard_like(ef, like["ef"])
-            # the updated shards back to the full (replicated) resident
-            new_active = S.gather(S.wrap_tree(new_active, a_specs, shapes,
-                                              mesh))
         if pipe is not None and next_gis:
             # the step above is enqueued, not done: start the coming
             # groups' uploads now so they run beside its compute (depth-1
@@ -1048,11 +1078,12 @@ class FPFTStrategy(Strategy):
         extra = state.extra
         res = (extra or {}).get("ef_residual")
         params = state.params
+        whole = params if mesh is None else S.gather(params)
         with self._ctx():
             grads, new_res, loss = self._grads(
                 lambda p, rows: self.loss_fn(cfg, p, rows,
                                              compute_dtype=dtype),
-                params if mesh is None else S.gather(params), batch,
+                whole, batch,
                 res if mesh is None or res is None else S.gather(res))
         if res is not None:
             extra = dict(extra)
@@ -1060,6 +1091,13 @@ class FPFTStrategy(Strategy):
         if mesh is None:
             params, opt_state = self._update(params, grads, state.opt_state,
                                              lr)
+        elif self._coupled_update:
+            # the update couples elements across shards: it runs on the
+            # whole params and state, and each rank keeps its shard
+            new_p, new_o = self._update(whole, grads,
+                                        S.gather(state.opt_state), lr)
+            params = S.reshard_like(new_p, params)
+            opt_state = S.reshard_like(new_o, state.opt_state)
         else:
             grads = S.local_tree(grads, S.specs_of(params), mesh)
             new_p, new_o = self._update(S.local(params), grads,
@@ -1099,18 +1137,22 @@ class StreamedFPFTStrategy(FPFTStrategy):
     chunk (small leaves) moves piece by piece.  On the CPU the step is
     pure, as the reference's.  Scalar state (AdamW's ``count``) rides
     every chunk call and keeps the last one's value — each chunk sees the
-    same pre-step count, as the resident update does."""
+    same pre-step count, as the resident update does.
+
+    Under ``mesh=`` the params take FPFT's placements and the moments are
+    the rank's shards, mirroring the params' specs, held pinned as
+    DTensors on the host mesh; a step builds its layout over the rank's
+    local params and streams their chunks.  The reference chunks the
+    global tree and splits each window over ``model``
+    (``chunk_window_shardings``); the update is elementwise, so both give
+    the same values (ROADMAP, deliberate differences).  The state stays
+    checkpoint-interchangeable with ``fpft`` under the same mesh."""
 
     name = "fpft_streamed"
     memory_mode = "fpft_streamed"
 
     def __init__(self, cfg, optimizer, *, stream: Optional[StreamConfig] = None,
                  **kw):
-        if kw.get("mesh") is not None:
-            raise NotImplementedError(
-                "fpft_streamed under mesh=: the chunk stream over DTensor "
-                "shards (the reference's chunk_window_shardings) is not "
-                "ported; use fpft")
         super().__init__(cfg, optimizer, **kw)
         self.stream = stream if stream is not None else StreamConfig()
         if not getattr(optimizer, "stream_safe", False):
@@ -1148,47 +1190,77 @@ class StreamedFPFTStrategy(FPFTStrategy):
         keys = sorted(streamed)
         return dict(zip(keys, pinned_trees([streamed[k] for k in keys])))
 
+    def _on_host_mesh(self, host: dict, params: PyTree) -> dict:
+        """Under a mesh, pinned trees of the rank's shards as DTensors on
+        the host mesh (``dist.shardings.host_mesh``), each leaf with the
+        placements and global shape of ``params``' leaf at its path; the
+        trees as they are without a mesh."""
+        if self.mesh is None:
+            return host
+        flat_p = flatten_with_paths(params)
+
+        def one(path, t):
+            ref = flat_p[path]
+            return S.wrap(t, S.host_mesh(ref.device_mesh),
+                          tuple(ref.placements), ref.shape)
+
+        return {key: unflatten_from_paths({
+            p: one(p, t) for p, t in flatten_with_paths(tree).items()})
+            for key, tree in host.items()}
+
     def init(self, params: PyTree, rng=None) -> TrainState:
         if self.device.type == "cpu":
             return super().init(params)    # host_put is the identity here
         params = self._place(params)
         if self.policy.name == "bf16":
             params = tree_cast(params, self.policy.param_dtype)
+        extra = {}
+        if self._cross_pod_on and self.cross_pod.compress:
+            extra["ef_residual"] = init_residuals(params, self.cross_pod.pods)
+        # under a mesh the params and residuals take FPFT's placements and
+        # the moments are made for the rank's shards
+        state = self._sharded(TrainState(params, {}, 0, extra))
+        own = S.local(state.params)
         # the card: the moment trees' layout from an init on meta tensors,
         # then each leaf's state made on the device and copied into its
         # pinned view, so no device copy of a whole moment tree exists
         meta = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
-                                              device="meta"), params)
+                                              device="meta"), own)
         streamed, resident = self._split_state(self.optimizer.init(meta),
                                                meta)
         host = self._pinned(streamed)
         views = {k: flatten_with_paths(t) for k, t in host.items()}
-        for path, leaf in flatten_with_paths(params).items():
+        for path, leaf in flatten_with_paths(own).items():
             one = {"x": leaf}
-            state, _ = self._split_state(self.optimizer.init(one), one)
+            st, _ = self._split_state(self.optimizer.init(one), one)
             for key, view in views.items():
-                view[path].copy_(state[key]["x"], non_blocking=True)
-        extra = {}
-        if self._cross_pod_on and self.cross_pod.compress:
-            extra["ef_residual"] = init_residuals(params, self.cross_pod.pods)
-        return TrainState(params, {**resident, **host}, 0, extra)
+                view[path].copy_(st[key]["x"], non_blocking=True)
+        return dataclasses.replace(state, opt_state={
+            **resident, **self._on_host_mesh(host, state.params)})
 
     def place_state(self, state: TrainState) -> TrainState:
         """As :meth:`Strategy.place_state`, with the streamed moment trees
-        in one pinned buffer on the card."""
+        in one pinned buffer on the card (under a mesh the rank's shards,
+        on the host mesh)."""
         streamed, resident = self._split_state(state.opt_state, state.params)
+        card = self.device.type == "cuda"
+        if card:
+            streamed = _gathered(streamed)
         placed = super().place_state(dataclasses.replace(
-            state, opt_state=resident if self.device.type == "cuda"
-            else state.opt_state))
-        if self.device.type == "cpu":
+            state, opt_state=resident if card else state.opt_state))
+        if not card:
             return placed
+        if self.mesh is not None:
+            specs = S.specs_of(placed.params)
+            streamed = {key: S.local_tree(tree, specs, self.mesh)
+                        for key, tree in streamed.items()}
         host = self._pinned(streamed)
         for key, tree in host.items():
             src = flatten_with_paths(streamed[key])
             for path, view in flatten_with_paths(tree).items():
                 view.copy_(src[path])
-        return dataclasses.replace(placed,
-                                   opt_state={**placed.opt_state, **host})
+        return dataclasses.replace(placed, opt_state={
+            **placed.opt_state, **self._on_host_mesh(host, placed.params)})
 
     def _streamed_update(self, params: PyTree, grads: PyTree,
                          opt_state: PyTree, lr: float):
@@ -1843,7 +1915,8 @@ class _FusedBackwardStrategy(Strategy):
     """Shared machinery of ``lomo`` and ``adalomo``: the one-time
     ``lomo_pieces`` resolution (fused path or segment fallback, and the
     fused grain the memory accounting reads), the gradient-residency
-    accounting, and the opt-in segment streaming.
+    accounting, and the opt-in segment streaming (under ``mesh=`` each
+    segment's shards move through the window, and the step gathers them).
 
     On the card a step updates the params (and AdaLomo's moments) in
     place; on the CPU it updates copies and leaves its input state
@@ -1863,10 +1936,6 @@ class _FusedBackwardStrategy(Strategy):
         # fused backward has no frozen tree to encode, no moment tree to
         # narrow and no whole-gradient tree to reduce
         super().__init__(cfg, optimizer, **kw)
-        if stream is not None and self.mesh is not None:
-            raise NotImplementedError(
-                f"{self.name} stream= under mesh=: the segment window over "
-                "DTensor shards is not ported")
         loss_fn = kw.get("loss_fn")
         self._fused = loss_fn is None and hasattr(self.model, "lomo_pieces")
         self._pieces = None

@@ -342,16 +342,19 @@ def rewrap(local_tree: PyTree, like: PyTree) -> PyTree:
 def reshard_like(full: PyTree, like: PyTree) -> PyTree:
     """Full tensors -> DTensors with the mesh and placements of ``like``'s
     leaf at the same path (each rank keeps its slice; plain where ``like``
-    is plain)."""
+    is plain).  A device tensor shaped like a host-resident leaf lands on
+    the device mesh (:func:`device_mesh_of`)."""
     flat_like = flatten_with_paths(like)
 
     def one(path, t):
         ref = flat_like.get(path)
         if not isinstance(ref, DTensor):
             return t
-        spec = tuple(ref.placements)
-        loc = local_slice(t, spec, ref.device_mesh).contiguous()
-        return wrap(loc, ref.device_mesh, spec, ref.shape)
+        spec, mesh = tuple(ref.placements), ref.device_mesh
+        if t.device.type != mesh.device_type:
+            mesh = device_mesh_of(mesh)
+        loc = local_slice(t, spec, mesh).contiguous()
+        return wrap(loc, mesh, spec, ref.shape)
 
     return unflatten_from_paths({p: one(p, t) for p, t in
                                  flatten_with_paths(full).items()})

@@ -18,6 +18,18 @@ amplifies that near zero.  Cross-pod HiFT with AdamW is held to the AdamW
 bounds: its int8 codec can round a value the other way after such a
 difference.  MeZO is held to the unsharded port only: its noise is the
 port's generator, not ``jax.random`` (ROADMAP, deliberate differences).
+
+Quantized residency is held by its fp32 masters (5e-3) and its resident
+codes: a code may move only to an adjacent code, at <= 0.1 % of a leaf's
+entries (``tests/test_torch_crosspod.py``'s rule for a gradient a few ulps
+off).  Under Mixed^Hi the gradients are bf16: each data rank rounds its
+half-batch gradient to bf16 before the reduce, so the 2x2 run drifts from
+the unsharded one by bf16 ulps, as Mixed^Hi without a codec does (losses
+2.2e-3 apart after 7 steps at this size); it is held to one bf16 ulp at
+1.0 (2^-8) in its losses and to 5e-3 in its masters, and again on a
+(data=1, model=4) mesh, where no data split rounds the gradients and the
+model-sharded update, the gathered re-encode and the codes must equal the
+unsharded run's bit for bit.
 """
 import json
 import os
@@ -37,6 +49,8 @@ from repro.configs.base import ArchConfig as JArchConfig
 from repro.core import CrossPodConfig as JCrossPodConfig
 from repro.core import HiFTConfig as JHiFTConfig
 from repro.core import LRSchedule as JLRSchedule
+from repro.core import QuantConfig as JQuantConfig
+from repro.core import StreamConfig as JStreamConfig
 from repro.core import make_runner as jax_make_runner
 from repro.models import moe as JM
 from repro.models import transformer as JT
@@ -45,9 +59,17 @@ _REPO = Path(__file__).resolve().parent.parent
 WORLD = 4
 
 LINEAR = {"hift_sgd", "fpft_sgd", "mezo", "lomo", "fpft_crosspod",
-          "hift_sgd_masked", "fpft_sgd_masked", "lomo_masked"}
+          "hift_sgd_masked", "fpft_sgd_masked", "lomo_masked", "lomo_stream"}
 ADAPTIVE = {"hift_adamw", "fpft_adamw", "adalomo", "hift_crosspod", "lisa",
-            "hift_pipelined"}
+            "hift_pipelined", "hift_nf4", "hift_pipelined_nf4", "lisa_nf4",
+            "fpft_streamed",
+            "adalomo_stream", "fpft_adafactor", "hift_adafactor",
+            "fpft_adamw_clip"}
+# bf16 gradients (Mixed^Hi) on the 2x2 mesh; the same case on 1x4
+BF16 = {"hift_int8_mixed"}
+EXACT = {"hift_int8_mixed/1x4"}
+QUANT = ("hift_nf4", "hift_pipelined_nf4", "lisa_nf4",
+         "hift_int8_mixed/1x4")
 
 
 def _moe_cfg():
@@ -89,7 +111,7 @@ def _masked_labels(labels):
 
 JAX_CASES = ("hift_sgd", "hift_adamw", "fpft_sgd", "fpft_adamw", "lomo",
              "adalomo", "fpft_crosspod", "hift_sgd_masked", "fpft_sgd_masked",
-             "lomo_masked")
+             "lomo_masked", "hift_nf4", "fpft_streamed", "fpft_adafactor")
 # the JAX runner's steps held against the sharded run's first ones (HiFT:
 # the embed, layer 0 and layer 1 groups, each a compile of its own)
 JAX_STEPS = 3
@@ -145,6 +167,14 @@ _JAX_KW = {
     "fpft_crosspod": ("fpft", dict(
         optimizer="sgd", schedule=JLRSchedule(1e-2),
         cross_pod=JCrossPodConfig(pods=2, compress=True))),
+    "hift_nf4": ("hift", dict(optimizer="adamw", schedule=JLRSchedule(1e-3),
+                              hift=JHiFTConfig(m=1),
+                              quant=JQuantConfig(frozen="nf4"))),
+    "fpft_streamed": ("fpft_streamed", dict(
+        optimizer="adamw", schedule=JLRSchedule(1e-3),
+        stream=JStreamConfig(chunk_bytes=1 << 13))),
+    "fpft_adafactor": ("fpft", dict(optimizer="adafactor",
+                                    schedule=JLRSchedule(1e-3))),
 }
 
 
@@ -162,12 +192,50 @@ def _jax_losses(cfg, params, batch, name):
     return [float(runner.train_step(b)) for _ in range(JAX_STEPS)]
 
 
-@pytest.mark.parametrize("name", sorted(LINEAR | ADAPTIVE))
+@pytest.mark.parametrize("name", sorted(LINEAR | ADAPTIVE | BF16 | EXACT))
 def test_sharded_matches_unsharded(ranks, name):
     got = ranks[0][name]
-    ltol, ptol = (1e-4, 1e-4) if name in LINEAR else (1e-3, 5e-3)
+    if name in EXACT:
+        assert got["sharded"] == got["plain"]
+        assert got["dparams"] == 0.0
+        return
+    ltol, ptol = ((1e-4, 1e-4) if name in LINEAR else
+                  (2.0 ** -8, 5e-3) if name in BF16 else (1e-3, 5e-3))
     np.testing.assert_allclose(got["sharded"], got["plain"], atol=ltol)
     assert got["dparams"] < ptol, got["dparams"]
+
+
+@pytest.mark.parametrize("name", QUANT)
+def test_quantized_residency_on_the_mesh(ranks, name):
+    """The resident codes after the run: a code moves only to an adjacent
+    one, at <= 0.1 % of a leaf's entries (on 1x4: none moves), and the
+    active group's bundle holds model-sharded leaves."""
+    got = ranks[0][name]
+    codes = got["codes"]
+    assert codes["records"] > 0
+    assert codes["max_code_step"] <= 1, codes
+    assert codes["max_changed_frac"] <= 1e-3, codes
+    if name in EXACT:
+        assert codes["max_code_step"] == 0, codes
+    assert got["sharded_opt_leaves"] > 0
+
+
+def test_streamed_moments_are_model_sharded(ranks):
+    """fpft_streamed's host moments are the rank's shards (and so are
+    the params); the coupled optimizers still shard the params."""
+    assert ranks[0]["fpft_streamed"]["sharded_opt_leaves"] > 0
+    for name in ("fpft_adafactor", "fpft_adamw_clip", "lomo_stream",
+                 "adalomo_stream"):
+        assert ranks[0][name]["sharded_leaves"] > 0, name
+
+
+def test_fpft_streamed_state_continues_in_fpft_on_the_mesh(ranks):
+    """A sharded ``fpft_streamed`` state saved under the mesh restores into
+    a mesh-built ``fpft`` runner, and the next step is bit-equal."""
+    for r in ranks:
+        c = r["ckpt_streamed"]
+        assert c["losses"][0] == c["losses"][1]
+        assert c["dparams"] == 0.0 and c["dopt"] == 0.0
 
 
 # the strategies the reference's sharded workers hold; the others are held
@@ -196,7 +264,7 @@ def test_the_mesh_shards_and_the_ranks_agree_bitwise(ranks):
     assert ranks[0]["fpft_adamw"]["sharded_leaves"] > 0
     assert ranks[0]["hift_adamw"]["sharded_leaves"] > 0
     for r in ranks[1:]:
-        for name in LINEAR | ADAPTIVE:
+        for name in LINEAR | ADAPTIVE | BF16 | EXACT:
             assert r[name]["sharded"] == ranks[0][name]["sharded"], name
             assert r[name]["digest"] == ranks[0][name]["digest"], name
 
@@ -224,7 +292,8 @@ def test_checkpoint_gathers_sharded_leaves_and_resumes_in_lockstep(
 
 
 @pytest.mark.parametrize("name", ["hift_adamw", "fpft_adamw", "adalomo",
-                                  "fpft_crosspod"])
+                                  "fpft_crosspod", "hift_nf4",
+                                  "fpft_streamed"])
 def test_elastic_restore_onto_1x4_and_4x1(ranks, name):
     res = ranks[0][f"elastic/{name}"]
     tol = 1e-4 if name == "fpft_crosspod" else 1e-3
@@ -361,7 +430,8 @@ def _stub_mesh(**sizes):
     return SimpleNamespace(mesh_dim_names=tuple(sizes),
                            mesh=torch.zeros(tuple(sizes.values())),
                            axis_names=tuple(sizes),
-                           devices=np.zeros(tuple(sizes.values())))
+                           devices=np.zeros(tuple(sizes.values())),
+                           device_type="cpu")
 
 
 def _dims(spec, mesh, ndim):
@@ -436,3 +506,95 @@ def test_placement_rules_match_the_reference(monkeypatch, sizes):
         flatten_with_paths(specs), mesh))
     want = flatten_with_paths(S.bundle_shardings(bundle, mesh))
     assert mirrored == want
+
+
+def _tiny_torch_params():
+    import torch
+
+    from repro_torch.configs.base import ArchConfig
+    from repro_torch.models import get_family
+    cfg = ArchConfig(name="tiny", family="dense", n_layers=4, d_model=64,
+                     n_heads=4, kv_heads=2, d_ff=128, vocab=256, block_q=16,
+                     block_k=16, ce_chunk=0)
+    return cfg, get_family(cfg).init(cfg, torch.Generator().manual_seed(0),
+                                     device="cpu")
+
+
+def _numpy_like(tree):
+    from repro_torch.common.pytree import (flatten_with_paths,
+                                           unflatten_from_paths)
+    return unflatten_from_paths({p: np.zeros(tuple(t.shape)) for p, t in
+                                 flatten_with_paths(tree).items()})
+
+
+def _same_specs(got, want, like, mesh):
+    from repro_torch.common.pytree import flatten_with_paths
+    got, want = flatten_with_paths(got), flatten_with_paths(want)
+    for path, t in flatten_with_paths(like).items():
+        assert _dims(got[path], mesh, t.ndim) == \
+            _ref_dims(want[path], t.ndim), path
+
+
+@pytest.mark.parametrize("sizes", [dict(data=2, model=2),
+                                   dict(data=4, model=1),
+                                   dict(data=1, model=4)])
+def test_record_and_quantized_bundle_placements_match_the_reference(
+        monkeypatch, sizes):
+    """The param and replicated rules on int8 and NF4 record trees (the
+    zero-size templates included) equal the reference's leaf for leaf, and
+    the quantized grouped step's bundle specs (the param rule on the dense
+    tree the records decode to, mirrored into the master and moments)
+    equal the reference's ``bundle_shardings`` of the same bundle, for
+    every group."""
+    from repro.dist import shardings as JS
+    from repro_torch.core import HiFTConfig, QuantConfig, make_strategy
+    from repro_torch.core import split_params
+    from repro_torch.dist import shardings as S
+    from repro_torch.dist.quant import quantize_tree
+    from repro_torch.optim import make_optimizer
+    monkeypatch.setattr(JS, "NamedSharding", lambda mesh, spec: spec)
+    mesh = _stub_mesh(**sizes)
+    cfg, params = _tiny_torch_params()
+    for fmt in ("int8", "nf4"):
+        records = quantize_tree(params, fmt)
+        jrecords = _numpy_like(records)
+        _same_specs(S.param_shardings(records, mesh),
+                    JS.param_shardings(jrecords, mesh), records, mesh)
+        _same_specs(S.replicated(records, mesh),
+                    JS.replicated(jrecords, mesh), records, mesh)
+        strategy = make_strategy("hift", cfg, make_optimizer("adamw"),
+                                 device="cpu", mesh=mesh,
+                                 hift=HiFTConfig(m=1),
+                                 quant=QuantConfig(frozen=fmt))
+        for group in strategy.groups:
+            active, _ = split_params(records, group)
+            bundle = strategy._init_bundle(active)
+            specs, shapes = strategy._step_specs(active)
+            _same_specs(strategy._bundle_specs(bundle, shapes, specs),
+                        JS.bundle_shardings(_numpy_like(bundle), mesh),
+                        bundle, mesh)
+
+
+def test_no_mesh_refusal_is_left():
+    """Every option the reference runs under a mesh constructs under one
+    with a model axis of 2: quantized residency in the grouped
+    strategies, the streamed strategies, and the coupled optimizers."""
+    from repro_torch.core import (LiSAConfig, QuantConfig, StreamConfig,
+                                  make_strategy)
+    from repro_torch.optim import make_optimizer
+    mesh = _stub_mesh(data=2, model=2)
+    cfg, _ = _tiny_torch_params()
+    adamw = make_optimizer("adamw")
+    nf4 = dict(quant=QuantConfig(frozen="nf4"))
+    built = [make_strategy(name, cfg, opt, device="cpu", mesh=mesh, **kw)
+             for name, opt, kw in (
+                 ("hift", adamw, nf4), ("hift_pipelined", adamw, nf4),
+                 ("lisa", adamw, dict(nf4, lisa=LiSAConfig(m=1))),
+                 ("fpft_streamed", adamw, {}),
+                 ("lomo", None, dict(stream=StreamConfig())),
+                 ("adalomo", None, dict(stream=StreamConfig())),
+                 ("fpft", make_optimizer("adafactor"), {}),
+                 ("hift", make_optimizer("adafactor"), {}),
+                 ("fpft", make_optimizer("adamw", grad_clip=1.0), {}))]
+    assert [s._coupled_update for s in built[-3:]] == [True] * 3
+    assert not any(s._coupled_update for s in built[:-3])

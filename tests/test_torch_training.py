@@ -235,13 +235,8 @@ def test_unported_options_raise():
     _, cfg = _cfgs("llama2-7b")
     params = bridge.to_torch(_np_params("llama2-7b"))
     # mesh= and cross_pod= are ported (tests/test_torch_distributed.py,
-    # tests/test_torch_crosspod.py); what is left of them raises
-    with pytest.raises(NotImplementedError, match="fpft_streamed under "
-                                                  "mesh="):
-        make_runner(cfg, "fpft_streamed", params=params, device="cpu",
-                    optimizer="sgd", mesh=object())
-    # the pipeline and the stream are ported; a stream window still
-    # applies to fpft_streamed only
+    # tests/test_torch_crosspod.py); the pipeline and the stream are
+    # ported; a stream window still applies to fpft_streamed only
     with pytest.raises(ValueError, match="does not apply to 'hift'"):
         make_runner(cfg, "hift", params=params, device="cpu",
                     stream_window=1 << 20)

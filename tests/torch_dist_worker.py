@@ -9,10 +9,13 @@ tests/sharded_worker.py and the params and batch in INPUTS (an .npz the
 parent wrote from the JAX package's init):
 
 - every strategy unsharded and on the mesh (losses, final params
-  gathered), cross-pod FPFT among them; three of them again on a batch
-  whose data ranks hold different numbers of labelled targets
-  (``MASKED``);
-- a checkpoint of a sharded FPFT state and a lockstep resume;
+  gathered), cross-pod FPFT among them; quantized residency (NF4, int8
+  under Mixed^Hi: the masters, the resident codes' distance), streamed
+  FPFT and streamed LOMO/AdaLomo, Adafactor and a global-norm clip under
+  the model axis; three of them again on a batch whose data ranks hold
+  different numbers of labelled targets (``MASKED``);
+- a checkpoint of a sharded FPFT state and a lockstep resume; a sharded
+  ``fpft_streamed`` state restored into a mesh-built ``fpft`` runner;
 - the elastic resize: 3 steps on 2x2, then ``restore_state(strategy=)``
   onto 1x4 and 4x1;
 - expert-parallel moe on the mesh against ``moe_ffn`` on the rank's data
@@ -38,7 +41,10 @@ from repro_torch import bridge  # noqa: E402
 from repro_torch.common.pytree import flatten_with_paths  # noqa: E402
 from repro_torch.configs.base import ArchConfig  # noqa: E402
 from repro_torch.core import (AdaLomoConfig, CrossPodConfig,  # noqa: E402
-                              HiFTConfig, LiSAConfig, LRSchedule, make_runner)
+                              HiFTConfig, LiSAConfig, LRSchedule, QuantConfig,
+                              StreamConfig, make_runner)
+from repro_torch.dist.quant import is_quantized, unpack_nf4  # noqa: E402
+from repro_torch.optim import get_policy, make_optimizer  # noqa: E402
 from repro_torch.data.synthetic import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.dist import shardings as S  # noqa: E402
 from repro_torch.launch.mesh import init_distributed, mesh_from_spec  # noqa
@@ -81,7 +87,10 @@ def _full(tree):
 
 def _diff(a, b):
     fa, fb = _full(a), _full(b)
-    return max(float((fa[p] - fb[p]).abs().max()) for p in fa)
+    assert fa.keys() == fb.keys()
+    # a codec record's zero-size template holds no value
+    return max(float((fa[p] - fb[p]).abs().max()) for p in fa
+               if fa[p].numel())
 
 
 def _digest(tree):
@@ -93,6 +102,10 @@ def _digest(tree):
         h.update(t.contiguous().numpy().tobytes())
     return h.hexdigest()
 
+
+# fpft_streamed's chunk bytes: the rank's shards of the tiny params make
+# dozens of chunks
+STREAM_CHUNK = 1 << 13
 
 CASES = {
     "hift_sgd": ("hift", dict(optimizer="sgd", schedule=LRSchedule(1e-2),
@@ -117,12 +130,102 @@ CASES = {
     "hift_pipelined": ("hift_pipelined", dict(optimizer="adamw",
                                               schedule=LRSchedule(1e-3)),
                        "k+1"),
+    "hift_nf4": ("hift", dict(optimizer="adamw", schedule=LRSchedule(1e-3),
+                              hift=HiFTConfig(m=1),
+                              quant=QuantConfig(frozen="nf4")), "k+1"),
+    "hift_int8_mixed": ("hift", dict(
+        optimizer="adamw", schedule=LRSchedule(1e-3), hift=HiFTConfig(m=1),
+        policy=get_policy("mixed_hi"),
+        quant=QuantConfig(frozen="int8", moments="bf16")), "k+1"),
+    "hift_pipelined_nf4": ("hift_pipelined", dict(
+        optimizer="adamw", schedule=LRSchedule(1e-3),
+        quant=QuantConfig(frozen="nf4")), "k+1"),
+    "lisa_nf4": ("lisa", dict(optimizer="adamw", schedule=LRSchedule(1e-3),
+                              lisa=LiSAConfig(m=1, switch_every=1),
+                              quant=QuantConfig(frozen="nf4")), 3),
+    "fpft_streamed": ("fpft_streamed", dict(
+        optimizer="adamw", schedule=LRSchedule(1e-3),
+        stream=StreamConfig(chunk_bytes=STREAM_CHUNK)), 3),
+    "lomo_stream": ("lomo", dict(schedule=LRSchedule(1e-2),
+                                 stream=StreamConfig()), 3),
+    "adalomo_stream": ("adalomo", dict(schedule=LRSchedule(1e-3),
+                                       stream=StreamConfig()), 3),
+    "fpft_adafactor": ("fpft", dict(optimizer="adafactor",
+                                    schedule=LRSchedule(1e-3)), 3),
+    "hift_adafactor": ("hift", dict(optimizer="adafactor",
+                                    schedule=LRSchedule(1e-3),
+                                    hift=HiFTConfig(m=1)), "k+1"),
+    "fpft_adamw_clip": ("fpft", dict(
+        optimizer=make_optimizer("adamw", grad_clip=1.0),
+        schedule=LRSchedule(1e-3)), 3),
 }
 
 
 # cases run again on the masked batch (``<case>_masked``): the loss is a
 # mean over labelled targets, which the data ranks hold in unequal numbers
 MASKED = ("hift_sgd", "fpft_sgd", "lomo")
+# cases run again on a (data=1, model=4) mesh (``<case>/1x4``): every rank
+# differentiates the whole batch, so bf16 gradients round as the
+# unsharded run's do and the model-sharded update is held bit for bit
+MODEL_ONLY = ("hift_int8_mixed",)
+
+
+def _model_sharded(tree) -> int:
+    """The DTensor leaves of ``tree`` that shard a dim."""
+    return sum(isinstance(t, S.DTensor) and any(
+        isinstance(p, S.Shard) for p in t.placements)
+        for t in flatten_with_paths(tree).values())
+
+
+def _records(tree) -> dict:
+    """{path: record} of the codec records of a (gathered) param tree."""
+    out = {}
+
+    def walk(node, path):
+        if is_quantized(node):
+            out[path] = node
+        elif isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{path}/{k}" if path else k)
+
+    walk(S.gather(tree), "")
+    return out
+
+
+def _code_index(rec) -> torch.Tensor:
+    """A record's codes as integers on the codebook's scale (NF4 nibbles
+    unpacked)."""
+    q = rec["q"]
+    if q.dtype == torch.int8:
+        return q.to(torch.int64)
+    return unpack_nf4(q, rec["t"].shape[-1]).to(torch.int64)
+
+
+def _codes(plain, shard) -> dict:
+    """How far the mesh run's resident codes lie from the plain run's:
+    the largest code distance and the largest share of a leaf's entries
+    that differ."""
+    a, b = _records(plain), _records(shard)
+    step, frac = 0, 0.0
+    for path, rec in a.items():
+        d = (_code_index(rec) - _code_index(b[path])).abs()
+        step = max(step, int(d.max()))
+        frac = max(frac, float((d > 0).float().mean()))
+    return {"records": len(a), "max_code_step": step,
+            "max_changed_frac": frac}
+
+
+def _masters(state) -> dict:
+    """The bundles' fp32 masters and the params' unencoded leaves,
+    gathered: what a quantized run's params are held by."""
+    tree = S.gather(state.to_tree())
+    out = {f"m/{gi}/{p}": t for gi, b in tree["opt_state"].items()
+           for p, t in flatten_with_paths(b["master"]).items()}
+    recs = _records(state.params)
+    out.update({f"p/{p}": t for p, t in flatten_with_paths(
+        tree["params"]).items() if not any(p.startswith(r + "/")
+                                           for r in recs)})
+    return out
 
 
 def compare(cfg, params, batch, masked, mesh, out):
@@ -134,14 +237,33 @@ def compare(cfg, params, batch, masked, mesh, out):
                             mesh=mesh, **kw)
         n = plain.k + 1 if n == "k+1" else n
         lp = _steps(plain, [batch] * n)
-        ls = _steps(shard, [batch] * n)
-        sharded = sum(isinstance(t, S.DTensor) and any(
-            isinstance(p, S.Shard) for p in t.placements)
-            for t in flatten_with_paths(shard.state.to_tree()).values())
-        out[name] = {"plain": lp, "sharded": ls,
-                     "dparams": _diff(plain.params, shard.params),
-                     "digest": _digest(shard.params),
-                     "sharded_leaves": int(sharded)}
+        out[name] = _held(plain, shard, _steps(shard, [batch] * n), lp,
+                          "quant" in kw)
+        if name in MODEL_ONLY:
+            shard = make_runner(cfg, strategy, params=params, device="cpu",
+                                mesh=mesh_from_spec("1x4"), **kw)
+            out[f"{name}/1x4"] = _held(plain, shard,
+                                       _steps(shard, [batch] * n), lp,
+                                       "quant" in kw)
+
+
+def _held(plain, shard, ls, lp, quant) -> dict:
+    """What a case is held by: the losses, the params' (or under quant the
+    masters' and the codes') distance from the unsharded run, the params'
+    digest and the model-sharded leaves."""
+    out = {"plain": lp, "sharded": ls, "digest": _digest(shard.params),
+           "sharded_leaves": _model_sharded(shard.state.to_tree()),
+           "sharded_opt_leaves": _model_sharded(shard.state.opt_state)}
+    if quant:
+        # the params are codes: the masters are held, and the codes by
+        # their distance
+        mp, ms = _masters(plain.state), _masters(shard.state)
+        out["dparams"] = max(float((mp[p].float() - ms[p].float()).abs()
+                                   .max()) for p in mp)
+        out["codes"] = _codes(plain.params, shard.params)
+    else:
+        out["dparams"] = _diff(plain.params, shard.params)
+    return out
 
 
 def checkpoint(cfg, params, batch, mesh, out, root):
@@ -156,6 +278,19 @@ def checkpoint(cfg, params, batch, mesh, out, root):
     r2.load_state_dict(restored.to_tree())
     out["ckpt"] = {"pre": pre, "gathered_leaves": int(gathered),
                    "resumed": _steps(r, [batch]) + _steps(r2, [batch])}
+    # a sharded fpft_streamed state continues in a mesh-built fpft runner
+    strategy, skw, _ = CASES["fpft_streamed"]
+    r = make_runner(cfg, strategy, params=params, mesh=mesh, device="cpu",
+                    **skw)
+    _steps(r, [batch] * 2)
+    d = Path(root) / "ckpt_streamed"
+    ckpt.save_state(d, 2, r.state)
+    r2 = make_runner(cfg, "fpft", params=params, mesh=mesh, **kw)
+    r2.state = ckpt.restore_state(d, 2, strategy=r2.strategy)
+    out["ckpt_streamed"] = {
+        "losses": _steps(r, [batch]) + _steps(r2, [batch]),
+        "dparams": _diff(r.params, r2.params),
+        "dopt": _diff(r.state.opt_state, r2.state.opt_state)}
 
 
 ELASTIC = {
@@ -167,6 +302,11 @@ ELASTIC = {
                                 adalomo=AdaLomoConfig())),
     "fpft_crosspod": ("fpft", dict(optimizer="sgd", schedule=LRSchedule(1e-2),
                                    cross_pod=CrossPodConfig(2, True))),
+    "hift_nf4": ("hift", dict(optimizer="adamw", schedule=LRSchedule(1e-3),
+                              hift=HiFTConfig(m=1, strategy="random",
+                                              seed=3),
+                              quant=QuantConfig(frozen="nf4"))),
+    "fpft_streamed": CASES["fpft_streamed"][:2],
 }
 
 
